@@ -11,6 +11,10 @@ conditioning (counterpart of the JAX package's ``models/unet.py``).
 - conditioning bias: cond channels linearly resized to the stage length, then
   a 1x1 projection; downsample avg-pool 2, decoder nearest x2 -> pad/crop ->
   skip concat -> ConvBlock; zero-initialised final conv on ``[h | x_t]``.
+- with ``use_attention``, pre-norm multi-head self-attention after the
+  bottleneck (:class:`BottleneckAttention`) through
+  :func:`ops.kernels.flash_attention`: the Hopper kernel on a GPU at every
+  bottleneck length, its plain version on the CPU.
 
 Activations flow channels-last (B, L, C) in the compute ``dtype`` (bf16 for
 the flagship), parameters stay float32 and the output is float32; the public
@@ -26,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import conv3_same, fused_conv_gn_silu
+from ..ops.kernels import (conv3_same, flash_attention, fused_conv_gn_silu,
+                           group_norm)
 from ..utils.device import resolve_device
 
 
@@ -114,6 +119,42 @@ class ConvBlock(nn.Module):
                                   self.norm.scale, self.norm.bias, self.groups)
 
 
+class BottleneckAttention(nn.Module):
+    """Pre-norm multi-head self-attention over the sequence axis of a
+    (B, L, C) tensor, with a residual add (JAX ``BottleneckAttention``).
+
+    ``min(num_heads, C // 32)`` heads (one below C 32), lowered until they
+    divide C; GroupNorm(gcd(8, C), eps 1e-5) in f32, cast to the activation
+    type; Dense ``qkv`` (C -> 3C) split as q | k | v; attention per head;
+    zero-initialised Dense ``proj``."""
+
+    def __init__(self, ch: int, num_heads: int = 4, dtype=None, device=None):
+        super().__init__()
+        heads = max(1, min(num_heads, ch // 32 if ch >= 32 else 1))
+        while ch % heads:
+            heads -= 1
+        self.heads = heads
+        self.groups = _num_groups(ch)
+        self.norm = _GNParams(ch, device)
+        self.qkv = Dense(ch, 3 * ch, dtype, device)
+        self.proj = Dense(ch, ch, dtype, device)
+        with torch.no_grad():
+            self.proj.kernel.zero_()
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        B, L, C = h.shape
+        x = group_norm(h, self.groups, self.norm.scale,
+                       self.norm.bias).to(h.dtype)
+
+        def split_heads(a):
+            return (a.reshape(B, L, self.heads, C // self.heads)
+                    .transpose(1, 2).contiguous())
+
+        q, k, v = (split_heads(a) for a in self.qkv(x).chunk(3, dim=-1))
+        out = flash_attention(q, k, v).transpose(1, 2).reshape(B, L, C)
+        return h + self.proj(out)
+
+
 def _resize_linear(x: torch.Tensor, new_len: int) -> torch.Tensor:
     """Linear resize along axis 1 of (B, L, C) at half-pixel centres, no
     antialiasing (equal to ``F.interpolate(mode='linear',
@@ -164,11 +205,6 @@ class UNet1D(nn.Module):
                  use_attention: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        if use_attention:
-            raise NotImplementedError(
-                "use_attention=True needs BottleneckAttention and the "
-                "flash_attention kernel, which the next slice of the port "
-                "brings")
         if kernel != 3:
             raise ValueError(f"the fused ConvBlock kernel supports kernel "
                              f"size 3, got {kernel}")
@@ -191,6 +227,10 @@ class UNet1D(nn.Module):
         if cond_ch > 0:
             self.cond_mid = Dense(cond_ch, chs[-1], dtype, device)
         self.tproj_mid = Dense(base_ch, 2 * chs[-1], dtype, device)
+        self.use_attention = use_attention
+        if use_attention:
+            self.mid_attn = BottleneckAttention(chs[-1], dtype=dtype,
+                                                device=device)
         h_ch = chs[-1]
         for i, skip_ch in enumerate(reversed(chs)):
             self.add_module(f"dec{i}", ConvBlock(h_ch + skip_ch, skip_ch, device))
@@ -245,6 +285,8 @@ class UNet1D(nn.Module):
 
         h = self.mid(h)
         h = film(cond_bias(h, "cond_mid"), "tproj_mid")
+        if self.use_attention:
+            h = self.mid_attn(h)
 
         for i in range(self.depth):
             skip = skips[-(i + 1)]

@@ -7,16 +7,23 @@ from .conv_gn_silu import (
     conv3_same,
     fused_conv_gn_silu,
     fused_conv_gn_silu_reference,
+    group_norm,
 )
+from .flash_attention import flash_attention, flash_attention_reference
+
+_WRAPPERS = {"conv_gn_silu": fused_conv_gn_silu,
+             "flash_attention": flash_attention}
 
 
 def reset_launch_counts() -> None:
-    fused_conv_gn_silu.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"conv_gn_silu": fused_conv_gn_silu.launches}
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
-__all__ = ["conv3_same", "fused_conv_gn_silu", "fused_conv_gn_silu_reference",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["conv3_same", "flash_attention", "flash_attention_reference",
+           "fused_conv_gn_silu", "fused_conv_gn_silu_reference",
+           "group_norm", "launch_counts", "reset_launch_counts"]

@@ -4,7 +4,8 @@ Each source compiles with ``nvcc`` into its own shared library with a plain C
 interface, loaded with ``ctypes``; nothing includes PyTorch's headers, so a
 build takes seconds.  The library's file name carries a digest of the source
 and the flags, so an edited source is rebuilt and an unchanged one is loaded
-as built.  Libraries go to ``_build/`` inside the package (listed in
+as built.  :func:`build_all` compiles every source at once, one ``nvcc``
+process each.  Libraries go to ``_build/`` inside the package (listed in
 ``.gitignore``); the compiler's resource report (``-Xptxas -v``) is kept
 beside each library as ``<library>.log``.
 
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -53,25 +54,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _compile(names: List[str]) -> Dict[str, str]:
+    """Start one ``nvcc`` per source in ``names``, all at once, wait for all
+    of them, and return ``{name: compiler report}``.  Raises with the output
+    of every build that failed."""
+    if not names:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = Path(f"{tmp}.log")
+        with open(log, "w") as f:   # a file, not a pipe: no build can block
+            proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                     str(CSRC / f"{name}.cu")],
+                                    stdout=f, stderr=subprocess.STDOUT)
+        jobs[name] = (proc, out, tmp, log)
+    reports, failed = {}, []
+    for name, (proc, out, tmp, log) in jobs.items():
+        rc = proc.wait()
+        reports[name] = log.read_text()
+        if rc != 0:
+            failed.append(f"{name} (nvcc exit {rc}):\n{reports[name]}")
+            continue
+        os.replace(log, f"{out}.log")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return reports
+
+
 def build(name: str) -> Optional[str]:
     """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
     compiler's report, or None when the library was already built.  Raises
     with the compiler's output when the build fails."""
-    out = library_path(name)
-    if out.exists():
+    if library_path(name).exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    Path(f"{out}.log").write_text(proc.stdout)
-    os.replace(tmp, out)
-    return proc.stdout
+    return _compile([name])[name]
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every ``csrc/*.cu`` that is not built yet, one ``nvcc`` each,
+    all started together.  Returns ``{name: compiler report}`` of the
+    sources built by this call."""
+    return _compile([p.stem for p in sorted(CSRC.glob("*.cu"))
+                     if not library_path(p.stem).exists()])
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,6 +27,19 @@ def conv3_same(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return xcat @ W.reshape(3 * Cin, -1) + b
 
 
+def group_norm(y: torch.Tensor, groups: int, scale: torch.Tensor,
+               bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of channels-last ``y (B, L, C)`` over (L, C / groups) per
+    sample, then the affine, all in f32 (flax ``GroupNorm``'s arithmetic)."""
+    y = y.float()
+    B, L, C = y.shape
+    yg = y.reshape(B, L, groups, C // groups)
+    mean = yg.mean(dim=(1, 3), keepdim=True)
+    var = ((yg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    h = ((yg - mean) / torch.sqrt(var + eps)).reshape(B, L, C)
+    return h * scale.float() + bias.float()
+
+
 def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
                                  eps: float = 1e-5):
     """Plain version: x (B, L, Cin); W (3, Cin, Cout); b, gn_scale, gn_bias
@@ -35,12 +48,7 @@ def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
     (L, Cout / groups) per sample, the affine, SiLU, and a cast to x's dtype
     (JAX ``fused_conv_gn_silu_reference``)."""
     y = conv3_same(x.float(), W.to(x.dtype).float(), b.float())
-    B, L, C = y.shape
-    yg = y.reshape(B, L, groups, C // groups)
-    mean = yg.mean(dim=(1, 3), keepdim=True)
-    var = ((yg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
-    h = ((yg - mean) / torch.sqrt(var + eps)).reshape(B, L, C)
-    h = h * gn_scale.float() + gn_bias.float()
+    h = group_norm(y, groups, gn_scale, gn_bias, eps)
     return (h * torch.sigmoid(h)).to(x.dtype)
 
 

@@ -1,0 +1,96 @@
+"""Flash attention: non-causal ``softmax(Q K^T / sqrt(D)) V`` on (B, H, L, D).
+
+Counterpart of ``ops/pallas/attention.py`` in the JAX package.  The kernel is
+hand-written CUDA for Hopper (``csrc/flash_attention.cu``, which states what
+bounds it and how it is laid out); this module holds its plain PyTorch
+version and the wrapper.  The wrapper runs the plain version for a tensor on
+the CPU and the kernel for a tensor on a CUDA device; anything else, or an
+input the kernel does not take, raises.  Any L >= 1 is taken: the kernel
+masks its own ragged edge.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+MAX_HEAD_DIM = 256   # MAX_D of csrc/flash_attention.cu: its widest template
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """Plain version (JAX ``flash_attention_reference``): scores in f32,
+    softmax over keys in f32, the probabilities cast to v's dtype, then
+    ``p @ v`` in v's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return p @ v
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_forward.argtypes is None:
+        lib.flash_attention_forward.argtypes = _ARGTYPES
+        lib.flash_attention_forward.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v):
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, H, L, D), got shape {tuple(q.shape)}")
+    for name, a in (("k", k), ("v", v)):
+        if a.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, q "
+                             f"{tuple(q.shape)}")
+    B, H, L, D = q.shape
+    if not 1 <= B * H <= 65535 or L < 1 or D < 1:
+        raise ValueError(f"unsupported shape (B, H, L, D) = {(B, H, L, D)}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dimension {D} > {MAX_HEAD_DIM}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.dtype != q.dtype:
+            raise TypeError(f"{name} is {a.dtype}, q {q.dtype}")
+        if a.device != q.device:
+            raise ValueError(f"{name} is on {a.device}, q on {q.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Attention of q, k, v (B, H, L, D), f32 or bf16, contiguous; returns
+    (B, H, L, D) in q's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check(q, k, v)
+    B, H, L, D = q.shape
+    lib = _lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
+            L, D, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention launch failed: "
+                           + lib.flash_attention_error_string(rc).decode())
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

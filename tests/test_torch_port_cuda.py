@@ -1,5 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the fused
-ConvBlock kernel against its plain version on the card.
+ConvBlock kernel and the flash-attention kernel against their plain versions
+on the card, and the U-Net's kernel path against its plain path.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -11,6 +12,8 @@ import torch
 
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+    flash_attention,
+    flash_attention_reference,
     fused_conv_gn_silu,
     fused_conv_gn_silu_reference,
 )
@@ -24,6 +27,8 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU (sm_90a) and the CUDA toolkit")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain attention's bf16 p @ v accumulates in f32, as the kernel does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -78,6 +83,68 @@ def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
         got = model(x, t)
         monkeypatch.setattr(unet, "fused_conv_gn_silu",
                             fused_conv_gn_silu_reference)
+        want = model(x, t)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-4   # f32: summation order through five blocks
+
+
+# flash attention, kernel against plain version.  f32: the same sums in
+# another order, and exp2 of log2-scaled scores.  bf16: both round P to bf16
+# (the kernel before normalising, the plain version after) and round the
+# output, so an output may differ by a few bf16 ulps (2^-8 relative each).
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=2 ** -6, atol=2e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,D", [(2, 4, 512, 64), (1, 2, 300, 32),
+                                     (2, 2, 1000, 128), (1, 3, 77, 65),
+                                     (1, 1, 200, 256), (1, 2, 1, 16)])
+def test_flash_attention_matches_plain_version(cuda, dtype, B, H, L, D):
+    g = torch.Generator(device=cuda).manual_seed(L + D)
+    q, k, v = (torch.randn(B, H, L, D, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = flash_attention_reference(q, k, v)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(1, 2, 64, 32, device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    wide = torch.randn(1, 1, 16, 320, device=cuda)
+    with pytest.raises(ValueError, match="head dimension"):
+        flash_attention(wide, wide, wide)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(strided, q, q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :32].contiguous(), q)
+    assert flash_attention.launches == before
+
+
+def test_attention_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
+    model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
+                        cond_in_ch=5, use_selfcond=True, use_attention=True,
+                        device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g, device=cuda))
+        x = torch.randn(2, 7, 1000, generator=g, device=cuda)
+        t = torch.tensor([10, 900], device=cuda)
+        before = flash_attention.launches
+        got = model(x, t)
+        assert flash_attention.launches == before + 1
+        monkeypatch.setattr(unet, "fused_conv_gn_silu",
+                            fused_conv_gn_silu_reference)
+        monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
         want = model(x, t)
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4   # f32: summation order through five blocks

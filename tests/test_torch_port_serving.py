@@ -151,10 +151,12 @@ def test_port_runs_without_jax():
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops import sampling, schedules
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference, serving
-        m = UNet1D(in_ch=7, base_ch=8, time_dim=16, depth=2, cond_in_ch=5,
-                   device="cpu")
-        with torch.no_grad():
-            assert m(torch.randn(1, 7, 64), torch.tensor([5])).shape == (1, 1, 64)
+        for attn in (False, True):
+            m = UNet1D(in_ch=7, base_ch=8, time_dim=16, depth=2, cond_in_ch=5,
+                       use_attention=attn, device="cpu")
+            with torch.no_grad():
+                out = m(torch.randn(1, 7, 64), torch.tensor([5]))
+            assert out.shape == (1, 1, 64)
         x = sampling.ddim_sample(m, schedules.make_schedule(100),
                                  torch.randn(1, 5, 64),
                                  sampling.SamplerConfig(steps=2),

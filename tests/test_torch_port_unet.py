@@ -84,12 +84,6 @@ def test_layout_rule_matches_jax():
         assert unet.UNet1D(**kw, base_ch=8, depth=1, device="cpu")._layout() == want
 
 
-def test_use_attention_raises():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        unet.UNet1D(in_ch=7, base_ch=16, depth=2, use_attention=True,
-                    device="cpu")
-
-
 @pytest.mark.parametrize("L,new_len", [(256, 128), (256, 64), (333, 166),
                                        (90, 30), (64, 100)])
 def test_resize_linear_matches_jax_and_interpolate(L, new_len):
