@@ -11,7 +11,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              line); TF32 and bf16 reduced-precision reductions are switched
              off for every comparison.
 2. build   - compiles every CUDA source of the port with nvcc, one process
-             per source, all at once.
+             per source, all at once; reports the build's time, ptxas's
+             registers and spills, and whether each library's SASS holds
+             wgmma (``HGMMA``, read with ``cuobjdump -sass``).
 3. kernel  - K1, the fused ConvBlock kernel, against its plain PyTorch
              version at every ConvBlock shape of pn128 (bf16 at 64 rows, the
              serving batch, and 128 rows; f32 at 128 rows) and of attn16k
@@ -20,7 +22,10 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              f32, and at a ragged L and other head widths.  Each with its
              time, the plain version's, a PyTorch yardstick's (``F.conv1d ->
              F.group_norm -> F.silu``; ``F.scaled_dot_product_attention``)
-             and the roofline bound.
+             and the roofline bound.  K1's records also carry the conv
+             route, TFLOP/s, the two-pass floor (the bound plus y's f32
+             write and read) and one call's device time split into pack /
+             conv / stats / apply (``torch.profiler``).
 4. model   - each flagship U-Net in f32 with seeded random weights: the
              kernel path (its launches counted) against the same module
              through the plain versions.
@@ -40,6 +45,8 @@ device, or without the port's package beside it, it exits non-zero before
 printing any result.
 """
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -137,25 +144,32 @@ def convblock_shapes(model, L):
     return out
 
 
-K1_KERNELS = ("conv3_bias_stats", "group_stats", "gn_affine_silu")
+# K1's kernels by pass: the weight pack, the conv (either bf16 route or
+# f32), the group statistics, the normalise + affine + SiLU
+K1_PASSES = {"pack": "pack_weights", "conv": "conv3_", "stats": "group_stats",
+             "apply": "gn_affine_silu"}
+K1_KERNELS = tuple(K1_PASSES.values())
 K2_KERNELS = ("flash_fwd",)
 TRACES = Path(__file__).resolve().parent / "traces"
 
 
 def device_breakdown(trace_path, wall_us):
     """Device time of a profiled run by group (K1's kernels, K2's, matrix
-    products, the rest), its top kernels, and the share of the run's wall
-    time in which no kernel, copy or memset ran."""
+    products, the rest), K1's by pass, its top kernels, and the share of the
+    run's wall time in which no kernel, copy or memset ran."""
     events = json.loads(trace_path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     by_name, groups = {}, {"k1": 0.0, "k2": 0.0, "matmul": 0.0, "other": 0.0}
+    k1_passes = dict.fromkeys(K1_PASSES, 0.0)
     for e in dev:
         name, dur = e["name"], float(e["dur"])
         by_name[name] = by_name.get(name, 0.0) + dur
         low = name.lower()
         if any(k in name for k in K1_KERNELS):
             groups["k1"] += dur
+            part = next(p for p, k in K1_PASSES.items() if k in name)
+            k1_passes[part] += dur
         elif any(k in name for k in K2_KERNELS):
             groups["k2"] += dur
         elif "gemm" in low or "nvjet" in low or "xmma" in low:
@@ -176,14 +190,39 @@ def device_breakdown(trace_path, wall_us):
     return {"device_ms": total / 1e3, "wall_ms": wall_us / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us,
             "share": {k: v / total for k, v in groups.items()},
+            "k1_pass_ms": {k: v / 1e3 for k, v in k1_passes.items()},
             "n_device_events": len(dev),
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+
+
+def k1_split_ms(torch, fn, reps=3):
+    """Device ms of one call of ``fn`` by K1 pass, from ``torch.profiler``
+    over ``reps`` calls; "not measured" when the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(K1_PASSES, 0.0)
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0))
+        for part, key in K1_PASSES.items():
+            if key in e.key:
+                split[part] += us / reps / 1e3
+    if not any(split.values()):
+        return "not measured"
+    return split
 
 
 def phase_kernel(torch, config, shapes, dtypes_rows):
     import torch.nn.functional as F
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        conv_route,
         fused_conv_gn_silu,
         fused_conv_gn_silu_reference,
     )
@@ -219,19 +258,25 @@ def phase_kernel(torch, config, shapes, dtypes_rows):
             p_ms = cuda_ms(torch, lambda: fused_conv_gn_silu_reference(
                 x, W, b, s, bb, G), 3)
             l_ms = cuda_ms(torch, library, 5)
+            split = k1_split_ms(
+                torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G))
             esize = x.element_size()
             nbytes = (x.numel() * esize + W.numel() * 4 + 3 * Cout * 4
                       + rows * L * Cout * esize)
+            y_bytes = 8 * rows * L * Cout      # y written and read in f32
             flops = 2.0 * rows * L * 3 * Cin * Cout
             t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
             rec = {"phase": "kernel", "kernel": "conv_gn_silu",
-                   "config": config, "block": name,
+                   "config": config, "block": name, "route": conv_route(x),
                    "rows": rows, "L": L, "Cin": Cin, "Cout": Cout,
                    "dtype": dname, "max_abs_err": max_err, "rtol": rtol,
                    "atol": atol, "n_outside_tol": bad, "kernel_ms": k_ms,
                    "plain_ms": p_ms, "library_ms": l_ms,
                    "bound_ms": 1e3 * max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                   "two_pass_floor_ms": 1e3 * max(
+                       (nbytes + y_bytes) / PEAK_BYTES, t_ops),
+                   "tflops": flops / (k_ms * 1e9), "split_ms": split,
                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
             emit(rec)
             results.append(rec)
@@ -505,13 +550,14 @@ def kernels_line(k1, k2, launches):
                 and r["dtype"] == "bfloat16" and r["rows"] == path["rows"]]
         k1_paths[config] = {
             key: sum(r[key] for r in recs)
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                        "two_pass_floor_ms")}
         k1_paths[config]["ops_bound_ms"] = sum(
             r["bound_ms"] for r in recs if r["bound_by"] == "operations")
         k1_paths[config]["max_abs_err"] = max(r["max_abs_err"] for r in recs)
     k1_total = {key: sum(p[key] for p in k1_paths.values())
                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                            "ops_bound_ms")}
+                            "ops_bound_ms", "two_pass_floor_ms")}
     main = next(r for r in k2 if r["dtype"] == "bfloat16"
                 and (r["B"], r["H"], r["L"], r["D"]) == (32, 4, 4096, 64))
     pkg = "diffusion_models_for_gravitational_waveform_reconstruction_tpu"
@@ -528,6 +574,7 @@ def kernels_line(k1, k2, launches):
          "bound_by": ("operations" if k1_total["ops_bound_ms"]
                       > k1_total["bound_ms"] / 2 else "bytes"),
          "library_ms": k1_total["library_ms"],
+         "two_pass_floor_ms": k1_total["two_pass_floor_ms"],
          "by_path": k1_paths,
          "shapes": "the 7 ConvBlocks of one forward of each main path, bf16: "
                    "pn128 at 64 rows, attn16k at 32 rows",
@@ -543,6 +590,19 @@ def kernels_line(k1, k2, launches):
          "bound_by": main["bound_by"], "library_ms": main["library_ms"],
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
          "phase": "kernel"}]}
+
+
+def sass_has_hgmma(path):
+    """Count of wgmma instructions (``HGMMA``) in a built library's SASS,
+    or "not measured" where the toolkit has no ``cuobjdump``."""
+    tool = (Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+            / "cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return "not measured"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HGMMA" in ln for ln in sass.splitlines())
 
 
 def main():
@@ -575,12 +635,17 @@ def main():
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs),
+    build_s = time.perf_counter() - t0
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    hgmma = {n: sass_has_hgmma(_build.library_path(n)) for n in names}
+    emit({"phase": "build", "seconds": build_s,
+          "built": sorted(logs), "sass_hgmma": hgmma,
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
                            if "entry function" in ln or "Used" in ln
                            or "spill" in ln]
                     for name, log in logs.items()}})
+    check(hgmma["conv_gn_silu"] == "not measured" or hgmma["conv_gn_silu"] > 0,
+          "K1's library holds no wgmma (HGMMA) instruction")
 
     k1 = []
     for config, dtypes_rows in (

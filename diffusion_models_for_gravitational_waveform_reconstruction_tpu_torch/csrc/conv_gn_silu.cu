@@ -8,45 +8,67 @@
 // dtype and f32 accumulation, plus bias; GroupNorm statistics over (L, Cout/G)
 // per sample; eps inside the square root; output in the input dtype.
 //
-// What bounds it on the H100.  The conv is the whole cost: at the flagship
-// U-Net's shapes it does 2*L*3*Cin*Cout FLOPs per sample on operands that are
-// read once, i.e. 100-1500 FLOP per byte, so the bf16 path is bounded by the
-// tensor-core rate (989 TFLOP/s dense) and the f32 path by the FP32 FMA rate
-// (67 TFLOP/s); the GroupNorm passes are bandwidth-bound side costs.
+// The TPU kernel keeps one whole (L, Cout) sample in VMEM; one Hopper CTA
+// cannot hold that at L = 4096, Cout = 512, so the block runs in passes:
+//   conv   - y = conv + bias in f32 to a scratch tensor, and per (64-row tile,
+//            channel) the exact two-pass mean and M2 of the tile's rows;
+//   group_stats - one CTA per (group, sample) merges those partials with
+//            Chan's pairwise (count, mean, M2) update in a fixed order (no
+//            float atomics: deterministic, and no cancellation the way
+//            E[y^2] - mean^2 cancels when |mean| >> std);
+//   gn_affine_silu - normalise, affine, SiLU, cast.
 //
-// What the design does about it.  The TPU kernel keeps one whole (L, Cout)
-// sample in VMEM; one Hopper CTA cannot hold that at L = 4096, Cout = 512.
-// So the block runs in three launches:
-//   1. conv3_bias_stats_*: one CTA per (64-row L tile, 64-channel Cout tile,
-//      sample).  The 66 halo rows of x are staged in shared memory chunk by
-//      chunk (zero rows at the sequence ends give SAME padding, zero channels
-//      past Cin pad the depth, so Cin = 7 is accepted), the three taps read
-//      the same staged rows shifted by one, and the products run on the
-//      tensor cores with mma.sync m16n8k16 (bf16) or on the FMA units (f32),
-//      accumulating in f32.  The tile writes y = conv + bias in f32 to a
-//      scratch tensor and, per channel, the exact two-pass mean and M2 of its
-//      rows.
-//   2. group_stats: one CTA per (group, sample) merges those partials with
-//      Chan's pairwise (count, mean, M2) update in a fixed order (no float
-//      atomics: the result is deterministic, and it does not cancel the way
-//      E[y^2] - mean^2 does when |mean| >> std).
-//   3. gn_affine_silu: elementwise normalise, affine, SiLU, cast.
-// wgmma, TMA and keeping y out of device memory are later work; this version
-// is the simple, correct baseline.
+// What bounds each pass on the H100, and what the design does about it.
+//   conv, bf16: 2 * L * 3 * Cin * Cout FLOPs per sample on operands read
+//     once, 100-1500 FLOP per byte at the U-Nets' shapes, so the tensor-core
+//     rate (989 TFLOP/s dense) bounds it.  Only wgmma reaches that rate, so
+//     for Cin % 8 == 0 (TMA needs x's rows on 16-byte strides) the conv is an
+//     implicit GEMM on wgmma (conv3_wgmma_bf16): M = a 128-row L tile of one
+//     sample (two consumer warpgroups of 64 rows), N = a 64- or 128-channel
+//     Cout tile, K = 3 taps x Cin padded to 64-channel chunks, walked as
+//     (chunk, tap).  A producer warp keeps a ring of 128B-swizzled stages full
+//     with TMA: per (chunk, tap) the A tile is rows l0-1+tap .. l0+126+tap of
+//     x through a 3-D tensor map over (Cin, L, B), whose out-of-bounds zero
+//     fill at row -1 and row L is the SAME padding and never reaches the
+//     neighbouring sample; the B tile comes from the weights packed once per
+//     call (pack_weights_bf16: f32 (3, Cin, Cout) -> bf16
+//     [Cout_pad][3][Cin_pad], K-major, zero-padded), so no CTA converts
+//     weights.  The three taps re-read x's rows from L2.  The epilogue adds
+//     the bias, stores y from the accumulator registers and reduces each
+//     channel's (mean, M2) over the valid rows of each warpgroup's 64 rows
+//     (shuffles across the row lanes, then the four warps in a fixed order
+//     through shared memory); rows past L are left out of both.
+//     The other bf16 route (conv3_bias_stats_bf16, mma.sync m16n8k16) takes
+//     Cin % 8 != 0 (the 7-channel input block) or an x that is not 16-byte
+//     aligned: it stages zero-padded halo rows in shared memory.
+//   conv, f32: the FP32 FMA rate (67 TFLOP/s) bounds it; conv3_bias_stats_f32
+//     (FMA, no TF32) serves the f32 parity runs, not the bf16 serving path.
+//   y's round trip: the two-pass design writes and reads y in f32, 8 bytes
+//     per output element beyond the bound's x + W + output; keeping y out of
+//     device memory (single-pass K1) is later work.
+//   gn_affine_silu: bytes-bound (y read, output written).  One CTA per
+//     (sample, run of rows) with channels along the threads: each thread
+//     holds its channels' (mean, rstd * scale, shift) in registers and walks
+//     rows with 16-byte y loads and 8-byte bf16 (16-byte f32) stores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;          // output rows (sequence positions) per CTA
-constexpr int BN = 64;          // output channels per CTA
+constexpr int BM = 64;          // rows per partial-statistics tile
+constexpr int BN = 64;          // output channels per mma.sync / FMA CTA
 constexpr int KC = 32;          // input channels staged per chunk
 constexpr int HALO = BM + 2;    // staged x rows: one halo row on each side
 constexpr int THREADS = 128;    // four warps, 2 x 2 over the 64 x 64 tile
 constexpr int YS = BN + 1;      // row stride of the f32 output tile in smem
 constexpr int STATS_THREADS = 256;
 constexpr int APPLY_THREADS = 256;
+constexpr int APPLY_ELEMS = 16384;  // output elements per apply CTA
+
+constexpr int ROUTE_FMA = 0, ROUTE_MMA_SYNC = 1, ROUTE_WGMMA = 2;
+constexpr int ERR_TENSOR_MAP = 10001;  // cuTensorMapEncodeTiled refused
 
 // bf16 staging: a row stride of KC + 8 elements (80 bytes) spreads the 8 rows
 // x 4 words of a fragment load over 32 distinct banks.
@@ -259,6 +281,345 @@ conv3_bias_stats_f32(const float* __restrict__ x, const float* __restrict__ W,
                        gridDim.x);
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma route (bf16, Cin % 8 == 0).
+
+constexpr int WM = 128;               // output rows per CTA
+constexpr int KCH = 64;               // channels per K chunk: one 128-byte row
+constexpr int WG_THREADS = 288;       // warps 0-7 consume, warp 8 loads
+constexpr int A_BYTES = WM * KCH * 2;  // one stage of x: 128 rows x 128 bytes
+constexpr int PACK_TILE = 32;
+
+template <int TN>
+struct WgCfg {
+  static constexpr int STAGES = TN == 128 ? 3 : 4;  // ~100 KB: 2 CTAs per SM
+  static constexpr int B_BYTES = TN * KCH * 2;
+  static constexpr int PIPE = STAGES * (A_BYTES + B_BYTES);
+  static constexpr int BARS = 2 * STAGES * 8;
+  static constexpr int RED = 2 * 8 * TN * 4;  // (sum, M2) x 8 warps x TN
+  static constexpr int SMEM = 1024 + PIPE + BARS + RED;  // 1024: alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile whose rows are 128 bytes
+// (64 bf16) with the 128-byte swizzle TMA wrote: 8-row core groups 1024
+// bytes apart.  Advancing K by 16 elements adds 32 bytes, i.e. 2 to the
+// encoded start address.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d(64 x TN, f32) += A(64 x 16, smem) * B(TN x 16, smem)^T, both K-major.
+template <int TN>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float quad_column_sum(float v) {
+  // lanes 4g + q, g = 0..7, hold rows of the same column q: sum over g
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+__device__ __forceinline__ void store_y2(float* row, int c, int Cout,
+                                         bool pairs, float v0, float v1) {
+  if (pairs) {  // Cout even and c even: c < Cout implies c + 1 < Cout
+    if (c < Cout) *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+  } else {
+    if (c < Cout) row[c] = v0;
+    if (c + 1 < Cout) row[c + 1] = v1;
+  }
+}
+
+// One CTA per (TN-channel Cout tile, 128-row L tile, sample).  Warp 8 issues
+// the TMA loads; warpgroup w (warps 4w .. 4w+3) computes rows 64w .. 64w+63.
+// Accumulator layout of wgmma m64nTN: thread (warp q4, lane 4g + q) holds,
+// for each 8-column block j, rows 16 q4 + g and 16 q4 + g + 8 at columns
+// 8j + 2q and 8j + 2q + 1 in d[4j .. 4j+3].
+template <int TN>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
+                 const __grid_constant__ CUtensorMap tmap_w,
+                 const float* __restrict__ bias, float* __restrict__ y,
+                 float* __restrict__ part_mean, float* __restrict__ part_m2,
+                 int L, int Cout, int n_chunks, int n_tiles) {
+  using Cfg = WgCfg<TN>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sA = smem_u32(smem);
+  const uint32_t sB = sA + STAGES * A_BYTES;
+  const uint32_t sBar = sB + STAGES * Cfg::B_BYTES;  // full[s], then empty[s]
+  float* red = reinterpret_cast<float*>(smem + Cfg::PIPE + Cfg::BARS);
+
+  const int n0 = blockIdx.x * TN, l0 = blockIdx.y * WM, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_iter = 3 * n_chunks;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sBar + 8 * s, 1);                 // the producer's expect_tx
+      mbar_init(sBar + 8 * (STAGES + s), 8);      // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < n_iter; ++i) {
+        const int s = i % STAGES, chunk = i / 3, tap = i - 3 * chunk;
+        mbar_wait(sBar + 8 * (STAGES + s), ((i / STAGES) & 1) ^ 1);
+        const uint32_t full = sBar + 8 * s;
+        mbar_expect_tx(full, A_BYTES + Cfg::B_BYTES);
+        // x rows l0 - 1 + tap ..; rows -1 and >= L, channels >= Cin: zeros
+        tma_load_3d(sA + s * A_BYTES, &tmap_x, full, chunk * KCH,
+                    l0 - 1 + tap, b);
+        tma_load_2d(sB + s * Cfg::B_BYTES, &tmap_w, full,
+                    (tap * n_chunks + chunk) * KCH, n0);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  float acc[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  const uint64_t dA = smem_desc(sA + wg * (A_BYTES / 2));
+  const uint64_t dB = smem_desc(sB);
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(sBar + 8 * s, (i / STAGES) & 1);
+    wgmma_fence();
+    const uint64_t da = dA + (uint64_t)((s * A_BYTES) >> 4);
+    const uint64_t db = dB + (uint64_t)((s * Cfg::B_BYTES) >> 4);
+#pragma unroll
+    for (int k = 0; k < KCH / 16; ++k) wgmma_bf16<TN>(acc, da + 2 * k, db + 2 * k);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (i > 0 && lane == 0) mbar_arrive(sBar + 8 * (STAGES + (i - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // epilogue: bias, y for rows < L, per-channel (mean, M2) of each 64 rows
+  const int wq = warp & 3, g = lane >> 2, q = lane & 3;
+  const int r_lo = l0 + 64 * wg + 16 * wq + g;  // and r_lo + 8
+  const bool v0 = r_lo < L, v1 = r_lo + 8 < L;
+  const bool pairs = (Cout & 1) == 0;
+  float* y_lo = y + ((int64_t)b * L + r_lo) * Cout;
+  float* y_hi = y_lo + 8 * (int64_t)Cout;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * q;
+    const float b0 = c < Cout ? bias[c] : 0.f;
+    const float b1 = c + 1 < Cout ? bias[c + 1] : 0.f;
+    acc[4 * j] += b0;
+    acc[4 * j + 1] += b1;
+    acc[4 * j + 2] += b0;
+    acc[4 * j + 3] += b1;
+    if (v0) store_y2(y_lo, c, Cout, pairs, acc[4 * j], acc[4 * j + 1]);
+    if (v1) store_y2(y_hi, c, Cout, pairs, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+
+  const int rows = min(64, L - (l0 + 64 * wg));  // uniform over the warpgroup
+  if (rows <= 0) return;
+  float* sums = red + wg * 4 * TN;          // [warp of wg][column]
+  float* m2s = red + (8 + wg * 4) * TN;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const float s0 = quad_column_sum((v0 ? acc[4 * j] : 0.f) +
+                                     (v1 ? acc[4 * j + 2] : 0.f));
+    const float s1 = quad_column_sum((v0 ? acc[4 * j + 1] : 0.f) +
+                                     (v1 ? acc[4 * j + 3] : 0.f));
+    if (g == 0) {
+      sums[wq * TN + 8 * j + 2 * q] = s0;
+      sums[wq * TN + 8 * j + 2 * q + 1] = s1;
+    }
+  }
+  named_barrier(1 + wg, 128);
+  const float fr = (float)rows;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int c = 8 * j + 2 * q;
+    const float m0 =
+        (((sums[c] + sums[TN + c]) + sums[2 * TN + c]) + sums[3 * TN + c]) / fr;
+    const float m1 = (((sums[c + 1] + sums[TN + c + 1]) + sums[2 * TN + c + 1]) +
+                      sums[3 * TN + c + 1]) / fr;
+    const float d00 = v0 ? acc[4 * j] - m0 : 0.f, d01 = v1 ? acc[4 * j + 2] - m0 : 0.f;
+    const float d10 = v0 ? acc[4 * j + 1] - m1 : 0.f, d11 = v1 ? acc[4 * j + 3] - m1 : 0.f;
+    const float e0 = quad_column_sum(d00 * d00 + d01 * d01);
+    const float e1 = quad_column_sum(d10 * d10 + d11 * d11);
+    if (g == 0) {
+      m2s[wq * TN + c] = e0;
+      m2s[wq * TN + c + 1] = e1;
+    }
+  }
+  named_barrier(1 + wg, 128);
+  const int t = threadIdx.x & 127;
+  if (t < TN && n0 + t < Cout) {
+    const float mean =
+        (((sums[t] + sums[TN + t]) + sums[2 * TN + t]) + sums[3 * TN + t]) / fr;
+    const float m2 =
+        ((m2s[t] + m2s[TN + t]) + m2s[2 * TN + t]) + m2s[3 * TN + t];
+    const int64_t p = ((int64_t)b * n_tiles + (l0 / BM) + wg) * Cout + n0 + t;
+    part_mean[p] = mean;
+    part_m2[p] = m2;
+  }
+}
+
+// W (3, Cin, Cout) f32 -> Wp [Cout_pad][3][Cin_pad] bf16, zero-padded: the
+// wgmma B operand, K-major, so each 64-channel K chunk stays inside one tap.
+// One CTA per 32 x 32 (channel in, channel out) tile of one tap, transposed
+// through shared memory so that reads and writes are both coalesced.
+__global__ void __launch_bounds__(256)
+pack_weights_bf16(const float* __restrict__ W, __nv_bfloat16* __restrict__ Wp,
+                  int Cin, int Cout, int Cin_pad) {
+  __shared__ float tile[PACK_TILE][PACK_TILE + 1];
+  const int tap = blockIdx.z, ci0 = blockIdx.y * PACK_TILE;
+  const int co0 = blockIdx.x * PACK_TILE;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < PACK_TILE; i += 8) {
+    const int ci = ci0 + i, co = co0 + tx;
+    tile[i][tx] = (ci < Cin && co < Cout)
+                      ? W[((int64_t)tap * Cin + ci) * Cout + co]
+                      : 0.f;
+  }
+  __syncthreads();
+  for (int i = ty; i < PACK_TILE; i += 8) {
+    const int co = co0 + i, ci = ci0 + tx;
+    Wp[((int64_t)co * 3 + tap) * Cin_pad + ci] = __float2bfloat16(tile[tx][i]);
+  }
+}
+
 // Chan et al.'s pairwise update: fold (nb, mb, Mb) into (na, ma, Ma).
 __device__ __forceinline__ void chan_merge(float& na, float& ma, float& Ma,
                                            float nb, float mb, float Mb) {
@@ -306,84 +667,241 @@ group_stats(const float* __restrict__ part_mean,
   }
 }
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+template <int V>
+__device__ __forceinline__ void load_y(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
 }
 
-template <typename T>
+template <int V>
+__device__ __forceinline__ void store_out(float* p, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v) {
+  if constexpr (V == 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+    *p = __float2bfloat16(v[0]);
+  }
+}
+
+// One CTA per (run of `rows_per_cta` rows, sample); V channels per thread
+// (V = 4 when Cout % 4 == 0).  A thread keeps its channels' coefficients in
+// registers and steps over rows, so no index is divided per element.
+template <typename T, int V>
 __global__ void __launch_bounds__(APPLY_THREADS)
 gn_affine_silu(const float* __restrict__ y, const float* __restrict__ g_mean,
                const float* __restrict__ g_rstd,
                const float* __restrict__ scale,
-               const float* __restrict__ shift, T* __restrict__ out,
-               int64_t total, int L, int Cout, int groups) {
-  const int cg = Cout / groups;
-  const int64_t per_sample = (int64_t)L * Cout;
-  for (int64_t i = blockIdx.x * (int64_t)APPLY_THREADS + threadIdx.x;
-       i < total; i += (int64_t)gridDim.x * APPLY_THREADS) {
-    const int c = (int)(i % Cout);
-    const int gi = (int)(i / per_sample) * groups + c / cg;
-    float h = (y[i] - g_mean[gi]) * g_rstd[gi];
-    h = h * scale[c] + shift[c];
-    store_out(out + i, h * (1.f / (1.f + expf(-h))));
+               const float* __restrict__ shift, T* __restrict__ out, int L,
+               int Cout, int groups, int rows_per_cta) {
+  const int b = blockIdx.y;
+  const int r_begin = blockIdx.x * rows_per_cta;
+  const int r_end = min(L, r_begin + rows_per_cta);
+  const int nq = Cout / V, cg = Cout / groups;
+  int q0, q_step, r0, r_step;
+  if (nq >= APPLY_THREADS) {
+    q0 = threadIdx.x; q_step = APPLY_THREADS; r0 = 0; r_step = 1;
+  } else {
+    r_step = APPLY_THREADS / nq;
+    if (threadIdx.x >= r_step * nq) return;
+    q0 = threadIdx.x % nq; q_step = nq; r0 = threadIdx.x / nq;
   }
+  for (int qi = q0; qi < nq; qi += q_step) {
+    const int c = qi * V;
+    float mu[V], a[V], sh[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int gi = b * groups + (c + v) / cg;
+      mu[v] = g_mean[gi];
+      a[v] = g_rstd[gi] * scale[c + v];
+      sh[v] = shift[c + v];
+    }
+    for (int r = r_begin + r0; r < r_end; r += r_step) {
+      const int64_t i = ((int64_t)b * L + r) * Cout + c;
+      float h[V];
+      load_y<V>(y + i, h);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float t = (h[v] - mu[v]) * a[v] + sh[v];
+        h[v] = t * (1.f / (1.f + expf(-t)));
+      }
+      store_out<V>(out + i, h);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_apply(const float* y, const float* g_mean,
+                         const float* g_rstd, const float* scale,
+                         const float* shift, T* out, int B, int L, int Cout,
+                         int groups, cudaStream_t st) {
+  const int rows = cmax(1, APPLY_ELEMS / Cout);
+  const dim3 grid((L + rows - 1) / rows, B);
+  if (Cout % 4 == 0)
+    gn_affine_silu<T, 4><<<grid, APPLY_THREADS, 0, st>>>(
+        y, g_mean, g_rstd, scale, shift, out, L, Cout, groups, rows);
+  else
+    gn_affine_silu<T, 1><<<grid, APPLY_THREADS, 0, st>>>(
+        y, g_mean, g_rstd, scale, shift, out, L, Cout, groups, rows);
+  return cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so that
+// the library links only against the runtime (CUDA 12.5 or later).
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map, innermost dimension first, 128B-swizzled boxes.
+bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                 const cuuint64_t* dims, const cuuint64_t* strides,
+                 const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int TN>
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* Wp,
+                 const float* bias, float* y, float* part_mean,
+                 float* part_m2, int B, int L, int Cin, int Cout,
+                 cudaStream_t st) {
+  const int n_chunks = (Cin + KCH - 1) / KCH;
+  const int cin_pad = n_chunks * KCH;
+  const int cout_pad = (Cout + KCH - 1) / KCH * KCH;
+  CUtensorMap tmx, tmw;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)Cin, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)Cin * 2,
+                                   (cuuint64_t)L * Cin * 2};
+  const cuuint32_t x_box[3] = {KCH, WM, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)3 * cin_pad, (cuuint64_t)cout_pad};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)3 * cin_pad * 2};
+  const cuuint32_t w_box[2] = {KCH, TN};
+  if (!encode_bf16(&tmx, x, 3, x_dims, x_strides, x_box) ||
+      !encode_bf16(&tmw, Wp, 2, w_dims, w_strides, w_box))
+    return ERR_TENSOR_MAP;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv3_wgmma_bf16<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WgCfg<TN>::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Cout + TN - 1) / TN, (L + WM - 1) / WM, B);
+  conv3_wgmma_bf16<TN><<<grid, WG_THREADS, WgCfg<TN>::SMEM, st>>>(
+      tmx, tmw, bias, y, part_mean, part_m2, L, Cout, n_chunks,
+      (L + BM - 1) / BM);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of L per conv tile: the wrapper sizes the partial-statistics scratch
+// Rows of L per partial-statistics tile: the wrapper sizes the scratch
 // (B, ceil(L / rows), Cout) with it.
 int conv_gn_silu_rows_per_tile(void) { return BM; }
 
+// Channels per K chunk of the packed weights: Cin and Cout are padded to it.
+int conv_gn_silu_pack_chunk(void) { return KCH; }
+
 const char* conv_gn_silu_error_string(int code) {
+  if (code == ERR_TENSOR_MAP) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (B, L, Cin) f32 or bf16; W (3, Cin, Cout), bias, gn_scale, gn_bias f32;
-// out (B, L, Cout) in x's dtype; scratch y (B, L, Cout) f32, part_mean and
-// part_m2 (B, ceil(L / 64), Cout) f32, g_mean and g_rstd (B, groups) f32.
-// All contiguous on the current device.  Launches on `stream`, does not
-// synchronise, returns the first launch error (0 on success).
+// x (B, L, Cin) f32 (route 0, FMA) or bf16 (route 1, mma.sync; route 2,
+// wgmma: Cin % 8 == 0 and x 16-byte aligned); W (3, Cin, Cout), bias,
+// gn_scale, gn_bias f32; out (B, L, Cout) in x's dtype; scratch y (B, L,
+// Cout) f32, part_mean and part_m2 (B, ceil(L / 64), Cout) f32, g_mean and
+// g_rstd (B, groups) f32, and for route 2 w_packed (Cout_pad, 3, Cin_pad)
+// bf16 with both pads rounded up to 64.  All contiguous on the current
+// device.  Launches on `stream`, does not synchronise, returns the first
+// launch error (0 on success).
 int conv_gn_silu_forward(const void* x, const float* W, const float* bias,
                          const float* gn_scale, const float* gn_bias,
                          void* out, float* y, float* part_mean, float* part_m2,
-                         float* g_mean, float* g_rstd, int B, int L, int Cin,
-                         int Cout, int groups, float eps, int is_bf16,
-                         void* stream) {
+                         float* g_mean, float* g_rstd, void* w_packed, int B,
+                         int L, int Cin, int Cout, int groups, float eps,
+                         int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (L + BM - 1) / BM;
-  const dim3 grid(n_tiles, (Cout + BN - 1) / BN, B);
-  if (is_bf16)
-    conv3_bias_stats_bf16<<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), W, bias, y, part_mean, part_m2,
-        L, Cin, Cout);
-  else
-    conv3_bias_stats_f32<<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), W, bias, y, part_mean, part_m2, L, Cin,
-        Cout);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  cudaError_t e;
+  if (route == ROUTE_WGMMA) {
+    const int cin_pad = (Cin + KCH - 1) / KCH * KCH;
+    const int cout_pad = (Cout + KCH - 1) / KCH * KCH;
+    auto* Wp = static_cast<__nv_bfloat16*>(w_packed);
+    pack_weights_bf16<<<dim3(cout_pad / PACK_TILE, cin_pad / PACK_TILE, 3),
+                        256, 0, st>>>(W, Wp, Cin, Cout, cin_pad);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const int rc =
+        Cout > 64 ? launch_wgmma<128>(xb, Wp, bias, y, part_mean, part_m2, B,
+                                      L, Cin, Cout, st)
+                  : launch_wgmma<64>(xb, Wp, bias, y, part_mean, part_m2, B,
+                                     L, Cin, Cout, st);
+    if (rc != 0) return rc;
+  } else {
+    const dim3 grid(n_tiles, (Cout + BN - 1) / BN, B);
+    if (route == ROUTE_MMA_SYNC)
+      conv3_bias_stats_bf16<<<grid, THREADS, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), W, bias, y, part_mean,
+          part_m2, L, Cin, Cout);
+    else
+      conv3_bias_stats_f32<<<grid, THREADS, 0, st>>>(
+          static_cast<const float*>(x), W, bias, y, part_mean, part_m2, L,
+          Cin, Cout);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
 
   group_stats<<<dim3(groups, B), STATS_THREADS, 0, st>>>(
       part_mean, part_m2, g_mean, g_rstd, L, Cout, groups, n_tiles, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const int64_t total = (int64_t)B * L * Cout;
-  int64_t blocks = (total + APPLY_THREADS - 1) / APPLY_THREADS;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (is_bf16)
-    gn_affine_silu<__nv_bfloat16><<<(int)blocks, APPLY_THREADS, 0, st>>>(
-        y, g_mean, g_rstd, gn_scale, gn_bias,
-        static_cast<__nv_bfloat16*>(out), total, L, Cout, groups);
-  else
-    gn_affine_silu<float><<<(int)blocks, APPLY_THREADS, 0, st>>>(
-        y, g_mean, g_rstd, gn_scale, gn_bias, static_cast<float*>(out), total,
-        L, Cout, groups);
-  return cudaGetLastError();
+  if (route == ROUTE_FMA)
+    return launch_apply<float>(y, g_mean, g_rstd, gn_scale, gn_bias,
+                               static_cast<float*>(out), B, L, Cout, groups,
+                               st);
+  return launch_apply<__nv_bfloat16>(y, g_mean, g_rstd, gn_scale, gn_bias,
+                                     static_cast<__nv_bfloat16*>(out), B, L,
+                                     Cout, groups, st);
 }
 
 }  // extern "C"

@@ -5,9 +5,11 @@ time it launches its kernel (never for the plain version).
 """
 from .conv_gn_silu import (
     conv3_same,
+    conv_route,
     fused_conv_gn_silu,
     fused_conv_gn_silu_reference,
     group_norm,
+    pack_weights_reference,
 )
 from .flash_attention import flash_attention, flash_attention_reference
 
@@ -24,6 +26,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
-__all__ = ["conv3_same", "flash_attention", "flash_attention_reference",
-           "fused_conv_gn_silu", "fused_conv_gn_silu_reference",
-           "group_norm", "launch_counts", "reset_launch_counts"]
+__all__ = ["conv3_same", "conv_route", "flash_attention",
+           "flash_attention_reference", "fused_conv_gn_silu",
+           "fused_conv_gn_silu_reference", "group_norm", "launch_counts",
+           "pack_weights_reference", "reset_launch_counts"]

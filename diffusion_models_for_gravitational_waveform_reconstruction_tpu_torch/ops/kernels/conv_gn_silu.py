@@ -6,6 +6,12 @@ bounds it and how it is laid out); this module holds its plain PyTorch
 version and the wrapper.  The wrapper runs the plain version for a tensor on
 the CPU and the kernel for a tensor on a CUDA device; anything else, or an
 input the kernel does not take, raises.
+
+The kernel's conv pass takes one of three routes, chosen from x alone
+(:func:`conv_route`): bf16 with Cin % 8 == 0 runs on ``wgmma`` fed by TMA
+from weights packed once per call (:func:`pack_weights_reference` is the
+pack's plain version); other bf16 inputs run on ``mma.sync``; f32 runs on
+the FMA units.  All three are the same kernel and count as its launches.
 """
 from __future__ import annotations
 
@@ -52,7 +58,45 @@ def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
     return (h * torch.sigmoid(h)).to(x.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+# channels per K chunk of the packed weights; Cin and Cout are padded to it
+PACK_CHUNK = 64
+# the conv pass's routes, by the code the C interface takes
+ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+# longest L: the float row counts of the statistics stay exact (< 2^24) and
+# the wgmma grid's L tiles within a grid dimension (L / 128 < 65536)
+MAX_L = 1 << 22
+
+
+def pack_shape(Cin: int, Cout: int) -> tuple:
+    """Shape of the packed weights: (Cout_pad, 3, Cin_pad)."""
+    return (-(-Cout // PACK_CHUNK) * PACK_CHUNK, 3,
+            -(-Cin // PACK_CHUNK) * PACK_CHUNK)
+
+
+def pack_weights_reference(W: torch.Tensor) -> torch.Tensor:
+    """Plain version of the wgmma route's weight pack: W (3, Cin, Cout) f32
+    in flax layout -> bf16 (Cout_pad, 3, Cin_pad), K-major (input channels
+    contiguous) and zero-padded, so that a 64-channel K chunk never crosses
+    a tap."""
+    _, Cin, Cout = W.shape
+    Wp = torch.zeros(pack_shape(Cin, Cout), dtype=torch.bfloat16,
+                     device=W.device)
+    Wp[:Cout, :, :Cin] = W.permute(2, 0, 1).to(torch.bfloat16)
+    return Wp
+
+
+def conv_route(x: torch.Tensor) -> str:
+    """The conv pass the kernel runs for ``x (B, L, Cin)``: "fma" for f32;
+    for bf16, "wgmma" when TMA can read x (rows on 16-byte strides, i.e.
+    Cin % 8 == 0, and a 16-byte aligned base), else "mma_sync"."""
+    if x.dtype == torch.float32:
+        return "fma"
+    if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -61,10 +105,16 @@ def _lib() -> ctypes.CDLL:
     if lib.conv_gn_silu_forward.argtypes is None:
         lib.conv_gn_silu_forward.argtypes = _ARGTYPES
         lib.conv_gn_silu_forward.restype = ctypes.c_int
-        lib.conv_gn_silu_rows_per_tile.argtypes = []
-        lib.conv_gn_silu_rows_per_tile.restype = ctypes.c_int
+        for fn in (lib.conv_gn_silu_rows_per_tile,
+                   lib.conv_gn_silu_pack_chunk):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         lib.conv_gn_silu_error_string.argtypes = [ctypes.c_int]
         lib.conv_gn_silu_error_string.restype = ctypes.c_char_p
+        if lib.conv_gn_silu_pack_chunk() != PACK_CHUNK:
+            raise RuntimeError("conv_gn_silu: the library packs weights in "
+                               f"chunks of {lib.conv_gn_silu_pack_chunk()}, "
+                               f"the wrapper in {PACK_CHUNK}")
     return lib
 
 
@@ -82,6 +132,8 @@ def _check(x, W, b, gn_scale, gn_bias, groups):
         raise ValueError(f"Cout={Cout} not divisible by groups={groups}")
     if not 1 <= B <= 65535 or L < 1 or Cin < 1:
         raise ValueError(f"unsupported shape (B, L, Cin) = {(B, L, Cin)}")
+    if L > MAX_L:
+        raise ValueError(f"L={L} is longer than the kernel takes ({MAX_L})")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, v in (("x", x), ("W", W), ("b", b), ("gn_scale", gn_scale),
@@ -113,7 +165,10 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     lib = _lib()
     rows = lib.conv_gn_silu_rows_per_tile()
     n_tiles = -(-L // rows)
+    route = conv_route(x)
     f32 = dict(dtype=torch.float32, device=x.device)
+    w_packed = (torch.empty(pack_shape(Cin, Cout), dtype=torch.bfloat16,
+                            device=x.device) if route == "wgmma" else None)
     out = torch.empty((B, L, Cout), dtype=x.dtype, device=x.device)
     y = torch.empty((B, L, Cout), **f32)
     part_mean = torch.empty((B, n_tiles, Cout), **f32)
@@ -125,8 +180,9 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
             x.data_ptr(), W.data_ptr(), b.data_ptr(), gn_scale.data_ptr(),
             gn_bias.data_ptr(), out.data_ptr(), y.data_ptr(),
             part_mean.data_ptr(), part_m2.data_ptr(), g_mean.data_ptr(),
-            g_rstd.data_ptr(), B, L, Cin, Cout, groups, float(eps),
-            int(x.dtype == torch.bfloat16),
+            g_rstd.data_ptr(),
+            None if w_packed is None else w_packed.data_ptr(),
+            B, L, Cin, Cout, groups, float(eps), ROUTES[route],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("conv_gn_silu launch failed: "

@@ -12,6 +12,7 @@ import torch
 
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+    conv_route,
     flash_attention,
     flash_attention_reference,
     fused_conv_gn_silu,
@@ -39,16 +40,31 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,Cin,Cout", [(2, 256, 24, 32), (1, 128, 7, 16),
-                                          (3, 333, 40, 24), (2, 1024, 384, 128)])
-def test_kernel_matches_plain_version(cuda, dtype, B, L, Cin, Cout):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(B, L, Cin, generator=g, device=cuda).to(dtype)
-    W = torch.randn(3, Cin, Cout, generator=g, device=cuda) / (3 * Cin) ** 0.5
-    b, s, bb = (0.1 * torch.randn(Cout, generator=g, device=cuda)
+def _block_inputs(device, B, L, Cin, Cout, seed=0, bias=0.1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, L, Cin, generator=g, device=device)
+    W = torch.randn(3, Cin, Cout, generator=g, device=device) / (3 * Cin) ** 0.5
+    b, s, bb = (0.1 * torch.randn(Cout, generator=g, device=device)
                 for _ in range(3))
-    s = s + 1.0
+    return x, W, b + bias - 0.1, s + 1.0, bb
+
+
+# the edges of the conv pass's tiling: L around the 128-row tile (1, 65,
+# 129, 333, 4000); Cin 7 (the mma.sync route), 8 and 40 (wgmma, below one
+# 64-channel K chunk), 64, 192, 384; Cout 16, 24, 64, 200, 512 across the
+# 64- and 128-channel N tiles; B 1 and 65
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,Cin,Cout", [
+    (2, 256, 24, 32), (1, 128, 7, 16), (3, 333, 40, 24), (2, 1024, 384, 128),
+    (2, 1, 64, 64), (2, 65, 64, 64), (2, 129, 64, 64), (1, 4000, 64, 64),
+    (2, 300, 7, 64), (2, 200, 8, 16), (2, 256, 40, 64), (2, 256, 192, 256),
+    (1, 512, 384, 512), (2, 256, 64, 24), (2, 256, 64, 200),
+    (65, 130, 64, 64), (1, 333, 128, 512)])
+def test_kernel_matches_plain_version(cuda, dtype, B, L, Cin, Cout):
+    x, W, b, s, bb = _block_inputs(cuda, B, L, Cin, Cout)
+    x = x.to(dtype)
+    if dtype == torch.bfloat16:
+        assert conv_route(x) == ("wgmma" if Cin % 8 == 0 else "mma_sync")
     before = fused_conv_gn_silu.launches
     out = fused_conv_gn_silu(x, W, b, s, bb, 8)
     torch.cuda.synchronize()
@@ -56,6 +72,58 @@ def test_kernel_matches_plain_version(cuda, dtype, B, L, Cin, Cout):
     want = fused_conv_gn_silu_reference(x, W, b, s, bb, 8)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cin", [7, 16])
+def test_kernel_takes_an_odd_cout(cuda, dtype, Cin):
+    # Cout 9 in 3 groups: y stored one channel at a time, the apply pass
+    # one channel per thread (its 4-channel loads need Cout % 4 == 0)
+    x, W, b, s, bb = _block_inputs(cuda, 2, 150, Cin, 9, seed=4)
+    x = x.to(dtype)
+    out = fused_conv_gn_silu(x, W, b, s, bb, 3)
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, 3)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cin", [7, 64])
+def test_kernel_survives_a_large_mean(cuda, dtype, Cin):
+    # conv output around 100 with unit spread: E[y^2] - mean^2 would cancel
+    x, W, b, s, bb = _block_inputs(cuda, 2, 333, Cin, 64, seed=1, bias=100.0)
+    x = x.to(dtype)
+    out = fused_conv_gn_silu(x, W, b, s, bb, 8)
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, 8)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cin", [7, 64])
+def test_kernel_keeps_samples_apart(cuda, dtype, Cin):
+    # each sample's first and last rows are large: a conv that read the
+    # neighbouring sample's edge row as SAME padding would differ
+    x, W, b, s, bb = _block_inputs(cuda, 3, 200, Cin, 128, seed=2)
+    x[:, 0] *= 50.0
+    x[:, -1] *= 50.0
+    x = x.to(dtype)
+    batched = fused_conv_gn_silu(x, W, b, s, bb, 8)
+    for i in range(x.shape[0]):
+        alone = fused_conv_gn_silu(x[i:i + 1].contiguous(), W, b, s, bb, 8)
+        assert torch.equal(alone, batched[i:i + 1])
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, 8)
+    torch.testing.assert_close(batched.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("Cin", [7, 64])
+def test_kernel_reads_weights_updated_in_place(cuda, Cin):
+    x, W, b, s, bb = _block_inputs(cuda, 2, 256, Cin, 128, seed=3)
+    x = x.to(torch.bfloat16)
+    fused_conv_gn_silu(x, W, b, s, bb, 8)
+    W.mul_(2.0)                               # the weights are packed per call
+    out = fused_conv_gn_silu(x, W, b, s, bb, 8)
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, 8)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
