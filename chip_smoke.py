@@ -12,20 +12,21 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              off for every comparison.
 2. build   - compiles every CUDA source of the port with nvcc, one process
              per source, all at once; reports the build's time, ptxas's
-             registers and spills, and whether each library's SASS holds
-             wgmma (``HGMMA``, read with ``cuobjdump -sass``).
+             registers, spills and warnings, and how many wgmma
+             instructions (``HGMMA``, read with ``cuobjdump -sass``) each
+             library's SASS holds; both kernels must have some.
 3. kernel  - K1, the fused ConvBlock kernel, against its plain PyTorch
              version at every ConvBlock shape of pn128 (bf16 at 64 rows, the
              serving batch, and 128 rows; f32 at 128 rows) and of attn16k
              (bf16 at 32 rows, its serving batch); K2, the flash-attention
-             kernel, at attn16k's bottleneck (32, 4, 4096, 64) in bf16, in
-             f32, and at a ragged L and other head widths.  Each with its
-             time, the plain version's, a PyTorch yardstick's (``F.conv1d ->
-             F.group_norm -> F.silu``; ``F.scaled_dot_product_attention``)
-             and the roofline bound.  K1's records also carry the conv
-             route, TFLOP/s, the two-pass floor (the bound plus y's f32
-             write and read) and one call's device time split into pack /
-             conv / stats / apply (``torch.profiler``).
+             kernel, at attn16k's bottleneck (32, 4, 4096, 64) in bf16 (and
+             at L 4000), in f32, and at a ragged L and other head widths.
+             Each with its route, TFLOP/s, time, the plain version's, a
+             PyTorch yardstick's (``F.conv1d -> F.group_norm -> F.silu``;
+             ``F.scaled_dot_product_attention``) and the roofline bound.
+             K1's records also carry the two-pass floor (the bound plus y's
+             f32 write and read) and one call's device time split into
+             pack / conv / stats / apply (``torch.profiler``).
 4. model   - each flagship U-Net in f32 with seeded random weights: the
              kernel path (its launches counted) against the same module
              through the plain versions.
@@ -34,8 +35,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              pn128 at 4 requests x 8 seeds x CFG = 64 rows per forward,
              attn16k at 4 requests x 4 seeds x CFG = 32 rows.  Counts the
              kernel launches of one run, then times five more (median, min,
-             max) and profiles one (device time by group, idle share; traces
-             in traces/).  A small f32 configuration is also checked against
+             max) and profiles one (device time by group, idle share, K2's
+             launches by kernel, which on attn16k must all be the wgmma
+             route; traces in traces/).  A small f32 configuration is also checked against
              the CPU plain path, its launches counted.
 6. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
@@ -77,12 +79,15 @@ K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-3)}
 # log2-scaled scores; in bf16 both round P (the kernel before normalising,
 # the plain version after) and the output, a few ulps of 2^-8 apart
 K2_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -6, 2e-3)}
-# (dtype, B, H, L, D): attn16k's bottleneck in bf16 (the serving shape) and
-# f32, a ragged L, each head-width template (D 32, 64, 128, 256) and an odd
-# D, whose rows are not 16-byte aligned
-K2_SHAPES = [("bfloat16", 32, 4, 4096, 64), ("float32", 8, 4, 4096, 64),
+# (dtype, B, H, L, D): attn16k's bottleneck in bf16 (the serving shape, and
+# the serving batch at a ragged L) and f32, a ragged L, each head-width
+# template (D 32, 64, 128, 256; D 128 at a ragged L too) and an odd D, whose
+# rows are not 16-byte aligned
+K2_SHAPES = [("bfloat16", 32, 4, 4096, 64), ("bfloat16", 32, 4, 4000, 64),
+             ("float32", 8, 4, 4096, 64),
              ("bfloat16", 8, 4, 4000, 64), ("float32", 2, 4, 4000, 64),
              ("bfloat16", 8, 4, 4096, 32), ("bfloat16", 8, 4, 4096, 128),
+             ("bfloat16", 8, 4, 4000, 128),
              ("float32", 2, 4, 4096, 32), ("float32", 2, 4, 4096, 128),
              ("bfloat16", 2, 2, 777, 65), ("float32", 2, 2, 777, 65),
              ("bfloat16", 2, 4, 2048, 256), ("float32", 1, 2, 2048, 256)]
@@ -155,13 +160,15 @@ TRACES = Path(__file__).resolve().parent / "traces"
 
 def device_breakdown(trace_path, wall_us):
     """Device time of a profiled run by group (K1's kernels, K2's, matrix
-    products, the rest), K1's by pass, its top kernels, and the share of the
-    run's wall time in which no kernel, copy or memset ran."""
+    products, the rest), K1's by pass, K2's launches by kernel, its top
+    kernels, and the share of the run's wall time in which no kernel, copy
+    or memset ran."""
     events = json.loads(trace_path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     by_name, groups = {}, {"k1": 0.0, "k2": 0.0, "matmul": 0.0, "other": 0.0}
     k1_passes = dict.fromkeys(K1_PASSES, 0.0)
+    k2_launches = {}
     for e in dev:
         name, dur = e["name"], float(e["dur"])
         by_name[name] = by_name.get(name, 0.0) + dur
@@ -172,6 +179,7 @@ def device_breakdown(trace_path, wall_us):
             k1_passes[part] += dur
         elif any(k in name for k in K2_KERNELS):
             groups["k2"] += dur
+            k2_launches[name] = k2_launches.get(name, 0) + 1
         elif "gemm" in low or "nvjet" in low or "xmma" in low:
             groups["matmul"] += dur
         else:
@@ -191,6 +199,7 @@ def device_breakdown(trace_path, wall_us):
             "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us,
             "share": {k: v / total for k, v in groups.items()},
             "k1_pass_ms": {k: v / 1e3 for k, v in k1_passes.items()},
+            "k2_launches_by_kernel": k2_launches,
             "n_device_events": len(dev),
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
@@ -306,6 +315,7 @@ def phase_kernel_attention(torch):
     import torch.nn.functional as F
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        attention_route,
         flash_attention,
     )
 
@@ -323,19 +333,22 @@ def phase_kernel_attention(torch):
         max_err = float(diff.max())
         bad = int((diff > atol + rtol * want.float().abs()).sum())
         del out, want, diff
-        k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), 5)
+        k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), 20)
         p_ms = cuda_ms(torch, lambda: plain_attention(torch, q, k, v), 2)
-        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 5)
+        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                       20)
         nbytes = 4 * q.numel() * q.element_size()      # q, k, v read; o written
         flops = 4.0 * B * H * L * L * D                # Q K^T and P V
         t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
         rec = {"phase": "kernel", "kernel": "flash_attention", "B": B, "H": H,
-               "L": L, "D": D, "dtype": dname, "max_abs_err": max_err,
+               "L": L, "D": D, "dtype": dname,
+               "route": attention_route(q, k, v), "max_abs_err": max_err,
                "rtol": rtol, "atol": atol, "n_outside_tol": bad,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes > t_ops else "operations",
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+               "tflops": flops / (k_ms * 1e9), "gflop": flops / 1e9,
+               "mbytes": nbytes / 1e6}
         emit(rec)
         results.append(rec)
         check(bad == 0, f"flash_attention {dname} {(B, H, L, D)}: {bad} "
@@ -519,6 +532,12 @@ def phase_serving(torch, config):
     prof.export_chrome_trace(str(trace))
     breakdown = device_breakdown(trace, wall_us)
     check(breakdown["n_device_events"] > 0, "profiler recorded device work")
+    k2_seen = breakdown["k2_launches_by_kernel"]
+    want_k2 = expected_launches(model, n_steps)["flash_attention"]
+    check(sum(k2_seen.values()) == want_k2,
+          f"{config}: the trace holds {k2_seen}, not {want_k2} K2 launches")
+    check(all("flash_fwd_wgmma" in name for name in k2_seen),
+          f"{config}: K2 left the wgmma route: {k2_seen}")
     rows = SERVING_REQUESTS * seeds * (2 if cfg.cfg_scale != 1.0 else 1)
     check(rows == path["rows"], f"{config}: {rows} rows per forward")
     emit({"phase": "serving", "config": f"{config} bf16", "L": L,
@@ -588,6 +607,7 @@ def kernels_line(k1, k2, launches):
          "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
          "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
          "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+         "cuda_route": main["route"], "tflops": main["tflops"],
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
          "phase": "kernel"}]}
 
@@ -642,10 +662,11 @@ def main():
           "built": sorted(logs), "sass_hgmma": hgmma,
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
                            if "entry function" in ln or "Used" in ln
-                           or "spill" in ln]
+                           or "spill" in ln or "warning" in ln]
                     for name, log in logs.items()}})
-    check(hgmma["conv_gn_silu"] == "not measured" or hgmma["conv_gn_silu"] > 0,
-          "K1's library holds no wgmma (HGMMA) instruction")
+    for name in ("conv_gn_silu", "flash_attention"):
+        check(hgmma[name] == "not measured" or hgmma[name] > 0,
+              f"{name}'s library holds no wgmma (HGMMA) instruction")
 
     k1 = []
     for config, dtypes_rows in (

@@ -11,7 +11,11 @@ from .conv_gn_silu import (
     group_norm,
     pack_weights_reference,
 )
-from .flash_attention import flash_attention, flash_attention_reference
+from .flash_attention import (
+    attention_route,
+    flash_attention,
+    flash_attention_reference,
+)
 
 _WRAPPERS = {"conv_gn_silu": fused_conv_gn_silu,
              "flash_attention": flash_attention}
@@ -26,7 +30,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
-__all__ = ["conv3_same", "conv_route", "flash_attention",
+__all__ = ["attention_route", "conv3_same", "conv_route", "flash_attention",
            "flash_attention_reference", "fused_conv_gn_silu",
            "fused_conv_gn_silu_reference", "group_norm", "launch_counts",
            "pack_weights_reference", "reset_launch_counts"]

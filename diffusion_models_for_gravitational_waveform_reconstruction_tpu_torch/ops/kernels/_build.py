@@ -2,12 +2,13 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a plain C
 interface, loaded with ``ctypes``; nothing includes PyTorch's headers, so a
-build takes seconds.  The library's file name carries a digest of the source
-and the flags, so an edited source is rebuilt and an unchanged one is loaded
-as built.  :func:`build_all` compiles every source at once, one ``nvcc``
-process each.  Libraries go to ``_build/`` inside the package (listed in
-``.gitignore``); the compiler's resource report (``-Xptxas -v``) is kept
-beside each library as ``<library>.log``.
+build takes seconds.  The sources share the Hopper helpers of
+``csrc/hopper.cuh``.  The library's file name carries a digest of the
+source, the headers and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as built.  :func:`build_all` compiles every
+source at once, one ``nvcc`` process each.  Libraries go to ``_build/``
+inside the package (listed in ``.gitignore``); the compiler's resource
+report (``-Xptxas -v``) is kept beside each library as ``<library>.log``.
 
 Nothing here runs at import: the CPU tests import every module, and there is
 no ``nvcc`` without the CUDA toolkit.
@@ -48,10 +49,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built: the name carries a digest of the
+    source, of every ``csrc/*.cuh`` (any source may include them) and of
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(names: List[str]) -> Dict[str, str]:

@@ -7,6 +7,12 @@ version and the wrapper.  The wrapper runs the plain version for a tensor on
 the CPU and the kernel for a tensor on a CUDA device; anything else, or an
 input the kernel does not take, raises.  Any L >= 1 is taken: the kernel
 masks its own ragged edge.
+
+The kernel takes one of three routes, chosen from the inputs alone
+(:func:`attention_route`): bf16 with D 64 or 128 and q, k, v on 16-byte
+aligned bases runs both products on ``wgmma`` fed by TMA; other bf16 inputs
+run on ``mma.sync``; f32 runs on the FMA units.  All three are the same
+kernel and count as its launches.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 256   # MAX_D of csrc/flash_attention.cu: its widest template
+# the kernel's routes, by the code the C interface takes
+ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -29,6 +38,19 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return p @ v
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor | None = None,
+                    v: torch.Tensor | None = None) -> str:
+    """The route the kernel runs for ``q, k, v (B, H, L, D)`` (k and v
+    default to q): "fma" for f32; for bf16, "wgmma" when D is 64 or 128 and
+    TMA can read every input (16-byte aligned bases), else "mma_sync"."""
+    if q.dtype == torch.float32:
+        return "fma"
+    bases = [a.data_ptr() for a in (q, k, v) if a is not None]
+    if q.shape[-1] in WGMMA_HEAD_DIMS and all(p % 16 == 0 for p in bases):
+        return "wgmma"
+    return "mma_sync"
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -71,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Attention of q, k, v (B, H, L, D), f32 or bf16, contiguous; returns
     (B, H, L, D) in q's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel on the route :func:`attention_route` picks."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     if q.device.type != "cuda":
@@ -84,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
-            L, D, int(q.dtype == torch.bfloat16),
+            L, D, ROUTES[attention_route(q, k, v)],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention launch failed: "

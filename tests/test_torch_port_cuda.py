@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the fused
-ConvBlock kernel and the flash-attention kernel against their plain versions
-on the card, and the U-Net's kernel path against its plain path.
+ConvBlock kernel and the flash-attention kernel (each of its routes) against
+their plain versions on the card, and the U-Net's kernel path against its
+plain path.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -12,6 +13,7 @@ import torch
 
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+    attention_route,
     conv_route,
     flash_attention,
     flash_attention_reference,
@@ -195,6 +197,104 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :, :32].contiguous(), q)
     assert flash_attention.launches == before
+
+
+def _qkv(device, B, H, L, D, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, H, L, D, generator=g, device=device)
+            .to(torch.bfloat16) for _ in range(3)]
+
+
+def _plain_in_chunks(q, k, v):
+    """The plain version over chunks of B, so that its f32 scores stay near
+    2 GB."""
+    B, H, L, _ = q.shape
+    step = max(1, (1 << 31) // (H * L * L * 4))
+    return torch.cat([flash_attention_reference(q[i:i + step], k[i:i + step],
+                                                v[i:i + step])
+                      for i in range(0, B, step)])
+
+
+def _assert_within_p_rounding(out, q, k, v):
+    """The bf16 kernel against the exact attention (f64) of the same inputs,
+    where outputs may cancel.  The kernel rounds each unnormalised p_i to
+    bf16 (unit roundoff 2^-8) and then the output, so it is off by at most
+    2^-8 (sum_i p_i |v_i| + |out|), up to second-order terms and the f32
+    sums; sum_i p_i |v_i| is |out| only where the terms do not cancel."""
+    qd, kd, vd = (a.double() for a in (q, k, v))
+    p = torch.softmax(qd @ kd.transpose(-1, -2) / q.shape[-1] ** 0.5, dim=-1)
+    exact = p @ vd
+    bound = 1e-4 + 1.02 * 2 ** -8 * (p @ vd.abs() + exact.abs())
+    excess = (out.double() - exact).abs() - bound
+    assert excess.max() <= 0, f"outside by {excess.max().item()}"
+
+
+# the wgmma route's tiling: L around the 128-key tile (1, 64, 127, 128,
+# 129) and the serving lengths (4000, 4096), both head widths; V is drawn
+# apart from K, so a wrong transpose of V could not pass.  Short rows mix
+# few keys, so an output may cancel: the bound of _assert_within_p_rounding
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 64, 127, 128, 129, 4000, 4096])
+def test_flash_attention_wgmma_route_matches_plain_version(cuda, L, D):
+    q, k, v = _qkv(cuda, 2, 3, L, D, seed=L + D)
+    assert attention_route(q, k, v) == "wgmma"
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_within_p_rounding(out, q, k, v)
+
+
+@pytest.mark.parametrize("L", [4000, 4096])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_wgmma_route_at_the_serving_batch(cuda, D, L):
+    # B * H = 128 heads at the serving length and a ragged one: more work
+    # items than SMs, so each CTA of the persistent grid walks several
+    q, k, v = _qkv(cuda, 32, 4, L, D, seed=D + L)
+    assert attention_route(q, k, v) == "wgmma"
+    out = flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(), _plain_in_chunks(q, k, v).float(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_keeps_heads_apart(cuda, D):
+    # at a ragged L, each head alone is bit-equal to the same head in the
+    # batch: no tile reads past its own head's rows
+    q, k, v = _qkv(cuda, 2, 3, 1000, D, seed=7)
+    batched = flash_attention(q, k, v)
+    for b in range(2):
+        for h in range(3):
+            one = [a[b:b + 1, h:h + 1].contiguous() for a in (q, k, v)]
+            assert torch.equal(flash_attention(*one), batched[b:b + 1, h:h + 1])
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_takes_large_scores(cuda, route, D):
+    # scores x30 (softmax std about 30 in natural units): alpha far from 1 at
+    # every new row max, and -inf keys past the ragged L = 777.  So peaked a
+    # softmax often splits an output between two keys of opposite sign, and
+    # both routes then need the bound of _assert_within_p_rounding
+    q, k, v = _qkv(cuda, 2, 2, 777, D, seed=30 + D)
+    q = (q.float() * 30).to(torch.bfloat16)
+    if route == "mma_sync":   # the same inputs one element past an aligned base
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+    assert attention_route(q, k, v) == route
+    _assert_within_p_rounding(flash_attention(q, k, v), q, k, v)
+
+
+def test_flash_attention_misaligned_base_takes_mma_sync(cuda):
+    q, k, v = _qkv(cuda, 2, 2, 300, 64, seed=11)
+    buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(q.shape)          # 2 bytes past an aligned base
+    shifted.copy_(q)
+    assert attention_route(shifted, k, v) == "mma_sync"
+    assert attention_route(q, k, v) == "wgmma"
+    out = flash_attention(shifted, k, v)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_reference(q, k, v).float(),
+                               **ATTN_TOL[torch.bfloat16])
 
 
 def test_attention_unet_kernel_path_matches_plain_path(cuda, monkeypatch):

@@ -73,8 +73,18 @@ def test_build_names_library_by_source_digest(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     first = _build.library_path("k")
     src.write_text("// two\n")
-    assert _build.library_path("k") != first     # an edit forces a rebuild
+    second = _build.library_path("k")
+    assert second != first                       # an edit forces a rebuild
     assert first.parent == _build.BUILD_DIR
+    header = tmp_path / "shared.cuh"
+    header.write_text("// helpers\n")
+    third = _build.library_path("k")
+    assert third != second                       # so does a new header
+    header.write_text("// helpers, edited\n")
+    fourth = _build.library_path("k")
+    assert fourth != third                       # and an edited one
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert _build.library_path("k") == fourth    # other files do not count
 
 
 @pytest.mark.parametrize("Cin,Cout", [(7, 16), (40, 24), (64, 64), (130, 72)])
