@@ -55,7 +55,26 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              ``--input-npy``.  Launches counted in both runs; a small f32
              configuration of ``reconstruct`` is checked against the CPU
              plain path.
-7. kernels - one ``{"kernels": [...]}`` line, then the last line
+7. op_overhead - host time of one launch of each kernel: its launch body
+             alone, its registered op called directly, and the public
+             wrapper; what the registration adds.
+8. export  - per flagship, the serving artifact: ``export_sampler`` on the
+             card from the infer phase's checkpoint (serving batch and
+             knobs; export time, ``.pt2`` size, the ops in its graph),
+             ``load_exported`` in this process and in a fresh one, each
+             replay bit-equal to ``build_serving_fn`` at the same seed, the
+             launches of one replay (K1 7 x 9, attn16k's K2 9, all
+             ``flash_fwd_wgmma`` in a profiled replay), the artifact's
+             latency against the live function's (median of 5 each, in
+             turns), ``validate_export``, ``tools/bench_serving``, and
+             ``gw-serve`` in batch mode (6 requests, one chunk padded) and
+             over HTTP on an ephemeral port (a POST, ``/contract``,
+             ``/healthz``, a wrong shape answered 400 with the server
+             alive).
+9. autograd_refusal - a grad-enabled CUDA forward raises, naming the op.
+10. bench  - the port's ``bench.py`` (its own JSON line printed as it is)
+             and ``graft_entry.entry()``, each with K1's launches.
+11. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
@@ -140,23 +159,6 @@ def cuda_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def randomize_(torch, model, seed):
-    """Fill every parameter from a seeded generator (the init leaves the
-    final conv and the biases at zero): kernels N(0, 1/fan_in), GroupNorm
-    scales 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            z = torch.randn(p.shape, generator=g)
-            if name.endswith("kernel"):
-                z = z / float(np.prod(p.shape[:-1])) ** 0.5
-            elif name.endswith("scale"):
-                z = 1.0 + 0.1 * z
-            else:
-                z = 0.1 * z
-            p.copy_(z)
 
 
 def convblock_shapes(model, L):
@@ -396,6 +398,7 @@ def check_launches(launch_counts, want, what):
 
 
 def phase_model(torch, config, rows, L):
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
         flash_attention_reference,
@@ -405,7 +408,7 @@ def phase_model(torch, config, rows, L):
     )
 
     model = unet.UNet1D(**PATHS[config]["model"], device="cuda")
-    randomize_(torch, model, 1)
+    randomize_(model, 1)
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(rows, 7, L, generator=g, device="cuda")
     t = torch.tensor([0, 250, 600, 999][-rows:], device="cuda")
@@ -450,6 +453,7 @@ def serving_config(schedule, steps):
 def phase_serving_small(torch):
     """A small f32 configuration: the card's path against the CPU plain
     path."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
         launch_counts,
@@ -469,7 +473,7 @@ def phase_serving_small(torch):
     small = dict(in_ch=7, base_ch=16, time_dim=32, depth=2, cond_in_ch=5,
                  use_selfcond=True)
     m_gpu = UNet1D(**small, device="cuda")
-    randomize_(torch, m_gpu, 3)
+    randomize_(m_gpu, 3)
     m_cpu = UNet1D(**small, device="cpu")
     m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
     cfg_small, _, n_steps = serving_config(schedule, 3)
@@ -495,6 +499,7 @@ def phase_serving_small(torch):
 def phase_serving(torch, config):
     """One main path at full width in bf16: the launches of one run, five
     timed runs, one profiled run."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
         launch_counts,
@@ -512,7 +517,7 @@ def phase_serving(torch, config):
     schedule = make_schedule(1000, "cosine")
     cfg, sampler, n_steps = serving_config(schedule, SERVING_STEPS)
     model = UNet1D(**path["model"], dtype=torch.bfloat16, device="cuda")
-    randomize_(torch, model, 6)
+    randomize_(model, 6)
     fn = build_serving_fn(schedule, cfg, sampler=sampler, avg_seeds=seeds,
                           avg_mode="mean", amp_calib="mf", device="cuda")
     rng = np.random.default_rng(7)
@@ -617,9 +622,10 @@ def infer_args(model_kw):
             "sigma_mode": "std", "meta_scale": {"M": 80.0, "q": 10.0}}
 
 
-def write_checkpoint(torch, model_kw, args, path, seed):
+def write_checkpoint(model_kw, args, path, seed):
     """Seeded random raw and EMA weights (apart from each other) through the
     port's writer; returns the EMA state_dict."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.checkpoint import (
         save_checkpoint,
@@ -627,8 +633,8 @@ def write_checkpoint(torch, model_kw, args, path, seed):
 
     raw = UNet1D(**model_kw, device="cpu")
     ema = UNet1D(**model_kw, device="cpu")
-    randomize_(torch, raw, seed)
-    randomize_(torch, ema, seed + 1)
+    randomize_(raw, seed)
+    randomize_(ema, seed + 1)
     save_checkpoint(path, raw.state_dict(), args, epoch=1,
                     model_ema_state=ema.state_dict())
     return ema.state_dict()
@@ -657,7 +663,7 @@ def phase_infer_small(torch, tmp):
     small = dict(in_ch=7, base_ch=16, time_dim=32, depth=2, cond_in_ch=5,
                  use_selfcond=True, t_embed_max_time=999.0)
     path = os.path.join(tmp, "small.msgpack")
-    write_checkpoint(torch, small, dict(infer_args(small), bf16=False), path, 8)
+    write_checkpoint(small, dict(infer_args(small), bf16=False), path, 8)
     m_gpu, schedule, _ = inference.load_model(path, device="cuda")
     m_cpu, _, _ = inference.load_model(path, device="cpu")
     clean, noise, P = synth_measurement(512, 4096.0, 9)
@@ -712,7 +718,7 @@ def phase_infer(torch, config, tmp):
     args = infer_args(path["model"])
     ckpt = os.path.join(tmp, f"{config}.msgpack")
     t0 = time.perf_counter()
-    ema = write_checkpoint(torch, dict(path["model"], t_embed_max_time=999.0),
+    ema = write_checkpoint(dict(path["model"], t_embed_max_time=999.0),
                            args, ckpt, 11)
     write_s = time.perf_counter() - t0
     # load_model's two stages, each timed on its own: the file read, then
@@ -872,11 +878,383 @@ def phase_infer(torch, config, tmp):
     return launches, cli_launches
 
 
+def host_us_per_call(torch, fn, calls=300):
+    """Host time per call of ``fn`` in us: the enqueue of ``calls`` calls,
+    on a shape small enough that the device keeps up; then a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * enqueue_s / calls
+
+
+def phase_op_overhead(torch):
+    """What the op registration adds to the host time of one launch: the
+    launch body alone, the registered op called directly, the public
+    wrapper (checks, the autograd refusal, the op) and, for K1, the body
+    behind a low-level ``torch.library.Library`` registration; in turns
+    (each way, then each again in reverse order)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        conv_gn_silu as k1,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels.flash_attention import (
+        _launch as k2_launch,
+        flash_attention,
+        flash_attention_op,
+    )
+
+    # the same launch body behind a low-level registration (one trip into
+    # Python per call, no autograd layer), to price custom_op's layers
+    probe = torch.library.Library("gwport_probe", "DEF")
+    probe.define("conv_gn_silu(Tensor x, Tensor W, Tensor b, Tensor s, "
+                 "Tensor bb, int groups, float eps) -> Tensor")
+    probe.impl("conv_gn_silu", k1._launch, "CUDA")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(2, 128, 64, generator=g, device="cuda").to(torch.bfloat16)
+    W = torch.randn(3, 64, 64, generator=g, device="cuda") / 14.0
+    b, s, bb = (torch.randn(64, generator=g, device="cuda") for _ in range(3))
+    q, k, v = (torch.randn(1, 2, 128, 64, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    probe_op = torch.ops.gwport_probe.conv_gn_silu.default
+    ways = {
+        "conv_gn_silu": {
+            "body": lambda: k1._launch(x, W, b, s, bb, 8, 1e-5),
+            "op": lambda: k1.conv_gn_silu_op(x, W, b, s, bb, 8, 1e-5),
+            "wrapper": lambda: k1.fused_conv_gn_silu(x, W, b, s, bb, 8),
+            "library_impl": lambda: probe_op(x, W, b, s, bb, 8, 1e-5)},
+        "flash_attention": {
+            "body": lambda: k2_launch(q, k, v),
+            "op": lambda: flash_attention_op(q, k, v),
+            "wrapper": lambda: flash_attention(q, k, v)}}
+    for name, fns in ways.items():
+        us = {way: [] for way in fns}
+        with torch.no_grad():
+            for way in list(fns) + list(reversed(fns)):
+                us[way].append(host_us_per_call(torch, fns[way]))
+        rec = {way: float(np.mean(v)) for way, v in us.items()}
+        emit({"phase": "op_overhead", "kernel": name, "calls": 300,
+              "shape": list((x if name == "conv_gn_silu" else q).shape),
+              "host_us_per_call": rec, "runs_us": us,
+              "registration_us": rec["op"] - rec["body"],
+              "wrapper_us_over_body": rec["wrapper"] - rec["body"]})
+
+
+def phase_autograd_refusal(torch):
+    """A CUDA forward that autograd would record raises, naming the op; the
+    same forward under no_grad runs."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
+
+    model = UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2, cond_in_ch=5,
+                   use_selfcond=True, use_attention=True, device="cuda")
+    x = torch.randn(2, 7, 256, device="cuda")
+    t = torch.tensor([3, 700], device="cuda")
+    try:
+        model(x, t)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "gwport::conv_gn_silu" in raised
+          and "P8" in raised, f"a grad-enabled CUDA forward gave {raised!r}")
+    with torch.no_grad():
+        out = model(x, t)
+    check(bool(torch.isfinite(out).all()), "no_grad forward finite")
+    emit({"phase": "autograd_refusal", "raised": raised})
+
+
+def served_inputs(n, L, seed):
+    rng = np.random.default_rng(seed)
+    cond = np.empty((n, 5, L), np.float32)
+    cond[:, 0] = rng.standard_normal((n, L))
+    cond[:, 1:] = rng.uniform(0.0, 1.0, (n, 4, 1))
+    return cond, rng.uniform(0.5, 2.0, n).astype(np.float32)
+
+
+def phase_export(torch, config, tmp):
+    """The serving artifact of one flagship, from the bf16 checkpoint that
+    the infer phase wrote: export on the card, replay against the live
+    function (bit-equal, in this process and in a fresh one), its launches
+    and K2's kernel names, latency against the live function, then
+    ``validate_export``, ``tools/bench_serving``, ``gw-serve`` in batch
+    mode and over HTTP.  Returns the launches of one replay."""
+    import contextlib
+    import http.client
+    import io
+    import threading
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import serving
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import serve as serve_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        build_lambda_t_schedule,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools import bench_serving
+
+    path = PATHS[config]
+    L, seeds = path["L"], path["seeds"]
+    ckpt = os.path.join(tmp, f"{config}.msgpack")
+    art = os.path.join(tmp, f"{config}.pt2")
+    knobs = dict(steps=SERVING_STEPS, ladder="lambda", cfg_scale=1.5,
+                 avg_seeds=seeds, avg_mode="mean", amp_calib="mf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contract = serving.export_sampler(ckpt, art, batch=SERVING_REQUESTS,
+                                      length=L, device="cuda", **knobs)
+    export_s = time.perf_counter() - t0
+    ops_in_graph = contract["ops"]
+    t0 = time.perf_counter()
+    call, contract2 = serving.load_exported(art)
+    load_s = time.perf_counter() - t0
+    check(contract2 == contract and contract["platforms"] == ["cuda"],
+          f"{config}: sidecar {contract2}")
+
+    model, schedule, ck = inference.load_model(ckpt, device="cuda")
+    cfg, sampler = serving.resolve_serving_config(
+        ck, schedule, steps=SERVING_STEPS, ladder="lambda", cfg_scale=1.5)
+    live = serving.build_serving_fn(schedule, cfg, sampler=sampler,
+                                    avg_seeds=seeds, avg_mode="mean",
+                                    amp_calib="mf", device="cuda")
+    n_steps = len(build_lambda_t_schedule(schedule, cfg.steps, cfg.start_t))
+    want_launches = expected_launches(model, n_steps)
+    check(ops_in_graph["conv_gn_silu"] == want_launches["conv_gn_silu"]
+          and ops_in_graph["flash_attention"]
+          == want_launches["flash_attention"],
+          f"{config}: the graph holds {ops_in_graph}, not {want_launches}")
+    cond, sig = served_inputs(SERVING_REQUESTS, L, 21)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = call(cond, sig, 5)
+    torch.cuda.synchronize()
+    launches = check_launches(launch_counts, want_launches,
+                              f"{config} artifact replay")
+    want = live(model, cond, sig, 5)
+    max_diff = float((got - want).abs().max())
+    check(torch.equal(got, want), f"{config}: artifact vs live function, "
+                                  f"max abs diff {max_diff}")
+    check(tuple(got.shape) == (SERVING_REQUESTS, L)
+          and bool(torch.isfinite(got).all()), f"{config}: artifact output")
+
+    # a fresh process: load, replay at the same seed, count the launches
+    npz = os.path.join(tmp, f"{config}_req.npz")
+    out_npy = os.path.join(tmp, f"{config}_sub.npy")
+    np.savez(npz, cond_stack=cond, sigmas=sig)
+    code = (
+        "import json, time\n"
+        "t0 = time.perf_counter()\n"
+        "import numpy as np, torch\n"
+        "from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.serving import load_exported\n"
+        "from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import launch_counts\n"
+        "t1 = time.perf_counter()\n"
+        f"call, _ = load_exported({art!r})\n"
+        "t2 = time.perf_counter()\n"
+        f"d = np.load({npz!r})\n"
+        "out = call(d['cond_stack'], d['sigmas'], 5).cpu().numpy()\n"
+        "t3 = time.perf_counter()\n"
+        f"np.save({out_npy!r}, out)\n"
+        "print(json.dumps({'launches': launch_counts(), 'import_s': t1 - t0,"
+        " 'load_s': t2 - t1, 'first_call_s': t3 - t2}))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=str(Path(__file__).resolve().parent))
+    sub_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"{config}: the fresh process failed: "
+                               f"{res.stderr[-2000:]}")
+    sub = json.loads(res.stdout.strip().splitlines()[-1])
+    sub_launches = sub.pop("launches")
+    sub_equal = bool(np.array_equal(np.load(out_npy), want.cpu().numpy()))
+    check(sub_equal and sub_launches == want_launches,
+          f"{config}: fresh process equal={sub_equal}, launches "
+          f"{sub_launches}")
+
+    # latency: artifact and live function in turns, median of 5 each
+    runs = {"artifact": [], "live": []}
+    for seed in range(1, 1 + SERVING_TIMED_RUNS):
+        for way in ("artifact", "live") if seed % 2 else ("live", "artifact"):
+            t0 = time.perf_counter()
+            (call(cond, sig, seed) if way == "artifact"
+             else live(model, cond, sig, seed))
+            torch.cuda.synchronize()
+            runs[way].append(time.perf_counter() - t0)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call(cond, sig, 99)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / f"export_{config}_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    breakdown = device_breakdown(trace, wall_us)
+    k2_seen = breakdown["k2_launches_by_kernel"]
+    check(sum(k2_seen.values()) == want_launches["flash_attention"]
+          and all("flash_fwd_wgmma" in name for name in k2_seen),
+          f"{config}: the replay's trace holds K2 launches {k2_seen}")
+
+    peak = serving.validate_export(art)
+    check(np.isfinite(peak) and peak > 0, f"{config}: validate {peak}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_serving.main(["--artifact", art, "--reps", "5"])
+    check(rc == 0, f"{config}: bench_serving rc {rc}")
+    bench_rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    # gw-serve, batch mode: 6 requests at batch 4, the second chunk padded
+    cond6, sig6 = served_inputs(6, L, 22)
+    req, resp = os.path.join(tmp, f"{config}_6.npz"), os.path.join(
+        tmp, f"{config}_6_out.npz")
+    np.savez(req, cond_stack=cond6, sigmas=sig6)
+    t0 = time.perf_counter()
+    rc = serve_cli.main(["--artifact", art, "--input", req, "--output", resp,
+                         "--seed", "3", "--device", "cuda"])
+    serve_batch_s = time.perf_counter() - t0
+    x6 = np.load(resp)["x0_white"]
+    check(rc == 0 and x6.shape == (6, L) and bool(np.isfinite(x6).all()),
+          f"{config}: gw-serve batch rc {rc}, shape {x6.shape}")
+    check(np.array_equal(x6, serving.run_batched(call, contract, cond6, sig6,
+                                                 seed=3)),
+          f"{config}: gw-serve batch differs from run_batched")
+
+    # gw-serve over HTTP on an ephemeral port
+    srv = serve_cli.make_server(art, port=0, device="cuda")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    http_rec = {}
+    try:
+        host, port = srv.server_address[:2]
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        body = io.BytesIO()
+        np.savez(body, cond_stack=cond6, sigmas=sig6, seed=np.int32(3))
+        t0 = time.perf_counter()
+        conn.request("POST", "/reconstruct", body=body.getvalue())
+        r = conn.getresponse()
+        x_http = np.load(io.BytesIO(r.read()))["x0_white"]
+        http_rec["post_s"] = time.perf_counter() - t0
+        http_rec["post_status"] = r.status
+        check(r.status == 200 and np.array_equal(x_http, x6),
+              f"{config}: POST /reconstruct {r.status}")
+        conn.request("GET", "/contract")
+        r = conn.getresponse()
+        http_rec["contract_status"] = r.status
+        check(r.status == 200 and json.loads(r.read()) == contract,
+              f"{config}: GET /contract")
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        check(r.status == 200 and r.read() == b"ok", f"{config}: /healthz")
+        bad = io.BytesIO()
+        np.savez(bad, cond_stack=cond6[:, :, :L // 2], sigmas=sig6)
+        conn.request("POST", "/reconstruct", body=bad.getvalue())
+        r = conn.getresponse()
+        r.read()
+        http_rec["wrong_shape_status"] = r.status
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        r.read()
+        http_rec["healthz_after"] = r.status
+        check(http_rec["wrong_shape_status"] == 400
+              and http_rec["healthz_after"] == 200,
+              f"{config}: wrong shape gave {http_rec}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    check(not th.is_alive(), f"{config}: the HTTP server did not stop")
+
+    emit({"phase": "export", "config": f"{config} bf16", "L": L,
+          "requests": SERVING_REQUESTS, "avg_seeds": seeds,
+          "steps": SERVING_STEPS, "ladder_steps": n_steps,
+          "export_s": export_s, "artifact_bytes": contract["artifact_bytes"],
+          "artifact_mb": contract["artifact_bytes"] / 1e6,
+          "load_s": load_s, "ops_in_graph": ops_in_graph,
+          "replay_launches": launches, "equal_to_live": True,
+          "fresh_process": {"equal_to_live": sub_equal,
+                            "launches": sub_launches, "seconds": sub_s,
+                            **sub},
+          "artifact_s": float(np.median(runs["artifact"])),
+          "live_s": float(np.median(runs["live"])),
+          "runs_s": runs, "validate_peak": peak,
+          "serve_batch": {"requests": 6, "seconds": serve_batch_s},
+          "http": http_rec})
+    emit({"phase": "export_profile", "config": f"{config} bf16",
+          "profiled_runs": 1, "trace": str(trace.relative_to(TRACES.parent)),
+          **breakdown})
+    emit({"phase": "bench_serving", "config": f"{config} bf16", **bench_rec})
+    return launches
+
+
+def phase_bench(torch):
+    """The port's ``bench.py`` and ``entry()`` once each, with K1's
+    launches; returns the launches of both."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import bench, graft_entry
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = bench.run()
+    seconds = time.perf_counter() - t0
+    runs = (1 + bench.REPS) * (bench.SCAN_STEPS + bench.LONG)
+    bench_launches = check_launches(
+        launch_counts, {"conv_gn_silu": (2 * bench.MODEL["depth"] + 1) * runs,
+                        "flash_attention": 0}, "bench")
+    print(json.dumps(rec), flush=True)         # the bench's own line
+    check(np.isfinite(rec["value"]) and rec["value"] > 0,
+          f"bench value {rec['value']}")
+    emit({"phase": "bench", "seconds": seconds, "launches": bench_launches,
+          "sampler_steps": runs})
+
+    # where a bench step's time goes: one profiled run of 20 steps
+    from torch.profiler import ProfilerActivity, profile
+
+    step = bench.make_run(*bench.setup(), 20)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / "bench_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    emit({"phase": "bench_profile", "profiled_steps": 20,
+          "trace": str(trace.relative_to(TRACES.parent)),
+          **device_breakdown(trace, wall_us)})
+
+    reset_launch_counts()
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = check_launches(
+        launch_counts, {"conv_gn_silu": 7, "flash_attention": 0}, "entry()")
+    check(tuple(out.shape) == (8, 1, 4096) and bool(torch.isfinite(out).all()),
+          f"entry() output {tuple(out.shape)}")
+    emit({"phase": "entry", "shape": list(out.shape),
+          "launches": entry_launches,
+          "out_abs_max": float(out.abs().max())})
+    return bench_launches, entry_launches
+
+
+
 def kernels_line(k1, k2, launches):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
     of each main path at its serving batch, K2 at attn16k's serving shape
     (both also at the infer batch of 8 rows); launches summed over the
-    main-path runs (serving, infer, infer CLI)."""
+    main-path runs (serving, infer, infer CLI, the artifact's replay, the
+    bench and ``entry()``)."""
     k1_paths = {}
     for config, path in PATHS.items():
         recs = [r for r in k1 if r["config"] == config
@@ -1011,6 +1389,12 @@ def main():
         for config in PATHS:
             (launches[f"{config} infer"],
              launches[f"{config} infer cli"]) = phase_infer(torch, config, tmp)
+        phase_op_overhead(torch)
+        for config in PATHS:
+            launches[f"{config} export replay"] = phase_export(torch, config,
+                                                               tmp)
+    phase_autograd_refusal(torch)
+    launches["bench"], launches["entry"] = phase_bench(torch)
 
     emit(kernels_line(k1, k2, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-Each wrapper carries a plain integer ``launches`` that it raises by one each
-time it launches its kernel (never for the plain version).
+Each wrapper carries a plain integer ``launches`` that its registered op
+raises by one each time it launches the kernel (never for the plain
+version), so a replay of an exported program counts too.
 """
 from .conv_gn_silu import (
     conv3_same,

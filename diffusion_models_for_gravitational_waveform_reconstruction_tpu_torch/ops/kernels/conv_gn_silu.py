@@ -4,11 +4,15 @@ Counterpart of ``ops/pallas/fused.py`` in the JAX package.  The kernel is
 hand-written CUDA for Hopper (``csrc/conv_gn_silu.cu``, which states what
 bounds it and how it is laid out); this module holds its plain PyTorch
 version and the wrapper.  The wrapper runs the plain version for a tensor on
-the CPU and the kernel for a tensor on a CUDA device; anything else, or an
-input the kernel does not take, raises.
+the CPU and, for a tensor on a CUDA device, the registered op
+``gwport::conv_gn_silu``, whose CUDA body launches the kernel; anything
+else, or an input the kernel does not take, raises.  The op is what
+``torch.export`` records, so an exported program launches the kernel and
+advances ``launches`` when it is replayed.
 
 The kernel's conv pass takes one of three routes, chosen from x alone
-(:func:`conv_route`): bf16 with Cin % 8 == 0 runs on ``wgmma`` fed by TMA
+(:func:`conv_route`, inside the op's CUDA body, since it reads the base
+address): bf16 with Cin % 8 == 0 runs on ``wgmma`` fed by TMA
 from weights packed once per call (:func:`pack_weights_reference` is the
 pack's plain version); other bf16 inputs run on ``mma.sync``; f32 runs on
 the FMA units.  All three are the same kernel and count as its launches.
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._op import NAMESPACE, refuse_grad
 
 
 def conv3_same(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -146,20 +151,9 @@ def _check(x, W, b, gn_scale, gn_bias, groups):
             raise TypeError(f"{name} must be float32, got {v.dtype}")
 
 
-def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
-                       gn_scale: torch.Tensor, gn_bias: torch.Tensor,
-                       groups: int, eps: float = 1e-5) -> torch.Tensor:
-    """The whole ConvBlock (conv k=3 SAME + GN + SiLU): x (B, L, Cin) f32 or
-    bf16, W (3, Cin, Cout) in flax layout, b / gn_scale / gn_bias (Cout,) f32;
-    returns (B, L, Cout) in x's dtype.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
-                                            groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv_gn_silu runs on cpu or cuda, not "
-                         f"{x.device}")
-    _check(x, W, b, gn_scale, gn_bias, groups)
+def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float):
+    """Allocate the output and scratch and launch the kernel on the route
+    :func:`conv_route` picks; raises if the launch fails."""
     B, L, Cin = x.shape
     Cout = W.shape[2]
     lib = _lib()
@@ -187,8 +181,43 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError("conv_gn_silu launch failed: "
                            + lib.conv_gn_silu_error_string(rc).decode())
+    return out
+
+
+@torch.library.custom_op(f"{NAMESPACE}::conv_gn_silu", mutates_args=(),
+                         device_types="cuda")
+def conv_gn_silu_op(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                    gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                    groups: int, eps: float) -> torch.Tensor:
+    """The kernel as a registered op (CUDA only): one launch, counted."""
+    out = _launch(x, W, b, gn_scale, gn_bias, groups, eps)
     fused_conv_gn_silu.launches += 1
     return out
+
+
+@conv_gn_silu_op.register_fake
+def _(x, W, b, gn_scale, gn_bias, groups, eps):
+    return x.new_empty((x.shape[0], x.shape[1], W.shape[2]))
+
+
+def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                       gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                       groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """The whole ConvBlock (conv k=3 SAME + GN + SiLU): x (B, L, Cin) f32 or
+    bf16, W (3, Cin, Cout) in flax layout, b / gn_scale / gn_bias (Cout,) f32;
+    returns (B, L, Cout) in x's dtype.  CPU tensors take the plain version;
+    CUDA tensors go through the registered op, which launches the kernel.
+    On CUDA a forward that autograd would record raises: the op has no
+    backward yet."""
+    if x.device.type == "cpu":
+        return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
+                                            groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_gn_silu runs on cpu or cuda, not "
+                         f"{x.device}")
+    _check(x, W, b, gn_scale, gn_bias, groups)
+    refuse_grad("conv_gn_silu", x, W, b, gn_scale, gn_bias)
+    return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps))
 
 
 fused_conv_gn_silu.launches = 0

@@ -4,15 +4,17 @@ Counterpart of ``ops/pallas/attention.py`` in the JAX package.  The kernel is
 hand-written CUDA for Hopper (``csrc/flash_attention.cu``, which states what
 bounds it and how it is laid out); this module holds its plain PyTorch
 version and the wrapper.  The wrapper runs the plain version for a tensor on
-the CPU and the kernel for a tensor on a CUDA device; anything else, or an
+the CPU and, for a tensor on a CUDA device, the registered op
+``gwport::flash_attention``, whose CUDA body launches the kernel (so an
+exported program launches it too, and counts it); anything else, or an
 input the kernel does not take, raises.  Any L >= 1 is taken: the kernel
 masks its own ragged edge.
 
 The kernel takes one of three routes, chosen from the inputs alone
-(:func:`attention_route`): bf16 with D 64 or 128 and q, k, v on 16-byte
-aligned bases runs both products on ``wgmma`` fed by TMA; other bf16 inputs
-run on ``mma.sync``; f32 runs on the FMA units.  All three are the same
-kernel and count as its launches.
+(:func:`attention_route`, inside the op's CUDA body): bf16 with D 64 or
+128 and q, k, v on 16-byte aligned bases runs both products on ``wgmma``
+fed by TMA; other bf16 inputs run on ``mma.sync``; f32 runs on the FMA
+units.  All three are the same kernel and count as its launches.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 import torch
 
 from . import _build
+from ._op import NAMESPACE, refuse_grad
 
 MAX_HEAD_DIM = 256   # MAX_D of csrc/flash_attention.cu: its widest template
 # the kernel's routes, by the code the C interface takes
@@ -89,17 +92,9 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Attention of q, k, v (B, H, L, D), f32 or bf16, contiguous; returns
-    (B, H, L, D) in q's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the route :func:`attention_route` picks."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    _check(q, k, v)
+def _launch(q, k, v):
+    """Allocate the output and launch the kernel on the route
+    :func:`attention_route` picks; raises if the launch fails."""
     B, H, L, D = q.shape
     lib = _lib()
     out = torch.empty_like(q)
@@ -111,8 +106,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if rc != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
+    return out
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """The kernel as a registered op (CUDA only): one launch, counted."""
+    out = _launch(q, k, v)
     flash_attention.launches += 1
     return out
+
+
+@flash_attention_op.register_fake
+def _(q, k, v):
+    return torch.empty_like(q)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Attention of q, k, v (B, H, L, D), f32 or bf16, contiguous; returns
+    (B, H, L, D) in q's dtype.  CPU tensors take the plain version; CUDA
+    tensors go through the registered op, which launches the kernel on the
+    route :func:`attention_route` picks.  On CUDA a forward that autograd
+    would record raises: the op has no backward yet."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check(q, k, v)
+    refuse_grad("flash_attention", q, k, v)
+    return flash_attention_op(q, k, v)
 
 
 flash_attention.launches = 0

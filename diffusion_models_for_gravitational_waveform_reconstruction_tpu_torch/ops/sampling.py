@@ -8,9 +8,12 @@ scalars are float32 arithmetic, so each tensor op sees the same f32 scalars.
 cond and uncond run as one doubled batch per step (classifier-free
 guidance as ``out = cu*out_u + cc*out_c``).
 
-Noise comes from a ``torch.Generator`` on the device, or from
-:class:`FixedNoise`, which hands over draws made elsewhere (the tests pass
-JAX's own draws, so both implementations see the same noise).
+Noise comes from a ``torch.Generator`` on the device, from
+:class:`SeededNoise` (each draw a function of a seed and the draw's index,
+through the registered op ``gwport::seeded_normal``, so that an exported
+sampler draws what the live one draws), or from :class:`FixedNoise`, which
+hands over draws made elsewhere (the tests pass JAX's own draws, so both
+implementations see the same noise).
 
 ``ddim_sample(collect_diagnostics=True)`` also returns per-step diagnostics,
 computed on the device, stacked there and moved to the host once after the
@@ -19,11 +22,12 @@ loop.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from .kernels._op import NAMESPACE
 from .schedules import (
     DiffusionSchedule,
     build_lambda_t_schedule,
@@ -108,7 +112,58 @@ class _GeneratorNoise:
         return self.init(shape, dtype, device)
 
 
-Noise = Union[torch.Generator, FixedNoise]
+_MASK64 = (1 << 64) - 1
+
+
+def _stream_seed(seed: int, draw: int) -> int:
+    """splitmix64 of (seed mod 2^32) * 2^32 + (draw mod 2^32): a generator
+    seed per (seed, draw), well mixed in its low 32 bits (the CPU generator
+    keeps only those)."""
+    z = ((((seed & 0xFFFFFFFF) << 32) | (draw & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::seeded_normal", mutates_args=())
+def seeded_normal(seed: torch.Tensor, draw: int, shape: List[int],
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Standard-normal ``shape`` in ``dtype`` on ``device``, a deterministic
+    function of ``seed`` (a 0-d integer tensor, read on the host), ``draw``
+    and the shape: drawn by a generator on ``device`` seeded from
+    :func:`_stream_seed`."""
+    g = torch.Generator(device=device).manual_seed(
+        _stream_seed(int(seed), draw))
+    return torch.randn(shape, generator=g, dtype=dtype, device=device)
+
+
+@seeded_normal.register_fake
+def _(seed, draw, shape, dtype, device):
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+class SeededNoise:
+    """Draws of :func:`seeded_normal` from one seed: ``init`` and each
+    ``step`` take the next draw index (0, 1, ...), so the passes of a
+    refined sampler that share this source draw fresh noise.  The seed is
+    kept an int32 tensor on the CPU, so a draw waits on no device."""
+
+    def __init__(self, seed):
+        self.seed = torch.as_tensor(seed, dtype=torch.int32, device="cpu")
+        self._draws = 0
+
+    def init(self, shape, dtype, device):
+        z = seeded_normal(self.seed, self._draws, list(shape), dtype,
+                          torch.device(device))
+        self._draws += 1
+        return z
+
+    def step(self, i, shape, dtype, device):
+        return self.init(shape, dtype, device)
+
+
+Noise = Union[torch.Generator, FixedNoise, SeededNoise]
 
 
 def _noise_source(noise: Noise):

@@ -1,5 +1,5 @@
-"""Deployment sampler (counterpart of the device core of the JAX package's
-``serving.py``).
+"""Deployment sampler and its serving artifact (counterpart of the JAX
+package's ``serving.py``).
 
     x0_white (B, L) = fn(model, cond_stack (B, C, L) f32, sigmas (B,) f32, seed)
 
@@ -8,21 +8,37 @@ host prepares it.  The function runs the whole recipe on the device: the
 timestep ladder, CFG, self-conditioning, seed-averaged sampling, the sigma
 rescale and the matched-filter amplitude calibration in float32.
 :func:`run_batched` serves any number of measurements through such a
-function at its fixed batch size.  Exported artifacts and their CLIs are not
-part of the port yet.
+function at its fixed batch size.
+
+:func:`export_sampler` ships the function with a checkpoint's weights inside
+as a ``torch.export`` program (``.pt2``) beside a JSON sidecar that keeps the
+JAX artifact's contract.  The program holds the port's registered ops (the
+kernels and the seeded noise), so loading it needs this package imported,
+and it is traced for one device type: a CUDA artifact launches the kernels,
+a CPU artifact runs their plain versions.  :func:`load_exported` replays it.
 """
 from __future__ import annotations
 
+import json
+import os
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from .inference import apply_distilled_defaults, resolve_start_t
-from .ops.sampling import (SAMPLERS, SamplerConfig, aggregate_seeds,
+from .inference import apply_distilled_defaults, load_model, resolve_start_t
+from .ops.kernels.conv_gn_silu import conv_gn_silu_op
+from .ops.kernels.flash_attention import flash_attention_op
+from .ops.sampling import (SAMPLERS, SamplerConfig, SeededNoise,
+                           aggregate_seeds, seeded_normal,
                            sample_with_refinement)
 from .utils.device import resolve_device
+
+# the calling-convention generation of the sidecar (the JAX package's)
+CONTRACT_VERSION = 1
+ARTIFACT_FORMAT = "torch.export"
 
 
 def resolve_serving_config(ck: dict, schedule, *, sampler: str = "ddim",
@@ -63,21 +79,25 @@ def build_serving_fn(schedule, cfg: SamplerConfig, *, sampler: str = "ddim",
     on ``device`` (default: the GPU).
 
     The batch is tiled seed-major (row s*B + b is seed s of measurement b),
-    sampled in one batch of S*B rows from a generator seeded with ``seed``
-    (or from ``noise`` when given), aggregated over seeds, rescaled by sigma
-    and, with ``amp_calib="mf"``, by the least-squares matched-filter
-    amplitude clipped to [0.25, 4].
+    sampled in one batch of S*B rows with the draws of
+    :class:`ops.sampling.SeededNoise` from ``seed`` (or from ``noise`` when
+    given), aggregated over seeds, rescaled by sigma and, with
+    ``amp_calib="mf"``, by the least-squares matched-filter amplitude
+    clipped to [0.25, 4].  ``seed`` is an int or a 0-d int32 CPU tensor.
     """
     dev = resolve_device(device)
     sample_fn = SAMPLERS[sampler]
     S = max(1, int(avg_seeds))
+    # the samplers read the schedule on the host only; as numpy arrays its
+    # constants stay out of a torch.export trace
+    schedule = type(schedule)(*(np.asarray(a) for a in schedule))
 
     @torch.no_grad()
     def fn(model, cond_stack, sigmas, seed, noise=None):
         cond = torch.as_tensor(cond_stack, dtype=torch.float32, device=dev)
         B = cond.shape[0]
         if noise is None:
-            noise = torch.Generator(device=dev).manual_seed(int(seed))
+            noise = SeededNoise(seed)
         cond_t = cond.repeat(S, 1, 1) if S > 1 else cond
         x0 = sample_with_refinement(sample_fn, model, schedule, cond_t, cfg,
                                     noise)
@@ -144,3 +164,187 @@ def run_batched(call, contract: dict, cond_stack, sigmas, seed: int = 0):
             res = res.cpu().numpy()
         out[lo:hi] = np.asarray(res)[:hi - lo]
     return out
+
+
+class _ServedSampler(nn.Module):
+    """The serving function with the model's weights inside, as one module
+    for ``torch.export``: ``forward(cond_stack, sigmas, seed)``."""
+
+    def __init__(self, model: nn.Module, fn):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, cond_stack, sigmas, seed):
+        return self.fn(self.model, cond_stack, sigmas, seed)
+
+
+def _op_counts(ep) -> dict:
+    """How many nodes of each of the port's registered ops the exported
+    program's graphs hold (no-grad regions are graphs of their own)."""
+    ops = {"conv_gn_silu": conv_gn_silu_op,
+           "flash_attention": flash_attention_op,
+           "seeded_normal": seeded_normal}
+    targets = {op._opoverload: name for name, op in ops.items()}
+    counts = dict.fromkeys(ops, 0)
+    for gm in ep.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                if node.op == "call_function" and node.target in targets:
+                    counts[targets[node.target]] += 1
+    return counts
+
+
+def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
+                   device=None, sampler: str = "ddim",
+                   steps: Optional[int] = None, ladder: Optional[str] = None,
+                   cfg_scale: Optional[float] = None,
+                   start_t: Optional[int] = None, eta: float = 0.0,
+                   avg_seeds: int = 8, avg_mode: str = "mean",
+                   amp_calib: str = "mf", use_ema: bool = True,
+                   dp: int = 1) -> dict:
+    """Export a checkpoint's deployment sampler to ``out_path`` (a
+    ``torch.export`` program, ``.pt2``) plus a ``<out_path>.json`` sidecar;
+    returns the sidecar.
+
+    The model is loaded on ``device`` (default: the GPU) and traced there at
+    the static shapes ``cond_stack (batch, cond_in_ch, length) f32``,
+    ``sigmas (batch,) f32``, ``seed () int32`` (on the CPU), with its
+    weights inside the program.  Trace where you serve: a CUDA export holds
+    the kernels' ops (checked here: K1, and K2 for an attention
+    checkpoint), a CPU export their plain versions.  Knobs resolve as in
+    :func:`resolve_serving_config`.  ``dp > 1`` (an artifact sharded over
+    several cards) is not ported yet."""
+    if int(dp) > 1:
+        raise NotImplementedError(
+            f"export_sampler(dp={dp}): an artifact sharded over several "
+            f"cards waits for P10 (parallelism, ROADMAP.md)")
+    dev = resolve_device(device)
+    model, schedule, ck = load_model(ckpt_path, use_ema=use_ema, device=dev)
+    cfg, sampler = resolve_serving_config(
+        ck, schedule, sampler=sampler, steps=steps, ladder=ladder,
+        cfg_scale=cfg_scale, start_t=start_t, eta=eta)
+    fn = build_serving_fn(schedule, cfg, sampler=sampler, avg_seeds=avg_seeds,
+                          avg_mode=avg_mode, amp_calib=amp_calib, device=dev)
+    cond_in_ch = int(ck.get("cond_in_ch", 1))
+    served = _ServedSampler(model, fn).eval()
+    for p in served.parameters():
+        p.requires_grad_(False)
+    example = (torch.zeros((batch, cond_in_ch, length), dtype=torch.float32,
+                           device=dev),
+               torch.ones((batch,), dtype=torch.float32, device=dev),
+               torch.zeros((), dtype=torch.int32))
+    ep = torch.export.export(served, example, strict=False)
+    counts = _op_counts(ep)
+    if dev.type == "cuda":
+        want = ["conv_gn_silu"] + (["flash_attention"] if model.use_attention
+                                   else [])
+        missing = [name for name in want if counts[name] == 0]
+        if missing:
+            raise RuntimeError(f"the CUDA export holds no {missing} op: "
+                               f"{counts}")
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    torch.export.save(ep, out_path)
+
+    contract = {
+        "contract_version": CONTRACT_VERSION,
+        "calling_convention": calling_convention(batch, cond_in_ch, length),
+        "platforms": [dev.type],
+        "dp": 1,
+        "checkpoint": os.path.abspath(ckpt_path),
+        "ema_weights": bool(use_ema),
+        "knobs": {
+            "sampler": sampler, "steps": cfg.steps, "ladder": cfg.ladder,
+            "start_t": int(cfg.start_t) if cfg.start_t is not None else None,
+            "cfg_scale": cfg.cfg_scale, "eta": cfg.eta,
+            "pred_type": cfg.pred_type, "avg_seeds": avg_seeds,
+            "avg_mode": avg_mode, "amp_calib": amp_calib,
+            "selfcond_mode": cfg.selfcond_mode,
+        },
+        "arch": {k: ck.get(k) for k in ("base_ch", "depth", "time_dim",
+                                        "in_ch", "cond_in_ch", "T",
+                                        "schedule", "use_attention")},
+        # the measurement-prep domain: the ingest host builds cond_stack in
+        # the checkpoint's domain from this block alone
+        "prep": {
+            "whiten": bool(ck.get("whiten", False)),
+            "whiten_mode": str(ck.get("whiten_mode_resolved", "")
+                               or ck.get("whiten_mode", "auto")),
+            "sigma_mode": str(ck.get("sigma_mode", "std")),
+            "sigma_fixed": float(ck.get("sigma_fixed", 1.0)),
+            "meta_scale": dict(ck.get("meta_scale") or {}),
+            "fs": float(ck.get("fs", 4096.0)),
+        },
+        "artifact_bytes": os.path.getsize(out_path),
+        "format": ARTIFACT_FORMAT,
+        "torch": torch.__version__,
+        # the registered ops the program calls, by name: the kernels' once
+        # per launch (none in a CPU artifact), the noise once per draw
+        "ops": counts,
+        "loading": ("torch.export.load needs the ops of "
+                    "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch "
+                    "registered: load with its serving.load_exported"),
+    }
+    with open(out_path + ".json", "w") as fh:
+        json.dump(contract, fh, indent=2)
+    return contract
+
+
+def load_exported(path: str, device=None):
+    """Load an :func:`export_sampler` artifact on ``device`` (default: the
+    GPU); returns ``(call, contract)``.  ``call(cond_stack, sigmas, seed)``
+    takes numpy arrays or tensors of the sidecar's shapes and an int seed
+    and returns ``x0_white (B, L)``, a float32 tensor on the device.
+
+    Refuses an artifact without its sidecar, of another contract version,
+    of another format (a JAX StableHLO artifact) or traced for another
+    device type."""
+    sidecar = path + ".json"
+    if not os.path.exists(sidecar):
+        raise FileNotFoundError(f"missing sidecar {sidecar}")
+    with open(sidecar) as fh:
+        contract = json.load(fh)
+    got = int(contract.get("contract_version", -1))
+    if got != CONTRACT_VERSION:
+        raise ValueError(
+            f"serving artifact {path} has contract_version {got}; this host "
+            f"speaks {CONTRACT_VERSION} — re-export the artifact or upgrade "
+            f"the host")
+    if contract.get("format") != ARTIFACT_FORMAT:
+        raise ValueError(
+            f"serving artifact {path} is not a {ARTIFACT_FORMAT} program "
+            f"(format {contract.get('format')!r}; a JAX StableHLO artifact "
+            f"is served by the JAX package)")
+    dev = resolve_device(device)
+    platforms = list(contract.get("platforms", []))
+    if dev.type not in platforms:
+        raise RuntimeError(
+            f"serving artifact {path} was traced for {platforms}, not "
+            f"{dev.type}: re-export it on the device that serves it")
+    module = torch.export.load(path).module()
+
+    def call(cond_stack, sigmas, seed):
+        cond = torch.as_tensor(cond_stack, dtype=torch.float32).to(dev)
+        sig = torch.as_tensor(sigmas, dtype=torch.float32).to(dev)
+        return module(cond, sig, torch.tensor(int(seed), dtype=torch.int32))
+
+    return call, contract
+
+
+def validate_export(path: str, seed: int = 0, device=None) -> float:
+    """Replay the artifact on random inputs of its sidecar's shapes and
+    return max|output|; raises on a shape violation or a non-finite
+    output.  A cheap check after an export."""
+    call, contract = load_exported(path, device)
+    cc = contract["calling_convention"]
+    B, C, L, _ = cc["inputs"]["cond_stack"]
+    rng = np.random.default_rng(seed)
+    cond = rng.normal(size=(B, C, L)).astype(np.float32)
+    sig = np.ones((B,), np.float32)
+    out = call(cond, sig, seed).cpu().numpy()
+    expect = tuple(cc["output"]["x0_white"][:2])
+    if out.shape != expect:
+        raise ValueError(f"artifact output shape {out.shape} != {expect}")
+    if not np.all(np.isfinite(out)):
+        raise ValueError("artifact produced non-finite output")
+    return float(np.max(np.abs(out)))

@@ -33,3 +33,21 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def randomize_(model: torch.nn.Module, seed: int) -> None:
+    """Fill every parameter of ``model`` from a generator seeded with
+    ``seed`` (the init leaves the final conv and the biases at zero):
+    kernels N(0, 1/fan_in), GroupNorm scales 1 + N(0, 0.1^2), biases
+    N(0, 0.1^2).  Random weights for timing and smoke runs."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=g)
+            if name.endswith("kernel"):
+                z = z / float(np.prod(p.shape[:-1])) ** 0.5
+            elif name.endswith("scale"):
+                z = 1.0 + 0.1 * z
+            else:
+                z = 0.1 * z
+            p.copy_(z)

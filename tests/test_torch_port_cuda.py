@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the fused
 ConvBlock kernel and the flash-attention kernel (each of its routes) against
 their plain versions on the card, the U-Net's kernel path against its
-plain path, a checkpoint written and loaded on the card, and the infer CLI
-on the card.
+plain path, a checkpoint written and loaded on the card, the infer CLI on
+the card, the serving artifact traced on the card (its ops, its replay
+against the live function), and the refusal of a grad-enabled forward.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -16,12 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference, serving
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import infer
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
     launch_counts,
     reset_launch_counts,
+)
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import (
+    seeded_normal,
 )
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
     build_t_schedule,
@@ -408,3 +412,91 @@ def test_infer_cli_on_the_card(cuda, tmp_path):
     assert {"residuals", "seed_spread"} <= set(metrics)
     assert metrics["whiten_kind"] == "train"     # an .npy carries no PSD
     assert len(log.read_text().splitlines()) == n
+
+
+@pytest.fixture(scope="module")
+def cuda_artifact(tmp_path_factory):
+    """A small attention checkpoint's sampler exported on the card (batch 2,
+    L 512, 3 steps, 2 seeds, CFG) and its live function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and the CUDA toolkit")
+    d = tmp_path_factory.mktemp("export")
+    ckpt, art = str(d / "ck.msgpack"), str(d / "sampler.pt2")
+    _small_checkpoint(torch.device("cuda"), ckpt, use_attention=True)
+    knobs = dict(steps=3, cfg_scale=1.5, avg_seeds=2, amp_calib="mf")
+    contract = serving.export_sampler(ckpt, art, batch=2, length=512,
+                                      device="cuda", **knobs)
+    model, schedule, ck = inference.load_model(ckpt, device="cuda")
+    cfg, sampler = serving.resolve_serving_config(ck, schedule, steps=3,
+                                                  cfg_scale=1.5)
+    live = serving.build_serving_fn(schedule, cfg, sampler=sampler,
+                                    avg_seeds=2, amp_calib="mf",
+                                    device="cuda")
+    n = len(build_t_schedule(1000, 3, cfg.start_t))
+    rng = np.random.default_rng(5)
+    cond = rng.standard_normal((2, 5, 512)).astype(np.float32)
+    sig = np.array([0.5, 2.0], np.float32)
+    return art, contract, (lambda seed: live(model, cond, sig, seed)), n, (
+        cond, sig)
+
+
+def test_cuda_artifact_holds_the_ops_and_counts_on_replay(cuda_artifact):
+    art, contract, _, n, (cond, sig) = cuda_artifact
+    assert contract["platforms"] == ["cuda"]
+    # one node per launch: 5 ConvBlocks and one attention per forward
+    assert contract["ops"] == {"conv_gn_silu": 5 * n, "flash_attention": n,
+                               "seeded_normal": 1}
+    call, _ = serving.load_exported(art)
+    reset_launch_counts()
+    out = call(cond, sig, 3)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv_gn_silu": 5 * n, "flash_attention": n}
+    assert out.shape == (2, 512) and bool(torch.isfinite(out).all())
+
+
+def test_cuda_artifact_equals_the_live_function(cuda_artifact):
+    art, _, live, _, (cond, sig) = cuda_artifact
+    call, _ = serving.load_exported(art)
+    for seed in (0, 7):
+        # the same ops on the same inputs: bit-equal
+        assert torch.equal(call(cond, sig, seed), live(seed))
+
+
+def test_cuda_artifact_needs_a_card(cuda_artifact, monkeypatch):
+    art = cuda_artifact[0]
+    with pytest.raises(RuntimeError, match="traced for"):
+        serving.load_exported(art, device="cpu")       # no CPU fallback
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.load_exported(art)
+
+
+def test_grad_enabled_forward_raises(cuda):
+    """The kernels have no backward yet: a CUDA forward that autograd would
+    record raises instead of returning outputs cut off from the
+    parameters; under no_grad it runs."""
+    model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
+                        cond_in_ch=5, use_selfcond=True, use_attention=True,
+                        device=cuda)
+    x = torch.randn(2, 7, 256, device=cuda)
+    t = torch.tensor([3, 700], device=cuda)
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="gwport::conv_gn_silu.*P8"):
+        model(x, t)
+    assert launch_counts() == before                  # nothing launched
+    q = torch.randn(1, 2, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="gwport::flash_attention"):
+        flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert bool(torch.isfinite(model(x, t)).all())
+
+
+def test_seeded_normal_on_the_card(cuda):
+    seed = torch.tensor(11, dtype=torch.int32)
+    a = seeded_normal(seed, 0, [4, 1, 300], torch.float32, cuda)
+    assert a.is_cuda and a.shape == (4, 1, 300)
+    assert torch.equal(a, seeded_normal(seed, 0, [4, 1, 300], torch.float32,
+                                        cuda))
+    assert not torch.equal(a, seeded_normal(seed, 1, [4, 1, 300],
+                                            torch.float32, cuda))
+    assert abs(a.mean().item()) < 0.2 and abs(a.std().item() - 1) < 0.2

@@ -506,7 +506,10 @@ def test_infer_cli_without_jax(corpus, tmp_path):
     modules import, ``load_model`` reads a port-written checkpoint (EMA
     weights taken, outputs equal to the saved model's), the HDF5 reader
     explains that ``--input-npy`` needs no h5py, and the CLI runs on an
-    ``.npy`` measurement."""
+    ``.npy`` measurement.  So do the serving artifact's modules, the export
+    and serve CLIs, the bench, ``entry()`` and the serving bench: they
+    import, and a one-step artifact of the checkpoint is exported, loaded
+    and validated."""
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "flax", "msgpack", "h5py",
@@ -521,6 +524,10 @@ def test_infer_cli_without_jax(corpus, tmp_path):
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils import checkpoint
+        from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import bench, graft_entry, serving
+        from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import export, serve
+        from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools import bench_serving
+        from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils import roofline
         d = {str(tmp_path)!r}
         kw = dict(in_ch=7, base_ch=8, time_dim=16, depth=2, cond_in_ch=5,
                   use_selfcond=True, t_embed_max_time=999, device="cpu")
@@ -551,6 +558,11 @@ def test_infer_cli_without_jax(corpus, tmp_path):
         files = sorted(os.listdir(os.path.join(d, "out")))
         assert [f.split("_")[0] for f in files] == [
             "measurement", "metrics", "recon", "recon"], files
+        art = os.path.join(d, "a.pt2")
+        serving.export_sampler(ck, art, batch=1, length=64, device="cpu",
+                               steps=1, avg_seeds=1)
+        assert serving.validate_export(art, device="cpu") > 0
+        assert bench.flops_per_sampler_step() > 0
         bad = [k for k, v in sys.modules.items() if v is not None
                and k.split(".")[0] in ("jax", "flax", "msgpack", "h5py")]
         assert not bad, bad
