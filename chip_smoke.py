@@ -18,9 +18,12 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
 3. kernel  - K1, the fused ConvBlock kernel, against its plain PyTorch
              version at every ConvBlock shape of pn128 (bf16 at 64 rows, the
              serving batch, and 128 rows; f32 at 128 rows) and of attn16k
-             (bf16 at 32 rows, its serving batch); K2, the flash-attention
-             kernel, at attn16k's bottleneck (32, 4, 4096, 64) in bf16 (and
-             at L 4000), in f32, and at a ragged L and other head widths.
+             (bf16 at 32 rows, its serving batch), at both training paths'
+             batches (16 rows; attn16k at L 32768, pn128 at L 8192) and at
+             the bench's model; K2, the flash-attention kernel, at attn16k's
+             bottleneck (32, 4, 4096, 64) in bf16 (and at L 4000, and at the
+             training batch of 16), in f32, and at a ragged L and other head
+             widths.
              Each with its route, TFLOP/s, time, the plain version's, a
              PyTorch yardstick's (``F.conv1d -> F.group_norm -> F.silu``;
              ``F.scaled_dot_product_attention``) and the roofline bound.
@@ -71,10 +74,26 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              over HTTP on an ephemeral port (a POST, ``/contract``,
              ``/healthz``, a wrong shape answered 400 with the server
              alive).
-9. autograd_refusal - a grad-enabled CUDA forward raises, naming the op.
-10. bench  - the port's ``bench.py`` (its own JSON line printed as it is)
+9. autograd - a grad-enabled CUDA forward launches both kernels (counted)
+             and backpropagates through their registered backwards.
+10. train  - attn16k training at full width (base_ch 64, depth 3,
+             attention, v-prediction, bf16) through ``train(cfg,
+             dataset=...)`` on 64 segments of L 32768 synthesised on the
+             card, batch 16: a counted run with self-conditioning on every
+             step (K1 14 and K2 2 launches a step), a timed run with the
+             recipe's knobs (the trainer's samples/s and MFU, ms per step,
+             peak memory) and one profiled window split into K1 / K2
+             forward, each op's plain backward, the rest of the backward,
+             the rest of the forward, the optimizer with EMA and gate, and
+             idle; then one step's gradients at full width on 4 rows with
+             injected t and eps, kernel path against plain path (f32
+             gradients, bf16 loss); then ``gw-train --data synth:32`` at
+             pn128 width in-process (the loss falls over 40 epochs, the
+             checkpoint goes through ``load_model`` and the infer CLI, a
+             ``--resume`` continues its global step).
+11. bench  - the port's ``bench.py`` (its own JSON line printed as it is)
              and ``graft_entry.entry()``, each with K1's launches.
-11. kernels - one ``{"kernels": [...]}`` line, then the last line
+12. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
@@ -108,6 +127,22 @@ ATTN16K = dict(in_ch=7, base_ch=64, time_dim=128, depth=3,
                use_attention=True)
 PATHS = {"pn128": dict(model=FLAGSHIP, L=4096, seeds=8, rows=64),
          "attn16k": dict(model=ATTN16K, L=32768, seeds=4, rows=32)}
+# the training paths: attn16k through train() at the trainer's default batch
+# of 16 on 64 synthetic 16 kHz segments (4 steps an epoch); gw-train at
+# pn128 width on --data synth:32, whose segments are 8192 samples at 4 kHz
+TRAIN_BATCH = 16
+TRAIN_SAMPLES = 64
+TRAIN_TIMED_STEPS = 10
+TRAIN_PROFILED_STEPS = 4
+GRAD_ROWS = 4                  # the gradient check's batch, at full width
+GRAD_LOSS_TOL_BF16 = 2e-2      # bf16: kernel vs plain forward, a few ulps
+                               # per block through 7 blocks, relative loss
+CLI_TRAIN_L = 8192
+CLI_TRAIN_EPOCHS = 40          # 2 steps an epoch at batch 16: 80 steps
+# (config, model, L, rows) of K1's extra checks: the training batches and
+# the bench's model
+K1_EXTRA = [("attn16k train", ATTN16K, 32768, TRAIN_BATCH),
+            ("pn128 train cli", FLAGSHIP, CLI_TRAIN_L, TRAIN_BATCH)]
 # kernel vs plain version: f32 differs only in summation order; bf16 may
 # flip an output by one bf16 ulp (2^-7 relative)
 K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-3)}
@@ -126,7 +161,8 @@ K2_SHAPES = [("bfloat16", 32, 4, 4096, 64), ("bfloat16", 32, 4, 4000, 64),
              ("bfloat16", 8, 4, 4000, 128),
              ("float32", 2, 4, 4096, 32), ("float32", 2, 4, 4096, 128),
              ("bfloat16", 2, 2, 777, 65), ("float32", 2, 2, 777, 65),
-             ("bfloat16", 2, 4, 2048, 256), ("float32", 1, 2, 2048, 256)]
+             ("bfloat16", 2, 4, 2048, 256), ("float32", 1, 2, 2048, 256),
+             ("bfloat16", TRAIN_BATCH, 4, 4096, 64)]
 MODEL_TOL = 1e-3   # f32, max-abs normalised, summation order through 7 blocks
 # the infer phase: the 200-step default of plain checkpoints, cut to bound
 # the run's time; 4 seeds x CFG = 8 rows per forward
@@ -878,6 +914,376 @@ def phase_infer(torch, config, tmp):
     return launches, cli_launches
 
 
+TRAIN_GROUPS = ("k1_forward", "k2_forward", "k1_plain_backward",
+                "k2_plain_backward", "rest_of_backward", "rest_of_forward",
+                "optimizer_ema_gate", "other")
+
+
+def train_split(trace_path, wall_us, steps):
+    """Device ms per step of a profiled training window by part: K1's and
+    K2's kernels (forward only: their backward is plain), the kernels
+    launched inside each op's plain backward, the rest of the backward,
+    the rest of the forwards, the optimizer with the EMA and the gate, and
+    anything else (the batch gather, the noising); plus the idle share of
+    the wall.  A kernel belongs to the innermost ``torch.profiler`` range
+    (``train/...``, ``gwport::..._backward``) around the host call that
+    launched it."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+              for e in events if e.get("cat") == "user_annotation"
+              and (e["name"].startswith("train/")
+                   or e["name"].endswith("_backward"))]
+    groups = dict.fromkeys(TRAIN_GROUPS, 0.0)
+    for e in dev:
+        name, dur = e["name"], float(e["dur"])
+        if any(k in name for k in K1_KERNELS):
+            groups["k1_forward"] += dur
+            continue
+        if any(k in name for k in K2_KERNELS):
+            groups["k2_forward"] += dur
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        inside = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
+        where = min(inside, key=lambda r: r[1] - r[0])[2] if inside else ""
+        group = {"gwport::conv_gn_silu_backward": "k1_plain_backward",
+                 "gwport::flash_attention_backward": "k2_plain_backward",
+                 "train/backward": "rest_of_backward",
+                 "train/forward": "rest_of_forward",
+                 "train/selfcond_forward": "rest_of_forward",
+                 "train/optimizer": "optimizer_ema_gate"}.get(where, "other")
+        groups[group] += dur
+    busy = device_breakdown(trace_path, wall_us)["busy_ms"]
+    total = sum(groups.values())
+    return {"ms_per_step": {k: v / 1e3 / steps for k, v in groups.items()},
+            "share": {k: v / total for k, v in groups.items()},
+            "device_ms_per_step": total / 1e3 / steps,
+            "wall_ms_per_step": wall_us / 1e3 / steps,
+            "idle_share": 1.0 - busy / (wall_us / 1e3),
+            "selfcond_forwards": sum(e.get("cat") == "user_annotation"
+                                     and e["name"] == "train/selfcond_forward"
+                                     for e in events)}
+
+
+def _train_module():
+    import importlib
+
+    return importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".training.train")
+
+
+def attn16k_train_config(tmp, name, **kw):
+    """The 16 kHz attention flagship's training configuration: its
+    architecture at full width, v-prediction, bf16, the trainer's default
+    batch; every timestep trained (t_min_frac 0), a short warm-up."""
+    tt = _train_module()
+    return tt.TrainConfig(**dict(
+        dict(base_ch=64, time_dim=128, depth=3, use_attention=True,
+             pred_type="v", bf16=True, batch_size=TRAIN_BATCH,
+             t_min_frac=0.0, warmup_steps=4,
+             model_dir=os.path.join(tmp, name)), **kw))
+
+
+def phase_train(torch, tmp):
+    """attn16k training at full width through ``train(cfg, dataset=...)``:
+    the data synthesised on the card, a counted run with self-conditioning
+    on every step, a timed run with the recipe's knobs (the trainer's own
+    samples/s and MFU from its JSONL, ms per step, peak memory), one
+    profiled window split by part.  Returns the counted run's launches and
+    the dataset."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    tt = _train_module()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = pipeline.synthetic_dataset(TRAIN_SAMPLES, segment_len=32768,
+                                    fs=16384, whiten=True, device="cuda")
+    synth_s = time.perf_counter() - t0
+    b = ds.buckets[32768]
+    check(ds.bucket_lengths == [32768] and b["clean"].shape
+          == (TRAIN_SAMPLES, 1, 32768) and np.isfinite(b["noisy"]).all()
+          and np.isfinite(b["clean"]).all(), "synthetic 16 kHz corpus")
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+
+    # counted: self-conditioning on every step, so each step runs two
+    # forwards (K1 x 7 and K2 x 1 each) and one backward (no launches)
+    reset_launch_counts()
+    out = tt.train(attn16k_train_config(tmp, "count", epochs=1,
+                                        p_selfcond=1.0, p_uncond=0.2),
+                   dataset=ds, device="cuda")
+    torch.cuda.synchronize()
+    launches = check_launches(
+        launch_counts, {"conv_gn_silu": 14 * steps,
+                        "flash_attention": 2 * steps}, "attn16k train")
+    check(np.isfinite(out["history"][0]["avg_per_sample"])
+          and int(out["state"].step) == steps, "attn16k counted run")
+
+    # timed: the recipe's knobs; the trainer's own throughput and MFU from
+    # its epoch records (epoch 1 holds the warm-up)
+    log = os.path.join(tmp, "attn16k_train.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = tt.train(attn16k_train_config(tmp, "timed", epochs=3,
+                                        p_selfcond=0.5, p_uncond=0.2,
+                                        log_jsonl=log),
+                   dataset=ds, device="cuda")
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(log) as fh:
+        ends = [r for r in map(json.loads, fh) if r["phase"] == "epoch_end"]
+    check(len(ends) == 3 and all(np.isfinite(r["avg_per_sample"])
+                                 for r in ends), "attn16k timed run")
+
+    # ms per step: the trainer's step on the resident batches, each step
+    # timed to a synchronize, after a warm-up
+    cfg = attn16k_train_config(tmp, "steps", p_selfcond=0.5, p_uncond=0.2)
+    model, schedule, opt, lr, state, _ = tt.build_model_and_state(
+        cfg, 4, 100, 7, "cuda")
+    step = tt.make_train_step(model, schedule, cfg, opt, lr)
+    dev = pipeline.upload_buckets(ds, torch.device("cuda"))
+    batches = [bb for _ in range(5) for bb in pipeline.device_resident_batches(
+        ds, TRAIN_BATCH, np.random.default_rng(0), dev)]
+    key = tt.key_from_seed(3)
+    for bb in batches[:3]:
+        key, k = tt.split_key(key)
+        step(state, bb, k, 0, 0.2, 0.5)
+    torch.cuda.synchronize()
+    step_ms, coins = [], []
+    for bb in batches[3:3 + TRAIN_TIMED_STEPS]:
+        key, k = tt.split_key(key)
+        t0 = time.perf_counter()
+        step(state, bb, k, 0, 0.2, 0.5)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        coins.append(tt._uniform(k) < 0.5)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    window = batches[3 + TRAIN_TIMED_STEPS:][:TRAIN_PROFILED_STEPS]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for bb in window:
+            key, k = tt.split_key(key)
+            step(state, bb, k, 0, 0.2, 0.5)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / "train_attn16k_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    split = train_split(trace, wall_us, len(window))
+    check(split["ms_per_step"]["k1_plain_backward"] > 0
+          and split["ms_per_step"]["k2_plain_backward"] > 0,
+          f"the trace attributes the plain backwards: {split}")
+
+    flops = (3.0 + 0.5) * TRAIN_BATCH * _unet_flops(ATTN16K, 32768)
+    emit({"phase": "train", "config": "attn16k bf16", "L": 32768,
+          "batch": TRAIN_BATCH, "samples": TRAIN_SAMPLES,
+          "steps_per_epoch": steps, "synth_s": synth_s,
+          "counted_run": {"p_selfcond": 1.0, "launches": launches},
+          "timed_run": {"epochs": 3, "seconds": train_s,
+                        "avg_per_sample": [r["avg_per_sample"] for r in ends],
+                        "samples_per_sec": [r["samples_per_sec"]
+                                            for r in ends],
+                        "mfu_est": [r["mfu_est"] for r in ends],
+                        "steps_per_sec": [r["steps_per_sec"] for r in ends]},
+          "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+          "step_selfcond": coins,
+          "step_ms_median_selfcond": float(np.median(
+              [m for m, c in zip(step_ms, coins) if c] or [np.nan])),
+          "step_ms_median_no_selfcond": float(np.median(
+              [m for m, c in zip(step_ms, coins) if not c] or [np.nan])),
+          "train_gflop_per_step": flops / 1e9,
+          "peak_memory_gb": peak_gb})
+    emit({"phase": "train_profile", "config": "attn16k bf16",
+          "profiled_steps": len(window),
+          "trace": str(trace.relative_to(TRACES.parent)), **split})
+    del state, step, dev, batches
+    torch.cuda.empty_cache()
+    return launches, ds
+
+
+def _unet_flops(model_kw, L):
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.roofline import (
+        unet_flops_per_sample,
+    )
+
+    return unet_flops_per_sample(L, 7, model_kw["base_ch"], model_kw["depth"],
+                                 cond_ch=5, fast_decoder=False,
+                                 use_attention=model_kw.get("use_attention",
+                                                            False))
+
+
+def phase_train_grads(torch, ds, tmp):
+    """One train step's gradients at attn16k's full width and length on
+    ``GRAD_ROWS`` rows, with injected t and eps and self-conditioning on:
+    the kernel path against the plain path on the card (the same initial
+    weights, seeded), in f32 within MODEL_TOL (max-abs normalised over all
+    parameters) and in bf16 by the loss within GRAD_LOSS_TOL_BF16."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        flash_attention_reference,
+        fused_conv_gn_silu_reference,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
+
+    tt = _train_module()
+    b = ds.buckets[32768]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[:GRAD_ROWS])).cuda()
+             for k, v in b.items() if k != "index"}
+    batch["t_inject"] = torch.tensor([5, 250, 600, 990][:GRAD_ROWS],
+                                     device="cuda")
+    batch["eps_inject"] = torch.randn(GRAD_ROWS, 1, 32768, generator=g,
+                                      device="cuda")
+
+    def one_step(bf16, plain):
+        cfg = attn16k_train_config(tmp, "grads", bf16=bf16, batch_size=GRAD_ROWS)
+        model, schedule, opt, lr, state, _ = tt.build_model_and_state(
+            cfg, 4, 10, 5, "cuda")
+        randomize_(model, 31)      # the init leaves the final conv at zero
+        step = tt.make_train_step(model, schedule, cfg, opt, lr)
+        kernels = unet.fused_conv_gn_silu, unet.flash_attention
+        if plain:
+            unet.fused_conv_gn_silu = fused_conv_gn_silu_reference
+            unet.flash_attention = flash_attention_reference
+        try:
+            reset_launch_counts()
+            m = step(state, batch, 77, 0, 0.0, 1.0)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            unet.fused_conv_gn_silu, unet.flash_attention = kernels
+        return float(m["loss"]), state.params.grad.clone(), counts
+
+    rec = {"phase": "train_grads", "config": "attn16k", "rows": GRAD_ROWS,
+           "L": 32768, "p_selfcond": 1.0}
+    for dname, bf16 in (("float32", False), ("bfloat16", True)):
+        lk, gk, ck = one_step(bf16, plain=False)
+        lp, gp, cp = one_step(bf16, plain=True)
+        check(ck == {"conv_gn_silu": 14, "flash_attention": 2}
+              and cp == {"conv_gn_silu": 0, "flash_attention": 0},
+              f"gradient check {dname}: launches {ck} / plain {cp}")
+        grad_rel = float((gk - gp).abs().max() / gp.abs().max())
+        loss_rel = abs(lk - lp) / abs(lp)
+        rec[dname] = {"loss_kernel": lk, "loss_plain": lp,
+                      "loss_rel_err": loss_rel, "grad_max_rel_err": grad_rel,
+                      "grad_abs_max": float(gp.abs().max()),
+                      "launches": ck}
+        check(np.isfinite(lk) and bool(torch.isfinite(gk).all()),
+              f"gradient check {dname}: finite")
+        if bf16:
+            check(loss_rel <= GRAD_LOSS_TOL_BF16,
+                  f"bf16 loss kernel {lk} vs plain {lp}")
+        else:
+            check(grad_rel <= MODEL_TOL and loss_rel <= MODEL_TOL,
+                  f"f32 gradients kernel vs plain: rel {grad_rel}, loss "
+                  f"{loss_rel}")
+        del gk, gp
+        torch.cuda.empty_cache()
+    rec["tol"] = {"float32": MODEL_TOL, "bfloat16_loss": GRAD_LOSS_TOL_BF16}
+    emit(rec)
+
+
+def phase_train_cli(torch, tmp):
+    """``gw-train`` in-process at pn128 width on ``--data synth:32``: the
+    loss falls from the first epoch to the last; its checkpoint is read by
+    ``load_model`` and reconstructs a synthetic measurement through the
+    infer CLI; a ``--resume`` of one epoch continues its global step.
+    Returns the launches of the training run."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import infer as infer_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import train as train_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    tt = _train_module()
+    d = os.path.join(tmp, "pn128_train")
+    log = os.path.join(tmp, "pn128_train.jsonl")
+    argv = ["--data", "synth:32", "--base_ch", "128", "--pred_type", "v",
+            "--epochs", str(CLI_TRAIN_EPOCHS), "--warmup_steps", "4",
+            "--t_min_frac", "0", "--model_dir", d, "--log-jsonl", log,
+            "--device", "cuda"]
+    # the coins the run will draw: the trainer's key, split once for the
+    # initial weights, then once per step
+    steps = 2 * CLI_TRAIN_EPOCHS
+    key = tt.split_key(tt.key_from_seed(42))[0]
+    heads = 0
+    for _ in range(steps):
+        key, k = tt.split_key(key)
+        heads += tt._uniform(k) < 0.5
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = check_launches(launch_counts,
+                              {"conv_gn_silu": 7 * (steps + heads),
+                               "flash_attention": 0}, "pn128 train cli")
+    hist = [h["avg_per_sample"] for h in out["history"]]
+    check(len(hist) == CLI_TRAIN_EPOCHS and hist[0] > hist[-1],
+          f"gw-train: the loss did not fall, {hist}")
+    ck = load_checkpoint(out["checkpoint"])
+    check(ck["global_step"] == steps and ck["epoch"] == CLI_TRAIN_EPOCHS
+          and set(ck["optimizer_state"]) == {"0", "1"},
+          f"gw-train checkpoint: step {ck['global_step']}")
+
+    model, schedule, args = inference.load_model(out["checkpoint"],
+                                                 device="cuda")
+    check(model.dtype == torch.bfloat16 and args["base_ch"] == 128
+          and args["fs"] == 4096.0, "load_model of the trained checkpoint")
+    clean, noise, _ = synth_measurement(CLI_TRAIN_L, 4096.0, 14)
+    npy = os.path.join(tmp, "pn128_train_y.npy")
+    np.save(npy, (clean + noise).astype(np.float32))
+    outdir = os.path.join(tmp, "pn128_train_out")
+    t0 = time.perf_counter()
+    infer_cli.main(["--input-npy", npy, "--fs", "4096", "--model",
+                    out["checkpoint"], "--outdir", outdir, "--steps", "4",
+                    "--avg-seeds", "2", "--device", "cuda"])
+    infer_s = time.perf_counter() - t0
+    recon = [f for f in os.listdir(outdir) if f.startswith("recon_ddim")]
+    rec_arr = np.load(os.path.join(outdir, recon[0]))
+    check(len(recon) == 1 and rec_arr.shape == (CLI_TRAIN_L,)
+          and bool(np.isfinite(rec_arr).all()),
+          f"infer CLI on the trained checkpoint: {sorted(os.listdir(outdir))}")
+
+    resumed = train_cli.main(argv[:argv.index("--epochs")] + [
+        "--epochs", str(CLI_TRAIN_EPOCHS + 1), "--resume", out["checkpoint"]]
+        + argv[argv.index("--epochs") + 2:])
+    ck2 = load_checkpoint(resumed["checkpoint"])
+    check([h["epoch"] for h in resumed["history"]] == [CLI_TRAIN_EPOCHS + 1]
+          and ck2["global_step"] == steps + 2,
+          f"--resume: epochs {resumed['history']}, step {ck2['global_step']}")
+    with open(log) as fh:
+        ends = [r for r in map(json.loads, fh) if r["phase"] == "epoch_end"]
+    emit({"phase": "train_cli", "config": "pn128 bf16", "L": CLI_TRAIN_L,
+          "data": "synth:32", "batch": TRAIN_BATCH, "epochs": CLI_TRAIN_EPOCHS,
+          "steps": steps, "selfcond_steps": heads, "seconds": train_s,
+          "avg_per_sample": hist, "launches": launches,
+          "samples_per_sec_last": ends[CLI_TRAIN_EPOCHS - 1]["samples_per_sec"],
+          "mfu_est_last": ends[CLI_TRAIN_EPOCHS - 1]["mfu_est"],
+          "infer_cli_s": infer_s, "recon_abs_max": float(np.abs(rec_arr).max()),
+          "resumed_global_step": ck2["global_step"],
+          "resumed_avg_per_sample": resumed["history"][0]["avg_per_sample"]})
+    return launches
+
+
 def host_us_per_call(torch, fn, calls=300):
     """Host time per call of ``fn`` in us: the enqueue of ``calls`` calls,
     on a shape small enough that the device keeps up; then a sync."""
@@ -894,7 +1300,7 @@ def host_us_per_call(torch, fn, calls=300):
 def phase_op_overhead(torch):
     """What the op registration adds to the host time of one launch: the
     launch body alone, the registered op called directly, the public
-    wrapper (checks, the autograd refusal, the op) and, for K1, the body
+    wrapper (checks, then the op) and, for K1, the body
     behind a low-level ``torch.library.Library`` registration; in turns
     (each way, then each again in reverse order)."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
@@ -942,26 +1348,35 @@ def phase_op_overhead(torch):
               "wrapper_us_over_body": rec["wrapper"] - rec["body"]})
 
 
-def phase_autograd_refusal(torch):
-    """A CUDA forward that autograd would record raises, naming the op; the
-    same forward under no_grad runs."""
+def phase_autograd(torch):
+    """A CUDA forward that autograd records launches both kernels (counted;
+    no plain forward, no refusal) and backpropagates through their
+    registered backwards to every parameter."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
 
     model = UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2, cond_in_ch=5,
                    use_selfcond=True, use_attention=True, device="cuda")
+    randomize_(model, 2)
     x = torch.randn(2, 7, 256, device="cuda")
     t = torch.tensor([3, 700], device="cuda")
-    try:
-        model(x, t)
-        raised = None
-    except RuntimeError as e:
-        raised = str(e)
-    check(raised is not None and "gwport::conv_gn_silu" in raised
-          and "P8" in raised, f"a grad-enabled CUDA forward gave {raised!r}")
-    with torch.no_grad():
-        out = model(x, t)
-    check(bool(torch.isfinite(out).all()), "no_grad forward finite")
-    emit({"phase": "autograd_refusal", "raised": raised})
+    reset_launch_counts()
+    model(x, t).square().mean().backward()
+    torch.cuda.synchronize()
+    launches = check_launches(launch_counts, expected_launches(model, 1),
+                              "grad-enabled forward")
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    check(all(g is not None and bool(torch.isfinite(g).all())
+              for g in grads.values()), "every parameter has a finite grad")
+    check(all(float(grads[n].abs().sum()) > 0 for n in (
+        "enc0.conv.kernel", "mid.norm.scale", "dec1.conv.kernel",
+        "mid_attn.qkv.kernel")), "the kernels' backward reaches the blocks")
+    emit({"phase": "autograd", "launches": launches,
+          "params_with_grad": len(grads)})
 
 
 def served_inputs(n, L, seed):
@@ -1252,9 +1667,10 @@ def phase_bench(torch):
 def kernels_line(k1, k2, launches):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
     of each main path at its serving batch, K2 at attn16k's serving shape
-    (both also at the infer batch of 8 rows); launches summed over the
-    main-path runs (serving, infer, infer CLI, the artifact's replay, the
-    bench and ``entry()``)."""
+    (both also at the infer batch of 8 rows and the training batch of 16,
+    K1 at the bench's shapes too); launches summed over the main-path runs
+    (serving, infer, infer CLI, the artifact's replay, attn16k training,
+    pn128 gw-train, the bench and ``entry()``)."""
     k1_paths = {}
     for config, path in PATHS.items():
         recs = [r for r in k1 if r["config"] == config
@@ -1276,9 +1692,17 @@ def kernels_line(k1, k2, launches):
         k1_infer[config] = {key: sum(r[key] for r in recs)
                             for key in ("kernel_ms", "library_ms", "bound_ms")}
         k1_infer[config]["max_abs_err"] = max(r["max_abs_err"] for r in recs)
-    main, infer = (next(r for r in k2 if r["dtype"] == "bfloat16"
-                        and (r["B"], r["H"], r["L"], r["D"]) == (B, 4, 4096, 64))
-                   for B in (32, INFER_ROWS))
+    k1_extra = {}
+    for config in [c for c, *_ in K1_EXTRA] + ["bench"]:
+        recs = [r for r in k1 if r["config"] == config]
+        k1_extra[config] = {key: sum(r[key] for r in recs) for key in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        k1_extra[config].update(rows=recs[0]["rows"], L=recs[0]["L"],
+                                max_abs_err=max(r["max_abs_err"] for r in recs))
+    main, infer, train = (
+        next(r for r in k2 if r["dtype"] == "bfloat16"
+             and (r["B"], r["H"], r["L"], r["D"]) == (B, 4, 4096, 64))
+        for B in (32, INFER_ROWS, TRAIN_BATCH))
     pkg = "diffusion_models_for_gravitational_waveform_reconstruction_tpu"
     return {"kernels": [
         {"name": "conv_gn_silu", "route": "cuda",
@@ -1295,6 +1719,7 @@ def kernels_line(k1, k2, launches):
          "library_ms": k1_total["library_ms"],
          "two_pass_floor_ms": k1_total["two_pass_floor_ms"],
          "by_path": k1_paths, "by_infer_path": k1_infer,
+         "by_train_path_and_bench": k1_extra,
          "shapes": "the 7 ConvBlocks of one forward of each main path, bf16: "
                    "pn128 at 64 rows, attn16k at 32 rows",
          "phase": "kernel"},
@@ -1310,6 +1735,9 @@ def kernels_line(k1, k2, launches):
          "cuda_route": main["route"], "tflops": main["tflops"],
          "infer_shape": {key: infer[key] for key in (
              "B", "kernel_ms", "library_ms", "bound_ms", "max_abs_err")},
+         "train_shape": {key: train[key] for key in (
+             "B", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "max_abs_err")},
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
          "phase": "kernel"}]}
 
@@ -1379,6 +1807,12 @@ def main():
         shapes = convblock_shapes(UNet1D(**path["model"], device="cuda"),
                                   path["L"])
         k1 += phase_kernel(torch, config, shapes, dtypes_rows)
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import bench
+
+    for config, model_kw, L, rows in K1_EXTRA + [
+            ("bench", bench.MODEL, bench.L, bench.B)]:
+        shapes = convblock_shapes(UNet1D(**model_kw, device="cuda"), L)
+        k1 += phase_kernel(torch, config, shapes, ((torch.bfloat16, rows),))
     k2 = phase_kernel_attention(torch)
     phase_model(torch, "pn128", 4, 4096)
     phase_model(torch, "attn16k", 2, 32768)
@@ -1393,7 +1827,12 @@ def main():
         for config in PATHS:
             launches[f"{config} export replay"] = phase_export(torch, config,
                                                                tmp)
-    phase_autograd_refusal(torch)
+    phase_autograd(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["attn16k train"], ds = phase_train(torch, tmp)
+        phase_train_grads(torch, ds, tmp)
+        del ds
+        launches["pn128 train cli"] = phase_train_cli(torch, tmp)
     launches["bench"], launches["entry"] = phase_bench(torch)
 
     emit(kernels_line(k1, k2, launches))

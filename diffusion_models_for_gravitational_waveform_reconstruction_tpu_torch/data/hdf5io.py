@@ -7,8 +7,10 @@ with its legacy alias ``psd`` on the rfft grid, ``psd_welch`` with
 ``psd_welch_freqs``), the rfft-grid descriptors ``psd_len`` / ``psd_df`` /
 ``psd_f_lower``, and the file attributes ``sampling_rate`` / ``delta_t``.
 
-``h5py`` is imported only by :func:`load_measurement`, so this module (and
-the ``--input-npy`` path of the infer CLI) works where it is not installed.
+``h5py`` is imported only by the functions that open a file
+(:func:`load_measurement`, :func:`load_full`, :func:`compute_meta_scale`),
+so this module, the ``--input-npy`` path of the infer CLI and the trainer's
+``--data synth:N`` work where it is not installed.
 """
 from __future__ import annotations
 
@@ -81,14 +83,19 @@ def read_sampling_rate(f) -> float:
     return 1.0 / float(f.attrs.get("delta_t", 1.0 / 4096.0))
 
 
-def load_measurement(h5_path: str, index: int):
-    """One sample: (y, clean, fs, P_model, (f_welch, P_welch), meta)."""
+def _h5py(what: str, instead: str):
     try:
         import h5py
     except ImportError as e:
-        raise ImportError(
-            "reading an HDF5 measurement needs h5py, which is not installed; "
-            "--input-npy (load_measurement_npy) works without it") from e
+        raise ImportError(f"{what} needs h5py, which is not installed; "
+                          f"{instead} works without it") from e
+    return h5py
+
+
+def load_measurement(h5_path: str, index: int):
+    """One sample: (y, clean, fs, P_model, (f_welch, P_welch), meta)."""
+    h5py = _h5py("reading an HDF5 measurement",
+                 "--input-npy (load_measurement_npy)")
     meta = {}
     with h5py.File(h5_path, "r") as f:
         y = np.array(f["noisy"][index], np.float32)
@@ -121,3 +128,78 @@ def load_measurement_npy(npy_path: str, fs: float):
     """A raw .npy measurement, in the layout of :func:`load_measurement`."""
     y = np.load(npy_path).astype(np.float32).ravel()
     return y, None, fs, None, (None, None), {}
+
+
+def load_full(h5_path: str, allow_no_signal: bool = False) -> dict:
+    """A whole dataset in host memory, as ragged lists: 'noisy', 'signal'
+    (float32 per sample; 'signal' None when absent and allowed), 'fs',
+    'psd_model' (float64 per sample, saved or derived from the grid scalars,
+    else None) with 'psd_model_source', 'psd_welch' / 'psd_welch_freqs',
+    the scalar columns as float64 arrays (None when absent), 'attrs', 'n'
+    and the resolved 'path'."""
+    h5py = _h5py("reading an HDF5 corpus", "--data synth:N")
+    path = resolve_h5_path(h5_path)
+    out = {"path": path}
+    with h5py.File(path, "r") as f:
+        if "noisy" not in f:
+            raise KeyError("HDF5 must have 'noisy' dataset")
+        out["noisy"] = [np.asarray(a, np.float32) for a in f["noisy"][:]]
+        if "signal" in f:
+            out["signal"] = [np.asarray(a, np.float32) for a in f["signal"][:]]
+        elif not allow_no_signal:
+            raise KeyError("missing 'signal' dataset (allow_no_signal=False)")
+        else:
+            out["signal"] = None
+        out["fs"] = read_sampling_rate(f)
+        pm = f.get("psd_model", f.get("psd", None))
+        out["psd_model_source"] = "saved" if pm is not None else None
+        if pm is not None:
+            out["psd_model"] = [np.asarray(a, np.float64) for a in pm[:]]
+        elif all(k in f for k in ("psd_len", "psd_df", "psd_f_lower")):
+            pl = np.asarray(f["psd_len"][:], np.float64)
+            pdf = np.asarray(f["psd_df"][:], np.float64)
+            pfl = np.asarray(f["psd_f_lower"][:], np.float64)
+            out["psd_model"] = [derive_model_psd_np(pl[i], pdf[i], pfl[i])
+                                for i in range(len(pl))]
+            out["psd_model_source"] = "derived:aLIGOZeroDetHighPower"
+        else:
+            out["psd_model"] = None
+        out["psd_welch"] = ([np.asarray(a, np.float64) for a in f["psd_welch"][:]]
+                            if "psd_welch" in f else None)
+        out["psd_welch_freqs"] = (
+            [np.asarray(a, np.float64) for a in f["psd_welch_freqs"][:]]
+            if "psd_welch_freqs" in f else None)
+        for k in ["mass1", "mass2", "spin1z", "spin2z", "q", "chirp_mass", "snr",
+                  "label_m1", "label_m2", "label_s1", "label_s2"]:
+            out[k] = np.asarray(f[k][:], np.float64) if k in f else None
+        out["attrs"] = dict(f.attrs)
+    out["n"] = len(out["noisy"])
+    return out
+
+
+def compute_meta_scale(h5_path: str) -> dict:
+    """Label scales from 95th percentiles: M = the largest of p95(mass1),
+    p95(mass2), p95(chirp_mass); q = p95(q); each defaulting (M 80, q 10)
+    where absent, not finite or not positive, or where the file cannot be
+    read (said on stdout)."""
+    h5py = _h5py("reading an HDF5 corpus", "--data synth:N")
+    scale = {"M": 80.0, "q": 10.0}
+    try:
+        with h5py.File(resolve_h5_path(h5_path), "r") as f:
+            def p95(name):
+                if name in f:
+                    arr = np.asarray(f[name][:], np.float64)
+                    if arr.size:
+                        return float(np.nanpercentile(arr, 95))
+                return None
+
+            cands = [p95("mass1"), p95("mass2"), p95("chirp_mass")]
+            cands = [x for x in cands if x is not None and np.isfinite(x) and x > 0]
+            if cands:
+                scale["M"] = float(max(cands))
+            qp = p95("q")
+            if qp is not None and np.isfinite(qp) and qp > 0:
+                scale["q"] = float(qp)
+    except (OSError, KeyError, ValueError) as e:
+        print(f"[data] meta_scale computation failed; defaults {scale} ({e})")
+    return scale

@@ -1,6 +1,16 @@
-"""float64 host whitening and sigma (counterpart of the whitening part of the
-JAX package's ``data/pipeline.py``; the same numpy, so the results are
-bit-equal).
+"""Host data pipeline: float64 whitening and sigma, static-shape buckets and
+batches, the dataset resident on the device, and the synthetic corpus
+(counterpart of the JAX package's ``data/pipeline.py``; the host parts are
+the same numpy, so their results are bit-equal).
+
+- Whitening, sigma and metadata are computed once, ahead of time, in float64,
+  and cached as dense float32 arrays (:func:`prepare_dataset`).
+- Samples go to static-length buckets (the next power of two by default),
+  LEFT-padded so mergers stay near the end, with validity masks.
+- Metadata is kept as per-sample scalars (N, 4) = [m1/M, m2/M, s1, s2].
+- :func:`upload_buckets` puts every bucket on the device once and
+  :func:`device_resident_batches` gathers each batch there, with the batch
+  schedule of :func:`iterate_batches` (the same numpy ``Generator`` draws).
 
 PSD floors are RELATIVE to the PSD's maximum (1e-12): physical-strain PSDs
 are ~1e-46, so an absolute epsilon would swamp every bin.  Bins where a PSD
@@ -9,10 +19,15 @@ de-whitening keeps them zero.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import sys
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 from numpy.fft import irfft, rfft, rfftfreq
+
+from . import hdf5io
 
 
 def whiten_train_like_np(y: np.ndarray, x: np.ndarray
@@ -111,3 +126,402 @@ def pick_sigma_np(y: np.ndarray, mode: str, fixed: float) -> float:
     if not np.isfinite(s) or s <= 0:
         s = 1.0
     return s
+
+
+# ---------------------------------------------------------------------------
+# Bucketed, static-shape batching
+# ---------------------------------------------------------------------------
+
+def next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def _resolve_whiten_mode(mode: str, has_model: bool, has_welch: bool) -> str:
+    """'auto' prefers model -> welch -> train."""
+    if mode != "auto":
+        return mode
+    if has_model:
+        return "model"
+    if has_welch:
+        return "welch"
+    return "train"
+
+
+def _check_whiten_domain(mode: str, has_model: bool, has_welch: bool,
+                         whiten: bool, where: str) -> str:
+    """The whitening domain actually used ('none' without whitening): a
+    requested 'model' or 'welch' whose PSD is missing falls back to 'train',
+    said on stderr, so that a checkpoint never records a domain it was not
+    trained in."""
+    if not whiten:
+        return "none"
+    missing = None
+    if mode == "model" and not has_model:
+        missing = "no per-sample model PSD (saved or derivable from grid scalars)"
+    elif mode == "welch" and not has_welch:
+        missing = "no saved Welch PSD"
+    if missing is None:
+        return mode
+    print(
+        f"[pipeline] WARNING: whiten_mode='{mode}' requested for {where} "
+        f"but {missing}; falling back to TRAIN-LIKE whitening. The actual "
+        f"training/eval domain is 'train', not '{mode}'.",
+        file=sys.stderr, flush=True)
+    return "train"
+
+
+def _prep_sample(
+    y: np.ndarray,
+    x: np.ndarray,
+    fs: float,
+    *,
+    whiten: bool,
+    whiten_mode: str,
+    sigma_mode: str,
+    sigma_fixed: float,
+    psd_model: Optional[np.ndarray] = None,
+    psd_welch: Optional[np.ndarray] = None,
+    psd_welch_freqs: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """NaN guard -> whitening (``whiten_mode`` already resolved) -> sigma for
+    one sample."""
+    if not np.isfinite(y).all():
+        y = np.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
+    if not np.isfinite(x).all():
+        x = np.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    if whiten:
+        if whiten_mode == "model" and psd_model is not None:
+            y, x, _ = whiten_model_np(y, x, psd_model, fs)
+        elif (whiten_mode == "welch" and psd_welch is not None
+              and psd_welch_freqs is not None):
+            y, x, _ = whiten_welch_np(y, x, psd_welch_freqs, psd_welch, fs)
+        else:
+            y, x, _ = whiten_train_like_np(y, x)
+    sigma = pick_sigma_np(y, sigma_mode, sigma_fixed)
+    return y, x, sigma
+
+
+@dataclasses.dataclass
+class PreparedDataset:
+    """Whitened, padded, mask-carrying dense arrays, grouped by bucket length.
+
+    buckets: {L: dict(clean (Nb,1,L) f32, noisy (Nb,1,L) f32, mask (Nb,1,L) f32,
+                      sigma (Nb,) f32, meta (Nb,4) f32, index (Nb,) i64)}
+    ``whiten_mode_resolved`` is the whitening domain actually used ('model',
+    'welch', 'train', 'raw' or 'none'), which checkpoints record.
+    """
+
+    buckets: Dict[int, Dict[str, np.ndarray]]
+    fs: float
+    meta_scale: dict
+    whiten: bool
+    whiten_mode: str
+    sigma_mode: str
+    n: int
+    whiten_mode_resolved: str = "none"
+
+    @property
+    def bucket_lengths(self) -> List[int]:
+        return sorted(self.buckets.keys())
+
+
+def prepare_dataset(
+    h5_path: str,
+    *,
+    whiten: bool = False,
+    whiten_mode: str = "auto",
+    sigma_mode: str = "std",
+    sigma_fixed: float = 1.0,
+    include_metadata: bool = True,
+    mass_scale: Optional[float] = None,
+    bucket_lengths: Optional[List[int]] = None,
+    allow_no_signal: bool = False,
+    max_samples: Optional[int] = None,
+    max_len: Optional[int] = None,
+) -> PreparedDataset:
+    """Load, whiten, pick sigma and bucket an HDF5 dataset once (needs h5py).
+
+    ``bucket_lengths``: explicit static lengths (default: each sample to the
+    next power of two >= its length).  ``max_samples``: a cap for quick
+    runs.  ``max_len``: LEFT-truncate longer samples after whitening (the
+    merger at the right end is kept), which caps the largest bucket."""
+    raw = hdf5io.load_full(h5_path, allow_no_signal=allow_no_signal)
+    fs = raw["fs"]
+    meta_scale = hdf5io.compute_meta_scale(raw["path"])
+    M = float(mass_scale if mass_scale is not None else meta_scale.get("M", 80.0))
+
+    per_bucket: Dict[int, Dict[str, list]] = {}
+    n = raw["n"] if max_samples is None else min(raw["n"], int(max_samples))
+    has_model = raw["psd_model"] is not None
+    has_welch = (raw["psd_welch"] is not None
+                 and raw["psd_welch_freqs"] is not None)
+    mode = _resolve_whiten_mode(whiten_mode, has_model, has_welch)
+    resolved = _check_whiten_domain(mode, has_model, has_welch, whiten,
+                                    raw["path"])
+    if whiten and mode == "model" and str(
+            raw.get("psd_model_source", "")).startswith("derived"):
+        print(f"[pipeline] model-PSD whitening via derived analytic PSD "
+              f"(--save-psd was off for {raw['path']})",
+              file=sys.stderr, flush=True)
+    for i in range(n):
+        y = raw["noisy"][i]
+        x = raw["signal"][i] if raw["signal"] is not None else np.zeros_like(y)
+        y, x, sigma = _prep_sample(
+            y, x, fs, whiten=whiten, whiten_mode=resolved, sigma_mode=sigma_mode,
+            sigma_fixed=sigma_fixed,
+            psd_model=raw["psd_model"][i] if raw["psd_model"] is not None else None,
+            psd_welch=raw["psd_welch"][i] if raw["psd_welch"] is not None else None,
+            psd_welch_freqs=(raw["psd_welch_freqs"][i]
+                             if raw["psd_welch_freqs"] is not None else None))
+        if max_len is not None and len(y) > max_len:
+            y, x = y[-max_len:], x[-max_len:]
+
+        if include_metadata:
+            def _get(name):
+                arr = raw.get(name)
+                return float(arr[i]) if arr is not None else 0.0
+
+            meta = np.array([
+                _get("mass1") / max(M, 1e-9),
+                _get("mass2") / max(M, 1e-9),
+                _get("spin1z"),
+                _get("spin2z"),
+            ], np.float32)
+        else:
+            meta = np.zeros(0, np.float32)
+
+        L = len(y)
+        if bucket_lengths is not None:
+            fits = [bl for bl in bucket_lengths if bl >= L]
+            if not fits:
+                raise ValueError(f"sample length {L} exceeds all bucket lengths")
+            Lb = min(fits)
+        else:
+            Lb = next_pow2(L)
+        b = per_bucket.setdefault(Lb, {"clean": [], "noisy": [], "mask": [],
+                                       "sigma": [], "meta": [], "index": []})
+        pad = Lb - L
+        b["clean"].append(np.pad(x.astype(np.float32), (pad, 0)))
+        b["noisy"].append(np.pad(y.astype(np.float32), (pad, 0)))
+        b["mask"].append(np.pad(np.ones(L, np.float32), (pad, 0)))
+        b["sigma"].append(sigma)
+        b["meta"].append(meta)
+        b["index"].append(i)
+
+    buckets = {}
+    for Lb, cols in per_bucket.items():
+        buckets[Lb] = {
+            "clean": np.stack(cols["clean"])[:, None, :],
+            "noisy": np.stack(cols["noisy"])[:, None, :],
+            "mask": np.stack(cols["mask"])[:, None, :],
+            "sigma": np.asarray(cols["sigma"], np.float32),
+            "meta": np.stack(cols["meta"]) if include_metadata
+                    else np.zeros((len(cols["sigma"]), 0), np.float32),
+            "index": np.asarray(cols["index"], np.int64),
+        }
+
+    return PreparedDataset(
+        buckets=buckets, fs=fs, meta_scale=meta_scale, whiten=whiten,
+        whiten_mode=whiten_mode, sigma_mode=sigma_mode, n=n,
+        whiten_mode_resolved=resolved,
+    )
+
+
+def dataset_from_arrays(
+    clean: np.ndarray,
+    noisy: np.ndarray,
+    fs: float,
+    *,
+    meta: Optional[np.ndarray] = None,
+    sigma_mode: str = "std",
+    sigma_fixed: float = 1.0,
+    whiten: bool = False,
+    meta_scale: Optional[dict] = None,
+) -> PreparedDataset:
+    """A one-bucket dataset from dense (N, L) arrays (``meta`` (N, 4) already
+    scaled), with no HDF5 round trip."""
+    clean = np.asarray(clean, np.float32)
+    noisy = np.asarray(noisy, np.float32)
+    N, L = noisy.shape
+    sigmas = np.array([pick_sigma_np(noisy[i], sigma_mode, sigma_fixed)
+                       for i in range(N)], np.float32)
+    if meta is None:
+        meta = np.zeros((N, 4), np.float32)
+    bucket = {
+        "clean": clean[:, None, :],
+        "noisy": noisy[:, None, :],
+        "mask": np.ones((N, 1, L), np.float32),
+        "sigma": sigmas,
+        "meta": np.asarray(meta, np.float32),
+        "index": np.arange(N, dtype=np.int64),
+    }
+    return PreparedDataset(
+        buckets={L: bucket}, fs=fs,
+        meta_scale=meta_scale or {"M": 80.0, "q": 10.0},
+        whiten=whiten, whiten_mode="raw", sigma_mode=sigma_mode, n=N,
+        whiten_mode_resolved="raw" if whiten else "none",
+    )
+
+
+def _batch_order(ds, batch_size: int, rng: np.random.Generator,
+                 shuffle: bool, drop_remainder: bool) -> List[tuple]:
+    """One epoch's (bucket length, row indices) per batch: each bucket
+    permuted, cut into batches (a short last batch wrap-filled from the
+    permutation unless ``drop_remainder``), then the batches shuffled."""
+    order = []
+    for Lb in ds.bucket_lengths:
+        N = ds.buckets[Lb]["sigma"].shape[0]
+        idx = rng.permutation(N) if shuffle else np.arange(N)
+        n_batches = N // batch_size if drop_remainder else -(-N // batch_size)
+        for bi in range(n_batches):
+            sel = idx[bi * batch_size:(bi + 1) * batch_size]
+            if len(sel) < batch_size:
+                fill = np.resize(idx, batch_size - len(sel))
+                sel = np.concatenate([sel, fill])
+            order.append((Lb, sel))
+    if shuffle:
+        rng.shuffle(order)
+    return order
+
+
+def iterate_batches(
+    ds,
+    batch_size: int,
+    rng: np.random.Generator,
+    shuffle: bool = True,
+    drop_remainder: bool = False,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Static-shape numpy batches across buckets for one epoch, in the order
+    and with the ``rng`` draws of the JAX package's ``iterate_batches``."""
+    for Lb, sel in _batch_order(ds, batch_size, rng, shuffle, drop_remainder):
+        b = ds.buckets[Lb]
+        yield {k: v[sel] for k, v in b.items()}
+
+
+def upload_buckets(ds, device, budget_bytes: int = 10 << 30):
+    """Every bucket's arrays (all but 'index') as tensors on ``device``, once:
+    {L: {key: tensor}}; None when the dataset's arrays exceed
+    ``budget_bytes``."""
+    total = sum(v.nbytes for b in ds.buckets.values() for v in b.values()
+                if isinstance(v, np.ndarray))
+    if total > budget_bytes:
+        return None
+    return {Lb: {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in b.items() if k != "index"}
+            for Lb, b in ds.buckets.items()}
+
+
+def device_resident_batches(
+    ds,
+    batch_size: int,
+    rng: np.random.Generator,
+    dev_buckets,
+    shuffle: bool = True,
+    drop_remainder: bool = False,
+):
+    """The batches of :func:`iterate_batches` (same ``rng`` draws, same
+    rows), gathered on the device from :func:`upload_buckets`' tensors.  The
+    epoch's row indices go to the device in one copy; each batch is then an
+    ``index_select`` there, with no host-to-device copy per step."""
+    order = _batch_order(ds, batch_size, rng, shuffle, drop_remainder)
+    if not order:
+        return
+    device = next(iter(next(iter(dev_buckets.values())).values())).device
+    rows = torch.from_numpy(np.stack([sel for _, sel in order])).to(device)
+    for i, (Lb, _) in enumerate(order):
+        yield {k: v.index_select(0, rows[i]) for k, v in dev_buckets[Lb].items()}
+
+
+def synthetic_dataset(
+    n: int,
+    *,
+    seed: int = 0,
+    segment_len: int = 8192,
+    fs: int = 4096,
+    mass_min: float = 20.0,
+    mass_max: float = 50.0,
+    snr_min: float = 8.0,
+    snr_max: float = 30.0,
+    spin_min: float = 0.0,
+    spin_max: float = 0.0,
+    whiten: bool = True,
+    sigma_mode: str = "std",
+    chunk: int = 256,
+    device=None,
+) -> PreparedDataset:
+    """A self-contained corpus: chirps in coloured noise synthesised on
+    ``device`` (default: the GPU) in chunks, whitened there by the
+    generation PSD, then a one-bucket :class:`PreparedDataset` (the
+    ``gw-train --data synth:N`` path).  Masses, SNRs and spins are the numpy
+    draws of the JAX package's ``synthetic_dataset`` from ``seed``; the noise
+    comes from a ``torch.Generator`` seeded with ``seed``, so it differs
+    from the JAX package's."""
+    from ..ops.whiten import whiten_weight
+    from ..utils.device import resolve_device
+    from . import synth
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = synth.SynthConfig(n=segment_len, fs=fs)
+
+    a = rng.uniform(mass_min, mass_max, size=n)
+    b = rng.uniform(mass_min, mass_max, size=n)
+    m1 = np.maximum(a, b)
+    m2 = np.minimum(a, b)
+    snr = rng.uniform(snr_min, snr_max, size=n)
+    s1 = rng.uniform(spin_min, spin_max, size=n)
+    s2 = rng.uniform(spin_min, spin_max, size=n)
+
+    def col(v, sl):
+        return torch.as_tensor(v[sl], dtype=torch.float32, device=dev)
+
+    clean_l, noisy_l = [], []
+    w = None
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, min(n, c0 + chunk))
+        out = synth.generate_batch(gen, col(m1, sl), col(m2, sl),
+                                   col(snr, sl), col(s1, sl), col(s2, sl),
+                                   config=cfg)
+        if whiten:
+            # the scaled generation PSD: the joint strain / PSD scaling
+            # cancels in the whitening up to a global factor, which
+            # sigma-normalisation removes
+            if w is None:
+                w = whiten_weight(out["psd"][0])
+            C = torch.fft.rfft(out["signal"], dim=-1) * w
+            Y = torch.fft.rfft(out["noisy"], dim=-1) * w
+            clean_l.append(torch.fft.irfft(C, n=segment_len).cpu().numpy())
+            noisy_l.append(torch.fft.irfft(Y, n=segment_len).cpu().numpy())
+        else:
+            clean_l.append(out["signal"].cpu().numpy())
+            noisy_l.append(out["noisy"].cpu().numpy())
+
+    clean = np.concatenate(clean_l).astype(np.float32)
+    noisy = np.concatenate(noisy_l).astype(np.float32)
+    M = max(float(np.percentile(np.concatenate([m1, m2]), 95)), 1e-9)
+    meta = np.stack([m1 / M, m2 / M, s1, s2], axis=1).astype(np.float32)
+    ds = dataset_from_arrays(clean, noisy, fs=float(fs), meta=meta,
+                             sigma_mode=sigma_mode,
+                             meta_scale={"M": M, "q": 10.0})
+    ds.whiten = whiten
+    ds.whiten_mode = "model" if whiten else "raw"
+    return ds
+
+
+def meta_dim(ds) -> int:
+    """Number of metadata channels."""
+    if hasattr(ds, "c_meta"):
+        return int(ds.c_meta)
+    return int(ds.buckets[ds.bucket_lengths[0]]["meta"].shape[1])
+
+
+def num_batches(ds, batch_size: int, drop_remainder: bool = False) -> int:
+    """Batches per epoch of :func:`iterate_batches`."""
+    if hasattr(ds, "num_batches"):
+        return ds.num_batches(batch_size, drop_remainder)
+    total = 0
+    for Lb in ds.bucket_lengths:
+        N = ds.buckets[Lb]["sigma"].shape[0]
+        total += N // batch_size if drop_remainder else -(-N // batch_size)
+    return total

@@ -89,19 +89,15 @@ def load_model(ckpt_path: str, use_ema: bool = True, device=None):
     branch builds an f32 model without attention, as the JAX package does."""
     dev = resolve_device(device)
     if ckpt_path.endswith((".pth", ".pt")):
-        payload = torch.load(ckpt_path, map_location="cpu", weights_only=False)
-        ck = dict(payload.get("args", {}))
-        key = ("model_ema_state" if use_ema and "model_ema_state" in payload
-               else "model_state")
-        sd = {k: v.detach().cpu().numpy() for k, v in payload[key].items()}
-        from .utils.torch_compat import torch_state_dict_to_flax
+        from .utils.torch_compat import load_torch_checkpoint_as_flax
 
-        weights = torch_state_dict_to_flax(sd, int(ck.get("depth", 3)))
+        weights, ck, used_ema = load_torch_checkpoint_as_flax(
+            ckpt_path, use_ema=use_ema)
         model = _unet_from_args(ck, dev, use_attention=False, bf16=False)
         model.load_state_dict(params_from_flax(weights), strict=True)
         model.eval()
         print(f"[infer] converted torch checkpoint {ckpt_path} "
-              f"({'EMA' if key == 'model_ema_state' else 'raw'})")
+              f"({'EMA' if used_ema else 'raw'})")
     else:
         ckpt = load_checkpoint(ckpt_path)
         ck = ckpt["args"]

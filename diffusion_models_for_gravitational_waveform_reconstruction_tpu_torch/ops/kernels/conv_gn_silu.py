@@ -10,6 +10,12 @@ else, or an input the kernel does not take, raises.  The op is what
 ``torch.export`` records, so an exported program launches the kernel and
 advances ``launches`` when it is replayed.
 
+The op's backward is :func:`fused_conv_gn_silu_backward`, plain PyTorch
+registered with ``torch.library.register_autograd``: a forward that autograd
+records still launches the kernel, and its gradients come from the plain
+backward (the JAX package's trainer differentiates the plain expression too;
+its Pallas kernel has no backward).
+
 The kernel's conv pass takes one of three routes, chosen from x alone
 (:func:`conv_route`, inside the op's CUDA body, since it reads the base
 address): bf16 with Cin % 8 == 0 runs on ``wgmma`` fed by TMA
@@ -25,17 +31,21 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._op import NAMESPACE, refuse_grad
+from ._op import NAMESPACE
+
+
+def im2col3(x: torch.Tensor) -> torch.Tensor:
+    """``[x_{l-1} | x_l | x_{l+1}]`` of channels-last ``x (B, L, C)``, zero
+    past either end: (B, L, 3 C)."""
+    xp = F.pad(x, (0, 0, 1, 1))
+    return torch.cat([xp[:, :-2], xp[:, 1:-1], xp[:, 2:]], dim=-1)
 
 
 def conv3_same(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """conv1d(k=3, SAME) of channels-last ``x (B, L, Cin)`` with a flax-layout
     kernel ``W (3, Cin, Cout)``, as one im2col product
     ``[x_{l-1} | x_l | x_{l+1}] @ W.reshape(3 Cin, Cout) + b`` in x's dtype."""
-    Cin = x.shape[-1]
-    xp = F.pad(x, (0, 0, 1, 1))
-    xcat = torch.cat([xp[:, :-2], xp[:, 1:-1], xp[:, 2:]], dim=-1)
-    return xcat @ W.reshape(3 * Cin, -1) + b
+    return im2col3(x) @ W.reshape(3 * x.shape[-1], -1) + b
 
 
 def group_norm(y: torch.Tensor, groups: int, scale: torch.Tensor,
@@ -61,6 +71,44 @@ def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
     y = conv3_same(x.float(), W.to(x.dtype).float(), b.float())
     h = group_norm(y, groups, gn_scale, gn_bias, eps)
     return (h * torch.sigmoid(h)).to(x.dtype)
+
+
+def fused_conv_gn_silu_backward(dout, x, W, b, gn_scale, gn_bias,
+                                groups: int, eps: float = 1e-5):
+    """The plain backward of the ConvBlock: the gradients of
+    :func:`fused_conv_gn_silu_reference` with respect to (x, W, b, gn_scale,
+    gn_bias), given ``dout`` of the output's shape.
+
+    y and the group statistics are recomputed from the inputs (y by the
+    im2col product in x's dtype); then SiLU -> affine -> GroupNorm in f32,
+    and the conv's two products over the im2col layout in x's dtype:
+    dW = im2col(x)^T dy and dx = conv3(dy) with the taps flipped and each
+    transposed.  Returns (dx in x's dtype, dW, db, dscale, dbias in f32)."""
+    dt = x.dtype
+    B, L, Cin = x.shape
+    Cout = W.shape[2]
+    Wd = W.to(dt)
+    y = conv3_same(x, Wd, b.to(dt)).float()
+    yg = y.reshape(B, L, groups, Cout // groups)
+    mean = yg.mean(dim=(1, 3), keepdim=True)
+    std = torch.sqrt(((yg - mean) ** 2).mean(dim=(1, 3), keepdim=True) + eps)
+    xhat = (yg - mean) / std
+    scale, shift = gn_scale.float(), gn_bias.float()
+    h = xhat.reshape(B, L, Cout) * scale + shift
+    s = torch.sigmoid(h)
+    dh = dout.float() * (s * (1.0 + h * (1.0 - s)))
+    dscale = (dh * xhat.reshape(B, L, Cout)).sum(dim=(0, 1))
+    dbias = dh.sum(dim=(0, 1))
+    dxhat = (dh * scale).reshape(yg.shape)
+    dy = ((dxhat - dxhat.mean(dim=(1, 3), keepdim=True)
+           - xhat * (dxhat * xhat).mean(dim=(1, 3), keepdim=True)) / std)
+    dy = dy.reshape(B, L, Cout)
+    db = dy.sum(dim=(0, 1))
+    dyd = dy.to(dt)
+    dW = (im2col3(x).reshape(B * L, 3 * Cin).transpose(0, 1)
+          @ dyd.reshape(B * L, Cout)).reshape(3, Cin, Cout).float()
+    dx = im2col3(dyd) @ Wd.flip(0).transpose(1, 2).reshape(3 * Cout, Cin)
+    return dx, dW, db, dscale, dbias
 
 
 # channels per K chunk of the packed weights; Cin and Cout are padded to it
@@ -200,15 +248,31 @@ def _(x, W, b, gn_scale, gn_bias, groups, eps):
     return x.new_empty((x.shape[0], x.shape[1], W.shape[2]))
 
 
+def _setup_context(ctx, inputs, output):
+    x, W, b, gn_scale, gn_bias, groups, eps = inputs
+    ctx.save_for_backward(x, W, b, gn_scale, gn_bias)
+    ctx.groups, ctx.eps = groups, eps
+
+
+def _backward(ctx, dout):
+    with torch.profiler.record_function(f"{NAMESPACE}::conv_gn_silu_backward"):
+        grads = fused_conv_gn_silu_backward(dout, *ctx.saved_tensors,
+                                            ctx.groups, ctx.eps)
+    return (*grads, None, None)
+
+
+conv_gn_silu_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                        gn_scale: torch.Tensor, gn_bias: torch.Tensor,
                        groups: int, eps: float = 1e-5) -> torch.Tensor:
     """The whole ConvBlock (conv k=3 SAME + GN + SiLU): x (B, L, Cin) f32 or
     bf16, W (3, Cin, Cout) in flax layout, b / gn_scale / gn_bias (Cout,) f32;
     returns (B, L, Cout) in x's dtype.  CPU tensors take the plain version;
-    CUDA tensors go through the registered op, which launches the kernel.
-    On CUDA a forward that autograd would record raises: the op has no
-    backward yet."""
+    CUDA tensors go through the registered op, which launches the kernel
+    (with grad enabled too: its backward is
+    :func:`fused_conv_gn_silu_backward`)."""
     if x.device.type == "cpu":
         return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
                                             groups, eps)
@@ -216,7 +280,6 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"fused_conv_gn_silu runs on cpu or cuda, not "
                          f"{x.device}")
     _check(x, W, b, gn_scale, gn_bias, groups)
-    refuse_grad("conv_gn_silu", x, W, b, gn_scale, gn_bias)
     return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps))
 
 

@@ -10,6 +10,11 @@ exported program launches it too, and counts it); anything else, or an
 input the kernel does not take, raises.  Any L >= 1 is taken: the kernel
 masks its own ragged edge.
 
+The op's backward is :func:`flash_attention_backward`, plain PyTorch
+registered with ``torch.library.register_autograd``: a forward that autograd
+records still launches the kernel, and its gradients come from the plain
+backward, given the kernel's output.
+
 The kernel takes one of three routes, chosen from the inputs alone
 (:func:`attention_route`, inside the op's CUDA body): bf16 with D 64 or
 128 and q, k, v on 16-byte aligned bases runs both products on ``wgmma``
@@ -24,7 +29,7 @@ import math
 import torch
 
 from . import _build
-from ._op import NAMESPACE, refuse_grad
+from ._op import NAMESPACE
 
 MAX_HEAD_DIM = 256   # MAX_D of csrc/flash_attention.cu: its widest template
 # the kernel's routes, by the code the C interface takes
@@ -41,6 +46,41 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return p @ v
+
+
+# elements of one f32 (B, H, rows, L) block of the backward's scores: about
+# 1 GiB, so the backward's transients stay a few GiB at any L
+BACKWARD_BLOCK_ELEMS = 1 << 28
+
+
+def flash_attention_backward(dout, q, k, v, out):
+    """The plain backward of attention: the gradients (dq, dk, dv) of
+    :func:`flash_attention_reference` given ``dout`` and the forward's
+    output ``out`` (all (B, H, L, D)).
+
+    Over blocks of query rows (each f32 block of scores at most
+    ``BACKWARD_BLOCK_ELEMS``): the scores recomputed in f32 and their
+    softmax P; dV += P^T dO with P in v's dtype; dP = dO V^T in v's dtype;
+    dS = P * (dP - rowsum(dO * O)) in f32; dQ = dS K / sqrt(D) and
+    dK += dS^T Q / sqrt(D) in f32.  Returns the three in q's dtype."""
+    B, H, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    qf, kf = q.float(), k.float()
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    rows = max(1, BACKWARD_BLOCK_ELEMS // (B * H * L))
+    for r0 in range(0, L, rows):
+        r = slice(r0, min(L, r0 + rows))
+        p = torch.softmax((qf[:, :, r] @ kf.transpose(-1, -2)) * scale, dim=-1)
+        do = dout[:, :, r]
+        dv += (p.to(v.dtype).transpose(-1, -2) @ do).float()
+        dp = (do @ v.transpose(-1, -2)).float()
+        ds = p * (dp - delta[:, :, r])
+        dq[:, :, r] = (ds @ kf) * scale
+        dk += (ds.transpose(-1, -2) @ qf[:, :, r]) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_route(q: torch.Tensor, k: torch.Tensor | None = None,
@@ -124,20 +164,32 @@ def _(q, k, v):
     return torch.empty_like(q)
 
 
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output)
+
+
+def _backward(ctx, dout):
+    with torch.profiler.record_function(
+            f"{NAMESPACE}::flash_attention_backward"):
+        return flash_attention_backward(dout, *ctx.saved_tensors)
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Attention of q, k, v (B, H, L, D), f32 or bf16, contiguous; returns
     (B, H, L, D) in q's dtype.  CPU tensors take the plain version; CUDA
     tensors go through the registered op, which launches the kernel on the
-    route :func:`attention_route` picks.  On CUDA a forward that autograd
-    would record raises: the op has no backward yet."""
+    route :func:`attention_route` picks (with grad enabled too: its
+    backward is :func:`flash_attention_backward`)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
     _check(q, k, v)
-    refuse_grad("flash_attention", q, k, v)
     return flash_attention_op(q, k, v)
 
 

@@ -81,3 +81,20 @@ def torch_state_dict_to_flax(sd: Dict[str, np.ndarray], depth: int) -> dict:
         return np.asarray(tree, np.float32)
 
     return {"params": _cast32(p)}
+
+
+def load_torch_checkpoint_as_flax(pth_path: str, depth=None,
+                                  use_ema: bool = True):
+    """A reference ``.pth`` checkpoint: ``(weights, args, used_ema)``, the
+    weights (EMA preferred) as ``{'params': {...}}``; ``depth`` defaults to
+    the checkpoint's own (else 3)."""
+    import torch
+
+    payload = torch.load(pth_path, map_location="cpu", weights_only=False)
+    args = dict(payload.get("args", {}))
+    used_ema = use_ema and "model_ema_state" in payload
+    sd = {k: v.detach().cpu().numpy() for k, v in payload[
+        "model_ema_state" if used_ema else "model_state"].items()}
+    if depth is None:
+        depth = int(args.get("depth", 3))
+    return torch_state_dict_to_flax(sd, depth), args, used_ema

@@ -3,13 +3,16 @@ ConvBlock kernel and the flash-attention kernel (each of its routes) against
 their plain versions on the card, the U-Net's kernel path against its
 plain path, a checkpoint written and loaded on the card, the infer CLI on
 the card, the serving artifact traced on the card (its ops, its replay
-against the live function), and the refusal of a grad-enabled forward.
+against the live function), a grad-enabled forward launching both kernels
+and backpropagating (each op's backward against its plain backward, on
+every route), and a few train steps on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 """
+import importlib
 import json
 import os
 
@@ -471,24 +474,127 @@ def test_cuda_artifact_needs_a_card(cuda_artifact, monkeypatch):
         serving.load_exported(art)
 
 
-def test_grad_enabled_forward_raises(cuda):
-    """The kernels have no backward yet: a CUDA forward that autograd would
-    record raises instead of returning outputs cut off from the
-    parameters; under no_grad it runs."""
+def test_grad_enabled_forward_raises(cuda, monkeypatch):
+    """A CUDA forward that autograd records launches both kernels (no
+    refusal, no plain forward) and backpropagates through their registered
+    backwards; its parameter gradients match the plain path's on the card
+    (f32: summation order through five blocks and the attention)."""
     model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
                         cond_in_ch=5, use_selfcond=True, use_attention=True,
                         device=cuda)
-    x = torch.randn(2, 7, 256, device=cuda)
-    t = torch.tensor([3, 700], device=cuda)
-    before = launch_counts()
-    with pytest.raises(RuntimeError, match="gwport::conv_gn_silu.*P8"):
-        model(x, t)
-    assert launch_counts() == before                  # nothing launched
-    q = torch.randn(1, 2, 64, 64, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="gwport::flash_attention"):
-        flash_attention(q, q.detach(), q.detach())
+    g = torch.Generator(device=cuda).manual_seed(6)
     with torch.no_grad():
-        assert bool(torch.isfinite(model(x, t)).all())
+        for p in model.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g, device=cuda))
+    x = torch.randn(2, 7, 256, generator=g, device=cuda)
+    t = torch.tensor([3, 700], device=cuda)
+    reset_launch_counts()
+    model(x, t).square().mean().backward()
+    assert launch_counts() == {"conv_gn_silu": 5, "flash_attention": 1}
+    got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    monkeypatch.setattr(unet, "fused_conv_gn_silu", fused_conv_gn_silu_reference)
+    monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
+    model(x, t).square().mean().backward()
+    assert launch_counts() == {"conv_gn_silu": 5, "flash_attention": 1}
+    for n, p in model.named_parameters():
+        scale = p.grad.abs().max().item()
+        assert (got[n] - p.grad).abs().max().item() <= 1e-3 * scale + 1e-7, n
+
+
+def _requires_grad(*tensors):
+    return [a.detach().clone().requires_grad_() for a in tensors]
+
+
+def _grads_close(got, want, dtype):
+    """bf16: the kernel's output may differ from the plain one by an ulp,
+    and the plain backward recomputes y by a bf16 product where the plain
+    forward's autograd keeps it in f32: within 2^-6 of each gradient's
+    largest element.  f32: summation order, 1e-4."""
+    rel = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= rel * scale + 1e-6
+
+
+@pytest.mark.parametrize("dtype,Cin", [(torch.float32, 7),
+                                       (torch.float32, 64),
+                                       (torch.bfloat16, 7),
+                                       (torch.bfloat16, 64)])
+def test_conv_gn_silu_backward_matches_plain_backward(cuda, dtype, Cin):
+    """Each route (f32 FMA; bf16 mma.sync at Cin 7, wgmma at Cin 64): the
+    op's backward is the plain backward on the same inputs, bit for bit,
+    and matches autograd of the plain forward."""
+    k1 = importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".ops.kernels.conv_gn_silu")
+    x, W, b, s, bb = _block_inputs(cuda, 2, 300, Cin, 64, seed=Cin)
+    x = x.to(dtype)
+    assert conv_route(x) == {torch.float32: "fma"}.get(
+        dtype, "wgmma" if Cin % 8 == 0 else "mma_sync")
+    ins = _requires_grad(x, W, b, s, bb)
+    before = fused_conv_gn_silu.launches
+    out = fused_conv_gn_silu(*ins, 8)
+    assert fused_conv_gn_silu.launches == before + 1
+    dout = torch.randn(out.shape, device=cuda).to(dtype)
+    got = torch.autograd.grad(out, ins, dout)
+    plain = k1.fused_conv_gn_silu_backward(dout, x, W, b, s, bb, 8)
+    for g, w in zip(got, plain):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    ref_ins = _requires_grad(x, W, b, s, bb)
+    want = torch.autograd.grad(fused_conv_gn_silu_reference(*ref_ins, 8),
+                               ref_ins, dout)
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 32)])
+def test_flash_attention_backward_matches_plain_backward(cuda, dtype, D):
+    """Each route (f32 FMA; bf16 wgmma at D 64, mma.sync at D 32): the op's
+    backward is the plain backward given the kernel's output, bit for bit,
+    and matches autograd of the plain forward."""
+    k2 = importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".ops.kernels.flash_attention")
+    q, k, v = _qkv(cuda, 2, 2, 300, D, seed=40 + D)
+    q, k, v = (a.to(dtype) for a in (q, k, v))
+    assert attention_route(q, k, v) == {torch.float32: "fma"}.get(
+        dtype, "wgmma" if D == 64 else "mma_sync")
+    ins = _requires_grad(q, k, v)
+    before = flash_attention.launches
+    out = flash_attention(*ins)
+    assert flash_attention.launches == before + 1
+    dout = torch.randn(out.shape, device=cuda).to(dtype)
+    got = torch.autograd.grad(out, ins, dout)
+    plain = k2.flash_attention_backward(dout, q, k, v, out.detach())
+    for g, w in zip(got, plain):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    ref_ins = _requires_grad(q, k, v)
+    want = torch.autograd.grad(flash_attention_reference(*ref_ins), ref_ins,
+                               dout)
+    _grads_close(got, want, dtype)
+
+
+def test_train_step_on_the_card(cuda, tmp_path):
+    """A few steps of the trainer on the card in bf16 with self-conditioning
+    on every step: K1 launched 2 x 5 times and K2 2 times per step, the
+    loss finite, a checkpoint written."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+    tt = importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".training.train")
+    ds = pipeline.synthetic_dataset(8, segment_len=1024, fs=1024,
+                                    device="cuda")
+    cfg = tt.TrainConfig(epochs=2, batch_size=4, base_ch=16, time_dim=32,
+                         depth=2, use_attention=True, pred_type="v",
+                         p_selfcond=1.0, t_min_frac=0.0, warmup_steps=2,
+                         model_dir=str(tmp_path))
+    reset_launch_counts()
+    out = tt.train(cfg, dataset=ds, device="cuda")
+    assert launch_counts() == {"conv_gn_silu": 4 * 10, "flash_attention": 4 * 2}
+    assert all(np.isfinite(h["avg_per_sample"]) for h in out["history"])
+    assert os.path.exists(out["checkpoint"]) and int(out["state"].step) == 4
 
 
 def test_seeded_normal_on_the_card(cuda):

@@ -357,8 +357,9 @@ def test_registered_ops_fakes_give_shapes():
 
 
 def test_cpu_plain_path_backpropagates():
-    """Only CUDA refuses a grad-enabled forward: on the CPU the plain
-    versions carry autograd to every ConvBlock and the attention."""
+    """On the CPU the plain versions carry autograd to every ConvBlock and
+    the attention (on CUDA the ops' registered backwards do:
+    ``tests/test_torch_port_cuda.py``)."""
     model = UNet1D(in_ch=7, base_ch=8, time_dim=16, depth=2, cond_in_ch=5,
                    use_attention=True, device="cpu")
     randomize_(model, 0)          # the init's final conv and proj are zero
