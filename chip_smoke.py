@@ -21,9 +21,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              (bf16 at 32 rows, its serving batch), at both training paths'
              batches (16 rows; attn16k at L 32768, pn128 at L 8192) and at
              the bench's model; K2, the flash-attention kernel, at attn16k's
-             bottleneck (32, 4, 4096, 64) in bf16 (and at L 4000, and at the
-             training batch of 16), in f32, and at a ragged L and other head
-             widths.
+             bottleneck (32, 4, 4096, 64) in bf16 (and at L 4000, at the
+             training batch of 16 and at the attn16k grid's 72 and 36 rows),
+             in f32, and at a ragged L and other head widths.
              Each with its route, TFLOP/s, time, the plain version's, a
              PyTorch yardstick's (``F.conv1d -> F.group_norm -> F.silu``;
              ``F.scaled_dot_product_attention``) and the roofline bound.
@@ -91,15 +91,44 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              pn128 width in-process (the loss falls over 40 epochs, the
              checkpoint goes through ``load_model`` and the infer CLI, a
              ``--resume`` continues its global step).
-11. bench  - the port's ``bench.py`` (its own JSON line printed as it is)
+11. evals  - the sweep and the mass grid on ``.npz`` corpora synthesised on
+             the card with the port's ``data/synth.py`` (3.5PN chirps in
+             aLIGO-coloured noise, the model PSD's grid scalars; m1 and m2
+             on a 3 x 3 grid from 20 to 50 Msun, SNR 8 to 30; pn128: fs
+             4096, L 4096, 4 a cell; attn16k: fs 16384, L 32768, 2 a cell),
+             from the infer phase's checkpoints: a small f32 ``eval_combo``
+             and chunked ``eval_indices`` against the CPU plain path;
+             ``gw-sweep --grid`` (2 SNR x 2 cfg at 10 steps, 4 indices, the
+             gate on 8) and a random-mode sweep (4 draws, top 2, 2 seeds) on
+             pn128; ``gw-grid --from-sweep`` on all 36 pn128 samples (2
+             seeds, MF calibration); ``gw-grid`` on attn16k (2 seeds, 10
+             steps) forced into 2 chunks, with the automatic cap, and once
+             profiled (K2 all ``flash_fwd_wgmma``); every artifact checked,
+             launches counted per run.
+12. distill - one distillation step's f32 gradients at pn128 width, kernel
+             against plain path; ``gw-distill`` from the train phase's
+             gw-train checkpoint on the pn128 corpus (8 -> 4 -> 2, 2 epochs,
+             batch 16; K1 7 x 3 a step), a profiled window split into the
+             teacher's forwards, the student's forward, the backward and the
+             optimizer; ``gw-grid`` on the 2-step student (2 steps, CFG
+             folded); ``gw-soup`` of the two stage students (the float64
+             mean, read by ``load_model``).
+13. bench  - the port's ``bench.py`` (its own JSON line printed as it is)
              and ``graft_entry.entry()``, each with K1's launches.
-12. kernels - one ``{"kernels": [...]}`` line, then the last line
+14. launched_shapes - every shape each kernel was launched at from phase
+             4 on (recorded by wrapping the ops' launch bodies; the
+             op_overhead phase is not recorded) that phase 3 did not check,
+             held against its plain version in the same way; the coverage,
+             and K1's time summed over the blocks of each forward shape of
+             each evals and distill run.
+15. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero before
 printing any result.
 """
+import copy
 import json
 import os
 import shutil
@@ -140,9 +169,12 @@ GRAD_LOSS_TOL_BF16 = 2e-2      # bf16: kernel vs plain forward, a few ulps
 CLI_TRAIN_L = 8192
 CLI_TRAIN_EPOCHS = 40          # 2 steps an epoch at batch 16: 80 steps
 # (config, model, L, rows) of K1's extra checks: the training batches and
-# the bench's model
+# the bench's model.  The shapes of the evals and distill runs are checked
+# after those runs, as they launched them (``LaunchShapes``)
 K1_EXTRA = [("attn16k train", ATTN16K, 32768, TRAIN_BATCH),
             ("pn128 train cli", FLAGSHIP, CLI_TRAIN_L, TRAIN_BATCH)]
+# K2's rows on the attn16k grid: 18 samples x 2 seeds x CFG
+ATTN16K_GRID_ROWS = 18 * 2 * 2
 # kernel vs plain version: f32 differs only in summation order; bf16 may
 # flip an output by one bf16 ulp (2^-7 relative)
 K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-3)}
@@ -162,7 +194,9 @@ K2_SHAPES = [("bfloat16", 32, 4, 4096, 64), ("bfloat16", 32, 4, 4000, 64),
              ("float32", 2, 4, 4096, 32), ("float32", 2, 4, 4096, 128),
              ("bfloat16", 2, 2, 777, 65), ("float32", 2, 2, 777, 65),
              ("bfloat16", 2, 4, 2048, 256), ("float32", 1, 2, 2048, 256),
-             ("bfloat16", TRAIN_BATCH, 4, 4096, 64)]
+             ("bfloat16", TRAIN_BATCH, 4, 4096, 64),
+             ("bfloat16", ATTN16K_GRID_ROWS, 4, 4096, 64),
+             ("bfloat16", ATTN16K_GRID_ROWS // 2, 4, 4096, 64)]
 MODEL_TOL = 1e-3   # f32, max-abs normalised, summation order through 7 blocks
 # the infer phase: the 200-step default of plain checkpoints, cut to bound
 # the run's time; 4 seeds x CFG = 8 rows per forward
@@ -289,7 +323,7 @@ def k1_split_ms(torch, fn, reps=3):
     return split
 
 
-def phase_kernel(torch, config, shapes, dtypes_rows):
+def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
     import torch.nn.functional as F
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
@@ -303,7 +337,7 @@ def phase_kernel(torch, config, shapes, dtypes_rows):
         dname = str(dtype).split(".")[1]
         rtol, atol = K1_TOL[dname]
         for name, L, Cin, Cout in shapes:
-            G = 8
+            G = groups
             g = torch.Generator(device="cuda").manual_seed(L + Cin + Cout)
             x = torch.randn(rows, L, Cin, generator=g, device="cuda").to(dtype)
             W = torch.randn(3, Cin, Cout, generator=g, device="cuda") / (3 * Cin) ** 0.5
@@ -340,7 +374,7 @@ def phase_kernel(torch, config, shapes, dtypes_rows):
             rec = {"phase": "kernel", "kernel": "conv_gn_silu",
                    "config": config, "block": name, "route": conv_route(x),
                    "rows": rows, "L": L, "Cin": Cin, "Cout": Cout,
-                   "dtype": dname, "max_abs_err": max_err, "rtol": rtol,
+                   "groups": G, "dtype": dname, "max_abs_err": max_err, "rtol": rtol,
                    "atol": atol, "n_outside_tol": bad, "kernel_ms": k_ms,
                    "plain_ms": p_ms, "library_ms": l_ms,
                    "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -373,7 +407,7 @@ def plain_attention(torch, q, k, v):
                       for i in range(0, B, step)])
 
 
-def phase_kernel_attention(torch):
+def phase_kernel_attention(torch, shapes=K2_SHAPES):
     import torch.nn.functional as F
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
@@ -382,7 +416,7 @@ def phase_kernel_attention(torch):
     )
 
     results = []
-    for dname, B, H, L, D in K2_SHAPES:
+    for dname, B, H, L, D in shapes:
         dtype = getattr(torch, dname)
         rtol, atol = K2_TOL[dname]
         g = torch.Generator(device="cuda").manual_seed(B * L + D)
@@ -1201,7 +1235,7 @@ def phase_train_cli(torch, tmp):
     loss falls from the first epoch to the last; its checkpoint is read by
     ``load_model`` and reconstructs a synthetic measurement through the
     infer CLI; a ``--resume`` of one epoch continues its global step.
-    Returns the launches of the training run."""
+    Returns the launches of the training run and its checkpoint."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import infer as infer_cli
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import train as train_cli
@@ -1281,7 +1315,7 @@ def phase_train_cli(torch, tmp):
           "infer_cli_s": infer_s, "recon_abs_max": float(np.abs(rec_arr).max()),
           "resumed_global_step": ck2["global_step"],
           "resumed_avg_per_sample": resumed["history"][0]["avg_per_sample"]})
-    return launches
+    return launches, out["checkpoint"]
 
 
 def host_us_per_call(torch, fn, calls=300):
@@ -1664,45 +1698,829 @@ def phase_bench(torch):
 
 
 
-def kernels_line(k1, k2, launches):
+# the evals and distill phases: mass-grid corpora synthesised on the card
+# (m1 and m2 on a 3 x 3 grid, SNR uniform in [8, 30]); the sweep, the grid
+# and distillation at the paths' full widths, 10 sampler steps (the 200 of a
+# plain checkpoint cut to bound the run's time)
+GRID_MASSES = (20.0, 35.0, 50.0)
+EVAL_CORPORA = {"pn128": dict(fs=4096, L=4096, per_cell=4),
+                "attn16k": dict(fs=16384, L=32768, per_cell=2)}
+EVAL_STEPS = 10
+EVAL_SEEDS = 2
+ATTN16K_GRID_CAP = 9           # the forced cap: 18 samples in 2 chunks
+DISTILL_CHAIN = "8,4,2"
+DISTILL_EPOCHS = 2
+DISTILL_BATCH = 16
+DISTILL_PROFILED_STEPS = 4
+PORT = "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+
+
+def synth_grid_corpus(torch, config, path, seed):
+    """A mass-grid corpus synthesised on the card with the port's
+    ``data/synth.py`` (3.5PN chirps in aLIGO-coloured noise), written with
+    ``save_corpus_npz``: the grid scalars of the model PSD, no PSD arrays.
+    Returns the sample count."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import (
+        hdf5io,
+        synth,
+    )
+
+    c = EVAL_CORPORA[config]
+    a, b = np.meshgrid(GRID_MASSES, GRID_MASSES, indexing="ij")
+    m1 = np.repeat(a.ravel(), c["per_cell"])
+    m2 = np.repeat(b.ravel(), c["per_cell"])
+    n = len(m1)
+    snr = np.random.default_rng(seed).uniform(8.0, 30.0, n)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float32, device="cuda")
+
+    out = synth.generate_batch(gen, col(m1), col(m2), col(snr),
+                               config=synth.SynthConfig(n=c["L"], fs=c["fs"]))
+    signal = out["signal"].cpu().numpy()
+    noisy = out["noisy"].cpu().numpy()
+    check(signal.shape == (n, c["L"]) and np.isfinite(noisy).all()
+          and np.abs(signal).max() > 0, f"{config} grid corpus")
+    mtot = m1 + m2
+    meta = {"mass1": m1, "mass2": m2, "spin1z": np.zeros(n),
+            "spin2z": np.zeros(n), "snr": snr,
+            "q": np.maximum(m1, m2) / np.minimum(m1, m2),
+            "chirp_mass": (m1 * m2) ** 0.6 / mtot ** 0.2,
+            "label_m1": m1, "label_m2": m2,
+            "psd_len": np.full(n, c["L"] // 2 + 1),
+            "psd_df": np.full(n, c["fs"] / c["L"]),
+            "psd_f_lower": np.full(n, 20.0)}
+    hdf5io.save_corpus_npz(path, signal, noisy, meta, c["fs"])
+    return n
+
+
+def ladder_len(steps, start_t, ladder="t"):
+    """Forwards of one sampler pass (the distinct steps of its ladder)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        build_lambda_t_schedule,
+        build_t_schedule,
+        make_schedule,
+    )
+
+    if ladder == "lambda":
+        return len(build_lambda_t_schedule(make_schedule(1000), steps, start_t))
+    return len(build_t_schedule(1000, steps, start_t))
+
+
+def run_counted(torch, fn, want, what):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; returns (its result, launches, seconds)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    LaunchShapes.label = what
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    LaunchShapes.label = "other"
+    got = launch_counts()
+    if want is not None:
+        check(got == want(out) if callable(want) else got == want,
+              f"{what}: launches {got}")
+    return out, got, seconds
+
+
+def phase_evals_small(torch, tmp):
+    """``eval_combo`` and chunked ``eval_indices`` of a small f32 checkpoint
+    on an ``.npz`` corpus: the card's path against the CPU plain path, with
+    the same injected noise."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import grid as grid_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.evals import grid, sweep
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import (
+        FixedNoise,
+    )
+
+    small = dict(in_ch=7, base_ch=16, time_dim=32, depth=2, cond_in_ch=5,
+                 use_selfcond=True, t_embed_max_time=999.0)
+    ck_path = os.path.join(tmp, "evals_small.msgpack")
+    write_checkpoint(small, dict(infer_args(small), bf16=False), ck_path, 40)
+    sig, noisy = [], []
+    for i in range(4):
+        clean, noise, _ = synth_measurement(512, 4096.0, 41 + i)
+        sig.append(clean)
+        noisy.append(clean + noise)
+    npz = os.path.join(tmp, "evals_small.npz")
+    hdf5io.save_corpus_npz(npz, sig, noisy, {
+        "mass1": [30.0, 30.0, 40.0, 40.0], "mass2": [20.0] * 4,
+        "snr": [9.0, 12.0, 15.0, 18.0], "psd_len": [257] * 4,
+        "psd_df": [8.0] * 4, "psd_f_lower": [20.0] * 4}, 4096.0)
+    z = {}
+
+    def draws(shape):
+        key = tuple(shape)
+        if key not in z:
+            z[key] = torch.randn(*shape, generator=torch.Generator()
+                                 .manual_seed(len(z) + 50))
+        return FixedNoise(z[key])
+
+    def noise(seed, device):
+        return draws
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, schedule, ck = inference.load_model(ck_path, device=dev)
+        preps = sweep.prep_samples(npz, [0, 1, 2, 3], ck, ck_path, True,
+                                   "model", "std")
+        combo = sweep.Combo(start_snr=8.0, cfg_scale=1.5, init_mode="noise",
+                            dc_weight=0.0, eta=0.0)
+        n = ladder_len(3, sweep._sampler_config(combo, 3, schedule, ck,
+                                                True).start_t)
+        want = {"conv_gn_silu": 5 * n, "flash_attention": 0}
+        r, got, _ = run_counted(
+            torch, lambda: sweep.eval_combo(model, schedule, ck, preps, combo,
+                                            3, draws, device=dev),
+            want if dev == "cuda" else None, "small eval_combo")
+        args = grid_cli.build_parser().parse_args(
+            ["--input-h5", npz, "--model", ck_path, "--steps", "3",
+             "--start-t", "999", "--avg-seeds", "2", "--eval-scan-cap", "2",
+             "--cfg-scale", "1.5", "--whiten", "1", "--whiten-mode", "model",
+             "--sigma-mode", "std", "--sigma-fixed", "1"])
+        rows, got2, _ = run_counted(
+            torch, lambda: grid.eval_indices(args, model, schedule, ck, preps,
+                                             draws, device=dev),
+            {"conv_gn_silu": 5 * ladder_len(3, 999) * 2,
+             "flash_attention": 0} if dev == "cuda" else None,
+            "small eval_indices")
+        out[dev] = (r, rows, got, got2)
+    (rg, rows_g, lg, lg2), (rc, rows_c, _, _) = out["cuda"], out["cpu"]
+
+    def rel(key_fn, a, b):
+        x = np.array([key_fn(s) for s in a], np.float64)
+        y = np.array([key_fn(s) for s in b], np.float64)
+        return float(np.abs(x - y).max() / np.abs(y).max())
+
+    errs = {"J": rel(lambda s: s["J"], rg["per_sample"], rc["per_sample"])}
+    for k in ("corr_last", "nmae_sigma"):
+        errs[f"strain_{k}"] = rel(lambda s: s["strain"][k], rg["per_sample"],
+                                  rc["per_sample"])
+    for k in ("corr", "mae_norm", "unc_rel", "mf_ratio", "res_flatness"):
+        errs[f"grid_{k}"] = rel(lambda r: r[k], rows_g, rows_c)
+    emit({"phase": "evals_small_vs_cpu", "rows_combo": 4 * 2, "L": 512,
+          "steps": 3, "launches": {"eval_combo": lg, "eval_indices": lg2},
+          "max_rel_err": errs, "tol": MODEL_TOL})
+    check(max(errs.values()) <= MODEL_TOL,
+          f"evals GPU vs CPU rel errs {errs}")
+
+
+def phase_evals(torch, tmp):
+    """The sweep and the mass grid at full width on the card, on ``.npz``
+    corpora synthesised there, from the checkpoints the infer phase writes.
+    Returns the launches of each run."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import grid as grid_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import sweep as sweep_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.evals import grid, sweep
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        make_schedule,
+    )
+
+    launches = {}
+    corpora, ckpts, n_samples = {}, {}, {}
+    t0 = time.perf_counter()
+    for i, config in enumerate(EVAL_CORPORA):
+        corpora[config] = os.path.join(tmp, f"{config}_grid.npz")
+        n_samples[config] = synth_grid_corpus(torch, config, corpora[config],
+                                              60 + i)
+        ckpts[config] = os.path.join(tmp, f"{config}.msgpack")
+        write_checkpoint(dict(PATHS[config]["model"], t_embed_max_time=999.0),
+                         infer_args(PATHS[config]["model"]), ckpts[config], 11)
+    setup_s = time.perf_counter() - t0
+    schedule = make_schedule(1000)
+    ck = infer_args(FLAGSHIP)
+
+    # gw-sweep, grid mode: 2 SNR x 2 cfg combos on 4 indices, the gate on 8
+    sw = os.path.join(tmp, "sweep_grid")
+    argv = ["--input-h5", corpora["pn128"], "--model", ckpts["pn128"],
+            "--outdir", sw, "--grid", "--grid-steps", str(EVAL_STEPS),
+            "--grid-snr", "8", "16", "--grid-cfg", "1.0", "1.5",
+            "--grid-init", "noise", "--grid-dc", "0", "--grid-eta", "0",
+            "--indices", "0", "1", "2", "3", "--val-samples", "8",
+            "--device", "cuda"]
+
+    def sweep_forwards(top):
+        with open(os.path.join(sw, "grid_results.json")) as fh:
+            res = json.load(fh)
+        n = sum(ladder_len(r["steps"], r["start_t"]) for r in res)
+        return n + ladder_len(EVAL_STEPS, res[0]["start_t"]) + ladder_len(
+            EVAL_STEPS, 999)
+
+    top, got, sweep_s = run_counted(
+        torch, lambda: sweep_cli.main(argv),
+        lambda top: {"conv_gn_silu": 7 * sweep_forwards(top),
+                     "flash_attention": 0}, "gw-sweep --grid")
+    launches["pn128 sweep grid"] = got
+    with open(os.path.join(sw, "grid_results.json")) as fh:
+        res = json.load(fh)
+    with open(os.path.join(sw, "best_cmd.txt")) as fh:
+        best = fh.read()
+    with open(os.path.join(sw, "validation.json")) as fh:
+        val = json.load(fh)
+    check(len(res) == 4 and res[0]["J"] == max(r["J"] for r in res)
+          and all(np.isfinite(r["J"]) for r in res), "grid_results.json")
+    shipped = (f"--start-snr {res[0]['combo']['start_snr']:.4g}"
+               if val["emit_top"] else "--start-t 999")
+    check(val["enabled"] and len(val["val_indices"]) == 8 and shipped in best
+          and best.startswith(sweep.INFER_PROG),
+          f"best_cmd.txt ships the gate's choice: {best}")
+
+    # gw-sweep, random mode: 4 coarse draws, top 2, 2 refine seeds
+    sr = os.path.join(tmp, "sweep_random")
+    argv_r = ["--input-h5", corpora["pn128"], "--model", ckpts["pn128"],
+              "--outdir", sr, "--n-coarse", "4", "--topk", "2",
+              "--seeds-refine", "2", "--steps-coarse", str(EVAL_STEPS),
+              "--steps-refine", str(EVAL_STEPS), "--start-snr-min", "8",
+              "--start-snr-max", "8", "--val-samples", "4",
+              "--device", "cuda"]
+    n8 = ladder_len(EVAL_STEPS, sweep._sampler_config(
+        sweep.Combo(8.0, 1.5, "noise", 0.0, 0.0), EVAL_STEPS, schedule, ck,
+        True).start_t)
+    top_r, got, random_s = run_counted(
+        torch, lambda: sweep_cli.main(argv_r),
+        {"conv_gn_silu": 7 * (n8 * (4 + 2 * 2 + 1)
+                              + ladder_len(EVAL_STEPS, 999)),
+         "flash_attention": 0}, "gw-sweep random")
+    launches["pn128 sweep random"] = got
+    check(sorted(os.listdir(sr)) == ["best_cmd.txt", "coarse_top.json",
+                                      "final_results.json", "validation.json"]
+          and np.isfinite(top_r["J"]), f"random sweep artifacts")
+
+    # gw-grid --from-sweep on pn128: all 36 samples, 2 seeds, MF calibration
+    def grid_run(config, outdir, extra):
+        return grid_cli.main(["--input-h5", corpora[config], "--model",
+                              ckpts[config], "--outdir", outdir,
+                              "--per-cell", str(EVAL_CORPORA[config]
+                                                ["per_cell"]),
+                              "--avg-seeds", str(EVAL_SEEDS),
+                              "--device", "cuda"] + extra)
+
+    def grid_launches(config, steps, start_t, ladder="t", calls=1):
+        n = ladder_len(steps, start_t, ladder) * calls
+        return {"conv_gn_silu": 7 * n,
+                "flash_attention": n if config == "attn16k" else 0}
+
+    records = {}
+    torch.cuda.reset_peak_memory_stats()
+    gp = os.path.join(tmp, "grid_pn128")
+    out, got, secs = run_counted(
+        torch, lambda: grid_run("pn128", gp, ["--from-sweep", sw,
+                                              "--amp-calib", "mf"]),
+        None, "gw-grid pn128")
+    summ = out["summary"]
+    check(got == grid_launches("pn128", summ["knobs"]["steps"],
+                               summ["start_t_resolved"]),
+          f"gw-grid pn128 launches {got}")
+    launches["pn128 grid"] = got
+    records["pn128"] = dict(seconds=secs, summary=summ,
+                            scan_caps=out["scan_caps"],
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # attn16k: forced into 2 chunks, then the automatic cap (one profiled)
+    ga = os.path.join(tmp, "grid_attn16k")
+    knobs = ["--steps", str(EVAL_STEPS), "--start-t", "999"]
+    out, got, secs = run_counted(
+        torch, lambda: grid_run("attn16k", ga + "_cap", knobs + [
+            "--eval-scan-cap", str(ATTN16K_GRID_CAP)]),
+        grid_launches("attn16k", EVAL_STEPS, 999, calls=2),
+        "gw-grid attn16k capped")
+    launches["attn16k grid capped"] = got
+    check(out["scan_caps"] == {32768: ATTN16K_GRID_CAP},
+          f"capped chunks {out['scan_caps']}")
+    records["attn16k_capped"] = dict(seconds=secs, summary=out["summary"],
+                                     scan_caps=out["scan_caps"])
+    torch.cuda.reset_peak_memory_stats()
+    out, got, secs = run_counted(
+        torch, lambda: grid_run("attn16k", ga, knobs), None,
+        "gw-grid attn16k")
+    calls = -(-n_samples["attn16k"] // out["scan_caps"][32768])
+    check(got == grid_launches("attn16k", EVAL_STEPS, 999, calls=calls),
+          f"gw-grid attn16k launches {got}")
+    launches["attn16k grid"] = got
+    rows = n_samples["attn16k"] * EVAL_SEEDS * 2
+    records["attn16k"] = dict(seconds=secs, summary=out["summary"],
+                              scan_caps=out["scan_caps"],
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grid_run("attn16k", ga + "_prof", knobs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / "grid_attn16k_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    breakdown = device_breakdown(trace, wall_us)
+    k2_seen = breakdown["k2_launches_by_kernel"]
+    check(sum(k2_seen.values()) == got["flash_attention"]
+          and all("flash_fwd_wgmma" in name for name in k2_seen),
+          f"the attn16k grid trace holds K2 launches {k2_seen}")
+
+    for name, rec in records.items():
+        summ = rec["summary"]
+        check(summ["n_cells"] == 9 and "uncertainty" in summ
+              and summ["n_rows"] == n_samples[name.split("_")[0]]
+              and np.isfinite(summ["corr_macro_mean"]),
+              f"{name} summary.json: {sorted(summ)}")
+    want_keys = ["n_rows", "n_cells", "corr_macro_mean", "corr_macro_median",
+                 "corr_micro_mean", "mae_macro_mean", "mae_macro_median",
+                 "mae_micro_mean", "mf_ratio_macro_mean", "knobs",
+                 "start_t_resolved", "whiten", "whiten_mode",
+                 "whiten_kind_used", "sigma_mode", "residuals",
+                 "uncertainty", "by_snr"]
+    check(list(records["pn128"]["summary"]) == want_keys,
+          f"summary.json keys {list(records['pn128']['summary'])}")
+    pngs = {d: sorted(f for f in os.listdir(d) if f.endswith(".png"))
+            for d in (gp, ga)}
+    drawn = all(v == ["heat_corr.png", "heat_mae.png"] for v in pngs.values())
+    check(drawn or not any(pngs.values()), f"heatmaps {pngs}")
+    for d in (gp, ga):
+        check({"per_index_metrics.csv", "metrics_grid.csv",
+               "metrics_grid.json", "summary.json"} <= set(os.listdir(d)),
+              f"gw-grid artifacts in {d}")
+
+    n_evals = len(res) + 2
+    emit({"phase": "evals", "corpora": {
+              c: dict(EVAL_CORPORA[c], samples=n_samples[c], cells=9,
+                      masses=list(GRID_MASSES)) for c in EVAL_CORPORA},
+          "setup_s": setup_s,
+          "sweep_grid": {"seconds": sweep_s, "combos": len(res),
+                         "evals": n_evals, "s_per_combo": sweep_s / n_evals,
+                         "J_top": res[0]["J"], "gate": val,
+                         "best_cmd": best.strip()},
+          "sweep_random": {"seconds": random_s, "evals": 4 + 4 + 2,
+                           "s_per_combo": random_s / 10, "J_top": top_r["J"]},
+          "grid": {name: {
+              "seconds": rec["seconds"], "scan_caps": rec["scan_caps"],
+              "recon_per_s": (rec["summary"]["n_rows"] * EVAL_SEEDS
+                              / rec["seconds"]),
+              "peak_gb": rec.get("peak_gb"),
+              "corr_macro_mean": rec["summary"]["corr_macro_mean"],
+              "mf_ratio_macro_mean": rec["summary"].get("mf_ratio_macro_mean"),
+              "knobs": {k: rec["summary"]["knobs"][k] for k in (
+                  "steps", "cfg_scale", "start_t", "avg_seeds", "amp_calib")}}
+              for name, rec in records.items()},
+          "attn16k_rows_per_forward": rows,
+          "row_bytes_analytic": {c: grid.row_bytes(
+              PATHS[c]["model"]["base_ch"], EVAL_CORPORA[c]["L"])
+              for c in EVAL_CORPORA},
+          "heatmaps_drawn": drawn,
+          "launches": launches})
+    emit({"phase": "evals_profile", "config": "attn16k grid bf16",
+          "profiled_runs": 1, "trace": str(trace.relative_to(TRACES.parent)),
+          **breakdown})
+    return launches, corpora["pn128"]
+
+
+DISTILL_GROUPS = ("teacher_forward", "student_forward", "backward",
+                  "optimizer", "other")
+
+
+def distill_split(trace_path, wall_us, steps):
+    """Device ms per distillation step by part: each kernel belongs to the
+    innermost ``distill/...`` range around the host call that launched it
+    (the ops' plain backwards run inside ``distill/backward``); K1's and
+    K2's share of each part; the idle share of the wall."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+               e["name"].split("/", 1)[1]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e["name"].startswith("distill/")]
+    groups = dict.fromkeys(DISTILL_GROUPS, 0.0)
+    kernels = {g: 0.0 for g in DISTILL_GROUPS}
+    for e in dev:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        inside = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
+        group = min(inside, key=lambda r: r[1] - r[0])[2] if inside else "other"
+        groups[group] += float(e["dur"])
+        if any(k in e["name"] for k in K1_KERNELS + K2_KERNELS):
+            kernels[group] += float(e["dur"])
+    busy = device_breakdown(trace_path, wall_us)["busy_ms"]
+    return {"ms_per_step": {k: v / 1e3 / steps for k, v in groups.items()},
+            "k1_k2_ms_per_step": {k: v / 1e3 / steps
+                                  for k, v in kernels.items()},
+            "device_ms_per_step": sum(groups.values()) / 1e3 / steps,
+            "wall_ms_per_step": wall_us / 1e3 / steps,
+            "idle_share": 1.0 - busy / (wall_us / 1e3)}
+
+
+def phase_distill_grads(torch, corpus):
+    """One distillation step's f32 gradients at pn128's full width on
+    ``GRAD_ROWS`` rows of the corpus, with injected segments and noise: the
+    kernel path against the plain path on the card (the same seeded
+    weights), within MODEL_TOL max-abs normalised."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        flash_attention_reference,
+        fused_conv_gn_silu_reference,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        make_schedule,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
+
+    tt = _train_module()
+    td = _distill_module()
+    ds = pipeline.prepare_dataset(corpus, whiten=True, whiten_mode="model")
+    b = ds.buckets[4096]
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[:GRAD_ROWS])).cuda()
+             for k, v in b.items() if k != "index"}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    batch["j_inject"] = torch.tensor([0, 1, 2, 3][:GRAD_ROWS], device="cuda")
+    batch["eps0_inject"] = torch.randn(GRAD_ROWS, 1, 4096, generator=g,
+                                       device="cuda")
+    schedule = make_schedule(1000)
+    cfg = td.DistillConfig(teacher="", data="", cfg_scale=1.5)
+    ladder = td._teacher_ladder(schedule, 4, "lambda", 999)
+
+    def one_step(plain):
+        student = unet.UNet1D(**FLAGSHIP, device="cuda")
+        teacher = unet.UNet1D(**FLAGSHIP, device="cuda")
+        randomize_(student, 33)
+        randomize_(teacher, 34)
+        flat = tt.FlatParams(student, "cuda")
+        opt = tt.ClipAdamW(td.distill_lr_schedule(1e-4, 100), 1.0, 0.0)
+        state = tt.TrainState(params=flat, ema_params=flat.flat.clone(),
+                              opt_state=opt.init(flat.flat),
+                              step=torch.zeros((), dtype=torch.int32,
+                                               device="cuda"))
+        step = td.make_distill_step(student, schedule, cfg, opt, ladder, "v")
+        kernels = unet.fused_conv_gn_silu, unet.flash_attention
+        if plain:
+            unet.fused_conv_gn_silu = fused_conv_gn_silu_reference
+            unet.flash_attention = flash_attention_reference
+        try:
+            reset_launch_counts()
+            m = step(state, teacher, batch, 5)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            unet.fused_conv_gn_silu, unet.flash_attention = kernels
+        return float(m["loss"]), flat.grad.clone(), counts
+
+    lk, gk, ck = one_step(False)
+    lp, gp, cp = one_step(True)
+    check(ck == {"conv_gn_silu": 21, "flash_attention": 0}
+          and cp == {"conv_gn_silu": 0, "flash_attention": 0},
+          f"distill gradient check: launches {ck} / plain {cp}")
+    grad_rel = float((gk - gp).abs().max() / gp.abs().max())
+    loss_rel = abs(lk - lp) / abs(lp)
+    emit({"phase": "distill_grads", "config": "pn128 f32", "rows": GRAD_ROWS,
+          "L": 4096, "cfg_scale": 1.5, "loss_kernel": lk, "loss_plain": lp,
+          "loss_rel_err": loss_rel, "grad_max_rel_err": grad_rel,
+          "grad_abs_max": float(gp.abs().max()), "launches": ck,
+          "tol": MODEL_TOL})
+    check(np.isfinite(lk) and bool(torch.isfinite(gk).all()),
+          "distill gradients finite")
+    check(grad_rel <= MODEL_TOL and loss_rel <= MODEL_TOL,
+          f"distill f32 gradients kernel vs plain: rel {grad_rel}, loss "
+          f"{loss_rel}")
+
+
+def _distill_module():
+    import importlib
+
+    return importlib.import_module(f"{PORT}.training.distill")
+
+
+def phase_distill(torch, tmp, teacher, corpus):
+    """``gw-distill`` at pn128 width from the gw-train checkpoint on the
+    pn128 grid corpus (a 8 -> 4 -> 2 chain), a profiled window of its step
+    split by part, ``gw-grid`` on the 2-step student and ``gw-soup`` of the
+    two stage students.  Returns the launches of each run."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import distill as distill_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import grid as grid_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import soup as soup_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import (
+        params_from_flax,
+    )
+
+    tt = _train_module()
+    td = _distill_module()
+    launches = {}
+    d = os.path.join(tmp, "distilled")
+    log = os.path.join(tmp, "distill.jsonl")
+    n = len(GRID_MASSES) ** 2 * EVAL_CORPORA["pn128"]["per_cell"]
+    steps_per_stage = -(-n // DISTILL_BATCH) * DISTILL_EPOCHS
+    stages = len(DISTILL_CHAIN.split(",")) - 1
+    torch.cuda.reset_peak_memory_stats()
+    res, got, secs = run_counted(
+        torch, lambda: distill_cli.main([
+            "--teacher", teacher, "--data", corpus, "--model_dir", d,
+            "--steps-schedule", DISTILL_CHAIN, "--epochs", str(DISTILL_EPOCHS),
+            "--batch-size", str(DISTILL_BATCH), "--log-jsonl", log,
+            "--device", "cuda"]),
+        {"conv_gn_silu": 7 * 3 * steps_per_stage * stages,
+         "flash_attention": 0}, "gw-distill")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["pn128 distill"] = got
+    with open(log) as fh:
+        epochs = [json.loads(ln) for ln in fh]
+    check(len(epochs) == stages * DISTILL_EPOCHS
+          and all(np.isfinite(r["loss"]) for r in epochs),
+          f"gw-distill losses {[r['loss'] for r in epochs]}")
+    cks = [load_checkpoint(p) for p in res["checkpoints"]]
+    check([c["args"]["distilled_steps"] for c in cks] == [4, 2]
+          and all(c["args"]["selfcond_mode"] == "zero"
+                  and c["global_step"] == steps_per_stage for c in cks),
+          "the stage checkpoints")
+
+    # a profiled window of the step on the stage-2 shapes
+    teacher_m, schedule, ck = inference.load_model(teacher, device="cuda")
+    student = copy.deepcopy(teacher_m)
+    tt.FlatParams(teacher_m, "cuda")
+    flat = tt.FlatParams(student, "cuda")
+    cfg = td.DistillConfig(teacher=teacher, data=corpus)
+    opt = td.distill_optimizer(cfg, 100)
+    state = tt.TrainState(params=flat, ema_params=flat.flat.clone(),
+                          opt_state=opt.init(flat.flat),
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device="cuda"))
+    step = td.make_distill_step(student, schedule, cfg, opt,
+                                td._teacher_ladder(schedule, 2, "lambda",
+                                                   999),
+                                str(ck.get("pred_type", "eps")))
+    ds = td._prepare(cfg, ck)
+    dev = pipeline.upload_buckets(ds, torch.device("cuda"))
+    batches = [bb for _ in range(4) for bb in pipeline.device_resident_batches(
+        ds, DISTILL_BATCH, np.random.default_rng(0), dev)
+        if bb["clean"].shape[0] == DISTILL_BATCH]
+    key = tt.key_from_seed(8)
+    for bb in batches[:2]:
+        key, k = tt.split_key(key)
+        step(state, teacher_m, bb, k)
+    torch.cuda.synchronize()
+    step_ms = []
+    for bb in batches[2:6]:
+        key, k = tt.split_key(key)
+        t0 = time.perf_counter()
+        step(state, teacher_m, bb, k)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    window = batches[6:6 + DISTILL_PROFILED_STEPS]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for bb in window:
+            key, k = tt.split_key(key)
+            step(state, teacher_m, bb, k)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / "distill_pn128_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    split = distill_split(trace, wall_us, len(window))
+    check(all(split["ms_per_step"][g] > 0 for g in (
+        "teacher_forward", "student_forward", "backward")),
+          f"the distill trace attributes its parts: {split}")
+    del state, step, dev, batches, student, teacher_m
+    torch.cuda.empty_cache()
+
+    # gw-grid on the 2-step student: 2 steps, CFG folded (cfg 1.0)
+    student2 = res["checkpoints"][-1]
+    gd = os.path.join(tmp, "grid_distilled")
+    n2 = ladder_len(2, 999, "lambda")
+    out, got, grid_s = run_counted(
+        torch, lambda: grid_cli.main([
+            "--input-h5", corpus, "--model", student2, "--outdir", gd,
+            "--per-cell", str(EVAL_CORPORA["pn128"]["per_cell"]),
+            "--avg-seeds", str(EVAL_SEEDS), "--device", "cuda"]),
+        {"conv_gn_silu": 7 * n2, "flash_attention": 0}, "gw-grid distilled")
+    launches["pn128 distilled grid"] = got
+    knobs = out["summary"]["knobs"]
+    check(knobs["steps"] == 2 and knobs["cfg_scale"] == 1.0
+          and knobs["ladder"] == "lambda" and knobs["start_t"] == 999
+          and out["summary"]["n_cells"] == 9,
+          f"apply_distilled_defaults on the student: {knobs}")
+
+    # gw-soup of the two stage students: the float64 mean cast back
+    soup = os.path.join(tmp, "soup.msgpack")
+    check(soup_cli.main(["--inputs", *res["checkpoints"], "--output", soup])
+          == 0, "gw-soup")
+    got_soup = load_checkpoint(soup)
+    exact = True
+    for key_ in ("model_state", "model_ema_state"):
+        members = [params_from_flax(c[key_]) for c in cks]
+        mine = params_from_flax(got_soup[key_])
+        for name, v in mine.items():
+            want = (0.5 * members[0][name].double().numpy()
+                    + 0.5 * members[1][name].double().numpy()).astype(
+                        np.float32)
+            exact &= np.array_equal(v.numpy(), want)
+    check(exact, "the soup is the float64 mean of its members, cast back")
+    m_soup, _, a_soup = inference.load_model(soup, device="cuda")
+    check(a_soup["soup_members"] == [os.path.basename(p)
+                                      for p in res["checkpoints"]]
+          and next(m_soup.parameters()).is_cuda, "load_model reads the soup")
+
+    n_steps = steps_per_stage * stages
+    emit({"phase": "distill", "config": "pn128 bf16", "teacher": "gw-train "
+          "checkpoint (pn128 width, synth:32)", "corpus_samples": n,
+          "L": 4096, "chain": DISTILL_CHAIN, "epochs_per_stage": DISTILL_EPOCHS,
+          "batch": DISTILL_BATCH, "steps": n_steps, "seconds": secs,
+          "steps_per_sec": n_steps / secs,
+          "samples_per_sec": n_steps * DISTILL_BATCH / secs,
+          "epoch_steps_per_sec": [r["steps_per_sec"] for r in epochs],
+          "losses": [r["loss"] for r in epochs], "launches": launches,
+          "peak_memory_gb": peak_gb,
+          "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+          "grid_on_student": {"seconds": grid_s, "knobs": {
+              k: knobs[k] for k in ("steps", "cfg_scale", "ladder",
+                                    "start_t")},
+              "corr_macro_mean": out["summary"]["corr_macro_mean"]},
+          "soup_exact": exact})
+    emit({"phase": "distill_profile", "config": "pn128 bf16",
+          "profiled_steps": len(window),
+          "trace": str(trace.relative_to(TRACES.parent)), **split})
+    return launches
+
+
+class LaunchShapes:
+    """While installed (``with``), the input shapes each kernel is launched
+    at: it wraps each kernel module's launch body (``_launch``, which the
+    registered op calls once per launch) and puts the shape into a set, one
+    tuple a launch on the host, under the label of the run in progress
+    (``run_counted`` sets it; "other" elsewhere).  K1's key is (dtype, rows,
+    L, Cin, Cout, groups), K2's (dtype, B, H, L, D)."""
+
+    label = "other"
+    KERNELS = ("conv_gn_silu", "flash_attention")
+
+    def __init__(self):
+        import importlib
+
+        self.mods = {k: importlib.import_module(f"{PORT}.ops.kernels.{k}")
+                     for k in self.KERNELS}
+        self.bodies = {k: m._launch for k, m in self.mods.items()}
+        self.raw = {k: {} for k in self.KERNELS}     # shape -> labels
+
+    def _wrap(self, kernel):
+        body, raw = self.bodies[kernel], self.raw[kernel]
+        conv = kernel == "conv_gn_silu"
+
+        def launch(*args):
+            # hashable as they come, normalised by ``seen``
+            key = ((args[0].dtype, args[0].shape, args[1].shape, args[5])
+                   if conv else (args[0].dtype, args[0].shape))
+            raw.setdefault(key, set()).add(LaunchShapes.label)
+            return body(*args)
+
+        return launch
+
+    @property
+    def seen(self):
+        """{kernel: {key: labels}} with K1's key (dtype, rows, L, Cin, Cout,
+        groups) and K2's (dtype, B, H, L, D), dtype by name."""
+        out = {k: {} for k in self.KERNELS}
+        for k, raw in self.raw.items():
+            for key, labels in raw.items():
+                dname = str(key[0]).split(".")[1]
+                norm = ((dname, *key[1][:2], *key[2][1:], int(key[3]))
+                        if k == "conv_gn_silu" else (dname, *key[1]))
+                out[k].setdefault(norm, set()).update(labels)
+        return out
+
+    def __enter__(self):
+        for k, m in self.mods.items():
+            m._launch = self._wrap(k)
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            m._launch = self.bodies[k]
+
+
+def k1_sum(recs):
+    """K1 records summed over their blocks (one forward when the records
+    are its 7 ConvBlocks); ``device_ms`` from the profiled pass split."""
+    out = {key: sum(r[key] for r in recs) for key in (
+        "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    splits = [r["split_ms"] for r in recs]
+    out["device_ms"] = (sum(sum(sp.values()) for sp in splits)
+                        if all(isinstance(sp, dict) for sp in splits)
+                        else "not measured")
+    out.update(rows=recs[0]["rows"], L=max(r["L"] for r in recs),
+               blocks=len(recs),
+               max_abs_err=max(r["max_abs_err"] for r in recs))
+    return out
+
+
+def phase_launched_shapes(torch, shapes, k1, k2):
+    """Every shape a kernel was launched at while ``shapes`` recorded (the
+    main paths, the small checks against the CPU, the gradient checks)
+    against the kernel's plain version: the shapes no check of the kernel
+    phase covered, one by one, at the tolerances of the kernel phase.
+    Returns K1's and K2's records of every launched shape by run label, and
+    the coverage."""
+    seen = shapes.seen
+    done1 = {(r["dtype"], r["rows"], r["L"], r["Cin"], r["Cout"],
+              r["groups"]): r for r in k1}
+    done2 = {(r["dtype"], r["B"], r["H"], r["L"], r["D"]): r for r in k2}
+    before = {"conv_gn_silu": len(set(seen["conv_gn_silu"])
+                                  & set(done1)),
+              "flash_attention": len(set(seen["flash_attention"])
+                                     & set(done2))}
+    todo = {}
+    for key in sorted(set(seen["conv_gn_silu"]) - set(done1)):
+        dname, rows, L, Cin, Cout, G = key
+        todo.setdefault((dname, rows, G), []).append(
+            (f"L{L} {Cin}->{Cout}", L, Cin, Cout))
+    for (dname, rows, G), blocks in todo.items():
+        for r in phase_kernel(torch, "launched", blocks,
+                              ((getattr(torch, dname), rows),), groups=G):
+            done1[(r["dtype"], r["rows"], r["L"], r["Cin"], r["Cout"],
+                   r["groups"])] = r
+    for r in phase_kernel_attention(torch, sorted(
+            set(seen["flash_attention"]) - set(done2))):
+        done2[(r["dtype"], r["B"], r["H"], r["L"], r["D"])] = r
+    by_run = {"conv_gn_silu": {}, "flash_attention": {}}
+    for key, labels in seen["conv_gn_silu"].items():
+        for label in labels - {"other"}:
+            group = by_run["conv_gn_silu"].setdefault(label, {})
+            group.setdefault(f"{key[0]} {key[1]} rows", []).append(done1[key])
+    for label, groups in by_run["conv_gn_silu"].items():
+        for name, recs in groups.items():
+            groups[name] = k1_sum(recs)
+    for key, labels in seen["flash_attention"].items():
+        r = done2[key]
+        for label in labels - {"other"}:
+            by_run["flash_attention"].setdefault(label, {})[
+                f"{key[0]} {key[1:]}"] = {k: r[k] for k in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err", "route")}
+    coverage = {k: {"shapes_launched": len(seen[k]),
+                    "checked_in_kernel_phase": before[k],
+                    "checked_here": len(seen[k]) - before[k]}
+                for k in seen}
+    check(all(key in done1 for key in seen["conv_gn_silu"])
+          and all(key in done2 for key in seen["flash_attention"]),
+          "every launched shape is checked against its plain version")
+    emit({"phase": "launched_shapes", "coverage": coverage,
+          "by_run": by_run})
+    return by_run, coverage
+
+
+def kernels_line(k1, k2, launches, by_run, coverage):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
     of each main path at its serving batch, K2 at attn16k's serving shape
     (both also at the infer batch of 8 rows and the training batch of 16,
-    K1 at the bench's shapes too); launches summed over the main-path runs
-    (serving, infer, infer CLI, the artifact's replay, attn16k training,
-    pn128 gw-train, the bench and ``entry()``)."""
+    K2 at the grid's batch, K1 at the bench's shapes; both at every shape
+    the evals and distill runs launched, by run); launches summed over the
+    main-path runs (serving, infer, infer CLI, the artifact's replay,
+    attn16k training, pn128 gw-train, the sweeps, the grids, gw-distill and
+    the grid of its student, the bench and ``entry()``)."""
+    def bf16_at(config, rows):
+        return [r for r in k1 if r["config"] == config
+                and r["dtype"] == "bfloat16" and r["rows"] == rows]
+
     k1_paths = {}
     for config, path in PATHS.items():
-        recs = [r for r in k1 if r["config"] == config
-                and r["dtype"] == "bfloat16" and r["rows"] == path["rows"]]
-        k1_paths[config] = {
-            key: sum(r[key] for r in recs)
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                        "two_pass_floor_ms")}
+        recs = bf16_at(config, path["rows"])
+        k1_paths[config] = k1_sum(recs)
+        k1_paths[config]["two_pass_floor_ms"] = sum(
+            r["two_pass_floor_ms"] for r in recs)
         k1_paths[config]["ops_bound_ms"] = sum(
             r["bound_ms"] for r in recs if r["bound_by"] == "operations")
-        k1_paths[config]["max_abs_err"] = max(r["max_abs_err"] for r in recs)
     k1_total = {key: sum(p[key] for p in k1_paths.values())
                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                             "ops_bound_ms", "two_pass_floor_ms")}
-    k1_infer = {}
-    for config in PATHS:
-        recs = [r for r in k1 if r["config"] == config
-                and r["dtype"] == "bfloat16" and r["rows"] == INFER_ROWS]
-        k1_infer[config] = {key: sum(r[key] for r in recs)
-                            for key in ("kernel_ms", "library_ms", "bound_ms")}
-        k1_infer[config]["max_abs_err"] = max(r["max_abs_err"] for r in recs)
-    k1_extra = {}
-    for config in [c for c, *_ in K1_EXTRA] + ["bench"]:
-        recs = [r for r in k1 if r["config"] == config]
-        k1_extra[config] = {key: sum(r[key] for r in recs) for key in (
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-        k1_extra[config].update(rows=recs[0]["rows"], L=recs[0]["L"],
-                                max_abs_err=max(r["max_abs_err"] for r in recs))
-    main, infer, train = (
+    k1_infer = {config: k1_sum(bf16_at(config, INFER_ROWS))
+                for config in PATHS}
+    k1_extra = {config: k1_sum([r for r in k1 if r["config"] == config])
+                for config in [c for c, *_ in K1_EXTRA] + ["bench"]}
+    main, infer, train, grid_b = (
         next(r for r in k2 if r["dtype"] == "bfloat16"
              and (r["B"], r["H"], r["L"], r["D"]) == (B, 4, 4096, 64))
-        for B in (32, INFER_ROWS, TRAIN_BATCH))
+        for B in (32, INFER_ROWS, TRAIN_BATCH, ATTN16K_GRID_ROWS))
     pkg = "diffusion_models_for_gravitational_waveform_reconstruction_tpu"
     return {"kernels": [
         {"name": "conv_gn_silu", "route": "cuda",
@@ -1720,6 +2538,8 @@ def kernels_line(k1, k2, launches):
          "two_pass_floor_ms": k1_total["two_pass_floor_ms"],
          "by_path": k1_paths, "by_infer_path": k1_infer,
          "by_train_path_and_bench": k1_extra,
+         "by_eval_run": by_run["conv_gn_silu"],
+         "launched_shapes": coverage["conv_gn_silu"],
          "shapes": "the 7 ConvBlocks of one forward of each main path, bf16: "
                    "pn128 at 64 rows, attn16k at 32 rows",
          "phase": "kernel"},
@@ -1738,6 +2558,11 @@ def kernels_line(k1, k2, launches):
          "train_shape": {key: train[key] for key in (
              "B", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "max_abs_err")},
+         "grid_shape": {key: grid_b[key] for key in (
+             "B", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "max_abs_err")},
+         "by_eval_run": by_run["flash_attention"],
+         "launched_shapes": coverage["flash_attention"],
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
          "phase": "kernel"}]}
 
@@ -1814,28 +2639,40 @@ def main():
         shapes = convblock_shapes(UNet1D(**model_kw, device="cuda"), L)
         k1 += phase_kernel(torch, config, shapes, ((torch.bfloat16, rows),))
     k2 = phase_kernel_attention(torch)
-    phase_model(torch, "pn128", 4, 4096)
-    phase_model(torch, "attn16k", 2, 32768)
-    phase_serving_small(torch)
-    launches = {config: phase_serving(torch, config) for config in PATHS}
+    shapes = LaunchShapes()
+    with shapes:
+        phase_model(torch, "pn128", 4, 4096)
+        phase_model(torch, "attn16k", 2, 32768)
+        phase_serving_small(torch)
+        launches = {config: phase_serving(torch, config) for config in PATHS}
     with tempfile.TemporaryDirectory() as tmp:
-        phase_infer_small(torch, tmp)
-        for config in PATHS:
-            (launches[f"{config} infer"],
-             launches[f"{config} infer cli"]) = phase_infer(torch, config, tmp)
-        phase_op_overhead(torch)
-        for config in PATHS:
-            launches[f"{config} export replay"] = phase_export(torch, config,
-                                                               tmp)
-    phase_autograd(torch)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches["attn16k train"], ds = phase_train(torch, tmp)
-        phase_train_grads(torch, ds, tmp)
-        del ds
-        launches["pn128 train cli"] = phase_train_cli(torch, tmp)
-    launches["bench"], launches["entry"] = phase_bench(torch)
+        with shapes:
+            phase_infer_small(torch, tmp)
+            for config in PATHS:
+                (launches[f"{config} infer"],
+                 launches[f"{config} infer cli"]) = phase_infer(torch, config,
+                                                                tmp)
+        phase_op_overhead(torch)        # times the bare launch bodies
+        with shapes:
+            for config in PATHS:
+                launches[f"{config} export replay"] = phase_export(
+                    torch, config, tmp)
+    with shapes:
+        phase_autograd(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches["attn16k train"], ds = phase_train(torch, tmp)
+            phase_train_grads(torch, ds, tmp)
+            del ds
+            launches["pn128 train cli"], trained = phase_train_cli(torch, tmp)
+            phase_evals_small(torch, tmp)
+            evals_launches, corpus = phase_evals(torch, tmp)
+            launches.update(evals_launches)
+            phase_distill_grads(torch, corpus)
+            launches.update(phase_distill(torch, tmp, trained, corpus))
+        launches["bench"], launches["entry"] = phase_bench(torch)
+    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2)
 
-    emit(kernels_line(k1, k2, launches))
+    emit(kernels_line(k1, k2, launches, by_run, coverage))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

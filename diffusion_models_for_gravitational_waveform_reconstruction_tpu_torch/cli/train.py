@@ -9,8 +9,9 @@ package's ``cli/train.py``: the same flags and defaults, and
 ``cpu``.  ``--num_workers`` and ``--amp`` are accepted and change nothing
 (bf16 activations are the default; ``--no-bf16`` turns them off).
 ``--data synth:N`` synthesises N samples on the device; any other ``--data``
-is an HDF5 corpus, which needs h5py.  ``--streaming``, ``--tp`` > 1 and
-data parallelism over more than one visible GPU are not ported and raise.
+is an HDF5 corpus, which needs h5py, or its ``.npz`` twin.  ``--streaming``,
+``--tp`` > 1 and data parallelism over more than one visible GPU are not
+ported and raise.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Measurement readers of the HDF5 dataset schema (counterpart of the reader
-side of the JAX package's ``data/hdf5io.py``).
+side of the JAX package's ``data/hdf5io.py``), and its ``.npz`` twin.
 
 The schema: variable-length float32 ``signal`` / ``noise`` / ``noisy`` per
 sample, per-sample scalar metadata, optional float64 PSDs (``psd_model``
@@ -7,15 +7,22 @@ with its legacy alias ``psd`` on the rfft grid, ``psd_welch`` with
 ``psd_welch_freqs``), the rfft-grid descriptors ``psd_len`` / ``psd_df`` /
 ``psd_f_lower``, and the file attributes ``sampling_rate`` / ``delta_t``.
 
-``h5py`` is imported only by the functions that open a file
-(:func:`load_measurement`, :func:`load_full`, :func:`compute_meta_scale`),
-so this module, the ``--input-npy`` path of the infer CLI and the trainer's
-``--data synth:N`` work where it is not installed.
+The ``.npz`` twin holds the same datasets under the same names, as arrays
+of equal-length rows ((N, L) for the series, (N,) for the scalar columns,
+each in the HDF5 file's dtype), and ``sampling_rate`` / ``delta_t`` as 0-d
+arrays; it leaves out ``noise``, ``times``, ``t_merger``, ``lengths`` and
+the other file attributes, which no reader here uses.  A ragged corpus has
+no twin.  Every reader takes either file, chosen by its suffix.
+
+``h5py`` is imported only by the functions that open an ``.h5`` file, so
+this module, the ``.npz`` corpora, the ``--input-npy`` path of the infer
+CLI and the trainer's ``--data synth:N`` work where it is not installed.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -23,6 +30,16 @@ INFERENCE_META_KEYS = [
     "mass1", "mass2", "spin1z", "spin2z", "q", "chirp_mass", "snr", "epoch",
     "label_m1", "label_m2", "label_s1", "label_s2",
 ]
+# the per-sample scalar columns of the schema
+META_SCALAR_KEYS = [
+    "mass1", "mass2", "snr", "spin1z", "spin2z",
+    "label_m1", "label_m2", "label_s1", "label_s2",
+    "q", "chirp_mass", "epoch",
+    "psd_len", "psd_df", "psd_f_lower",
+]
+# the per-sample series the .npz twin carries, as (N, K) arrays
+NPZ_SERIES_KEYS = ["noisy", "signal", "psd_model", "psd", "psd_welch",
+                   "psd_welch_freqs"]
 
 
 def aligo_zdhp_psd_np(freqs: np.ndarray, f_lower: float = 20.0) -> np.ndarray:
@@ -59,15 +76,28 @@ def derive_model_psd_np(psd_len: int, psd_df: float,
     return P
 
 
+def is_npz(path: str) -> bool:
+    return str(path).lower().endswith(".npz")
+
+
+def _needs_h5py_for(path: str, instead: str) -> None:
+    """An ``.h5`` / ``.hdf5`` path without h5py raises before anything
+    looks for the file."""
+    if str(path).lower().endswith((".h5", ".hdf5")):
+        _h5py("reading an HDF5 corpus", instead)
+
+
 def resolve_h5_path(path: str) -> str:
-    """A directory -> the most recently modified .h5 / .hdf5 inside it."""
+    """A directory -> the most recently modified .h5 / .hdf5 / .npz inside
+    it."""
     if os.path.isdir(path):
         cands = [
             os.path.join(path, f) for f in os.listdir(path)
-            if f.lower().endswith((".h5", ".hdf5"))
+            if f.lower().endswith((".h5", ".hdf5", ".npz"))
         ]
         if not cands:
-            raise FileNotFoundError(f"no .h5/.hdf5 files in directory: {path}")
+            raise FileNotFoundError(
+                f"no .h5/.hdf5/.npz files in directory: {path}")
         cands.sort(key=os.path.getmtime, reverse=True)
         return cands[0]
     if not os.path.exists(path):
@@ -92,36 +122,82 @@ def _h5py(what: str, instead: str):
     return h5py
 
 
+class _NpzCorpus:
+    """An open ``.npz`` twin with the part of ``h5py.File``'s interface the
+    readers use: ``in``, ``[name]`` (each array read once), ``get`` and
+    ``attrs``."""
+
+    def __init__(self, z):
+        self._z = z
+        self._cache: Dict[str, np.ndarray] = {}
+        self.attrs = {k: z[k][()] for k in ("sampling_rate", "delta_t")
+                      if k in z.files}
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._z.files
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        if name not in self._cache:
+            self._cache[name] = self._z[name]
+        return self._cache[name]
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default
+
+
+@contextlib.contextmanager
+def open_corpus(path: str, what: str, instead: str) -> Iterator:
+    """An ``.npz`` twin or an HDF5 file, open for reading; the HDF5 branch
+    needs h5py (``what`` and ``instead`` word the error without it)."""
+    if is_npz(path):
+        with np.load(path, allow_pickle=False) as z:
+            yield _NpzCorpus(z)
+    else:
+        h5py = _h5py(what, instead)
+        with h5py.File(path, "r") as f:
+            yield f
+
+
+def _measurement(f, index: int):
+    meta = {}
+    y = np.array(f["noisy"][index], np.float32)
+    clean = np.array(f["signal"][index], np.float32) if "signal" in f else None
+    fs = read_sampling_rate(f)
+    P_model = None
+    if "psd_model" in f:
+        P_model = np.array(f["psd_model"][index], np.float64)
+    elif "psd" in f:
+        P_model = np.array(f["psd"][index], np.float64)
+    elif all(k in f for k in ("psd_len", "psd_df", "psd_f_lower")):
+        P_model = derive_model_psd_np(
+            f["psd_len"][index], f["psd_df"][index], f["psd_f_lower"][index])
+        meta["psd_model_source"] = "derived:aLIGOZeroDetHighPower"
+    fw = Pw = None
+    if "psd_welch" in f and "psd_welch_freqs" in f:
+        Pw = np.array(f["psd_welch"][index], np.float64)
+        fw = np.array(f["psd_welch_freqs"][index], np.float64)
+    for k in INFERENCE_META_KEYS:
+        if k in f:
+            try:
+                meta[k] = float(np.asarray(f[k][index]).reshape(()))
+            except (TypeError, ValueError):
+                pass
+    return y, clean, fs, P_model, (fw, Pw), meta
+
+
+def load_measurements(h5_path: str, indices: Sequence[int]) -> List[tuple]:
+    """The samples ``indices`` of an HDF5 corpus or its ``.npz`` twin, the
+    file opened once: a list of (y, clean, fs, P_model, (f_welch, P_welch),
+    meta)."""
+    with open_corpus(h5_path, "reading an HDF5 measurement",
+                     "an .npz corpus or --input-npy (load_measurement_npy)"
+                     ) as f:
+        return [_measurement(f, int(i)) for i in indices]
+
+
 def load_measurement(h5_path: str, index: int):
     """One sample: (y, clean, fs, P_model, (f_welch, P_welch), meta)."""
-    h5py = _h5py("reading an HDF5 measurement",
-                 "--input-npy (load_measurement_npy)")
-    meta = {}
-    with h5py.File(h5_path, "r") as f:
-        y = np.array(f["noisy"][index], np.float32)
-        clean = np.array(f["signal"][index], np.float32) if "signal" in f else None
-        fs = read_sampling_rate(f)
-        P_model = None
-        if "psd_model" in f:
-            P_model = np.array(f["psd_model"][index], np.float64)
-        elif "psd" in f:
-            P_model = np.array(f["psd"][index], np.float64)
-        elif all(k in f for k in ("psd_len", "psd_df", "psd_f_lower")):
-            P_model = derive_model_psd_np(
-                f["psd_len"][index], f["psd_df"][index],
-                f["psd_f_lower"][index])
-            meta["psd_model_source"] = "derived:aLIGOZeroDetHighPower"
-        fw = Pw = None
-        if "psd_welch" in f and "psd_welch_freqs" in f:
-            Pw = np.array(f["psd_welch"][index], np.float64)
-            fw = np.array(f["psd_welch_freqs"][index], np.float64)
-        for k in INFERENCE_META_KEYS:
-            if k in f:
-                try:
-                    meta[k] = float(np.asarray(f[k][index]).reshape(()))
-                except (TypeError, ValueError):
-                    pass
-    return y, clean, fs, P_model, (fw, Pw), meta
+    return load_measurements(h5_path, [index])[0]
 
 
 def load_measurement_npy(npy_path: str, fs: float):
@@ -131,16 +207,17 @@ def load_measurement_npy(npy_path: str, fs: float):
 
 
 def load_full(h5_path: str, allow_no_signal: bool = False) -> dict:
-    """A whole dataset in host memory, as ragged lists: 'noisy', 'signal'
-    (float32 per sample; 'signal' None when absent and allowed), 'fs',
+    """A whole HDF5 corpus or its ``.npz`` twin in host memory, as ragged
+    lists: 'noisy', 'signal' (float32 per sample; 'signal' None when absent and allowed), 'fs',
     'psd_model' (float64 per sample, saved or derived from the grid scalars,
     else None) with 'psd_model_source', 'psd_welch' / 'psd_welch_freqs',
     the scalar columns as float64 arrays (None when absent), 'attrs', 'n'
     and the resolved 'path'."""
-    h5py = _h5py("reading an HDF5 corpus", "--data synth:N")
+    _needs_h5py_for(h5_path, "an .npz corpus or --data synth:N")
     path = resolve_h5_path(h5_path)
     out = {"path": path}
-    with h5py.File(path, "r") as f:
+    with open_corpus(path, "reading an HDF5 corpus",
+                     "an .npz corpus or --data synth:N") as f:
         if "noisy" not in f:
             raise KeyError("HDF5 must have 'noisy' dataset")
         out["noisy"] = [np.asarray(a, np.float32) for a in f["noisy"][:]]
@@ -182,10 +259,12 @@ def compute_meta_scale(h5_path: str) -> dict:
     p95(mass2), p95(chirp_mass); q = p95(q); each defaulting (M 80, q 10)
     where absent, not finite or not positive, or where the file cannot be
     read (said on stdout)."""
-    h5py = _h5py("reading an HDF5 corpus", "--data synth:N")
     scale = {"M": 80.0, "q": 10.0}
+    _needs_h5py_for(h5_path, "an .npz corpus or --data synth:N")
     try:
-        with h5py.File(resolve_h5_path(h5_path), "r") as f:
+        path = resolve_h5_path(h5_path)
+        with open_corpus(path, "reading an HDF5 corpus",
+                         "an .npz corpus or --data synth:N") as f:
             def p95(name):
                 if name in f:
                     arr = np.asarray(f[name][:], np.float64)
@@ -203,3 +282,100 @@ def compute_meta_scale(h5_path: str) -> dict:
     except (OSError, KeyError, ValueError) as e:
         print(f"[data] meta_scale computation failed; defaults {scale} ({e})")
     return scale
+
+
+def num_samples(h5_path: str) -> int:
+    """The number of samples of an HDF5 corpus or its ``.npz`` twin."""
+    with open_corpus(h5_path, "reading an HDF5 corpus",
+                     "an .npz corpus") as f:
+        return int(f["noisy"].shape[0])
+
+
+def load_labels(h5_path: str) -> Tuple[np.ndarray, np.ndarray,
+                                       Optional[np.ndarray]]:
+    """(m1, m2, snr or None) of every sample, float64: the masses from
+    ``label_m1`` / ``label_m2`` where both exist, else ``mass1`` /
+    ``mass2``; ``snr`` where the corpus has it."""
+    with open_corpus(h5_path, "reading an HDF5 corpus",
+                     "an .npz corpus") as f:
+        if "label_m1" in f and "label_m2" in f:
+            m1 = np.asarray(f["label_m1"][:], np.float64)
+            m2 = np.asarray(f["label_m2"][:], np.float64)
+        else:
+            m1 = np.asarray(f["mass1"][:], np.float64)
+            m2 = np.asarray(f["mass2"][:], np.float64)
+        snr = np.asarray(f["snr"][:], np.float64) if "snr" in f else None
+    return m1, m2, snr
+
+
+def _rows(name: str, arrs, dtype) -> np.ndarray:
+    """Equal-length rows as one (N, L) array; a ragged set raises."""
+    arrs = [np.asarray(a, dtype).reshape(-1) for a in arrs]
+    lens = sorted({len(a) for a in arrs})
+    if len(lens) > 1:
+        raise ValueError(
+            f"'{name}' holds samples of {len(lens)} lengths ({lens[0]} to "
+            f"{lens[-1]}): a ragged corpus has no .npz twin and needs HDF5")
+    return np.stack(arrs) if arrs else np.zeros((0, 0), dtype)
+
+
+def save_corpus_npz(
+    path: str,
+    signal: Sequence[np.ndarray],
+    noisy: Sequence[np.ndarray],
+    meta: Dict[str, Sequence[float]],
+    sampling_rate: float,
+    *,
+    psd_model: Optional[Sequence[np.ndarray]] = None,
+    psd_welch: Optional[Sequence[np.ndarray]] = None,
+    psd_welch_freqs: Optional[Sequence[np.ndarray]] = None,
+) -> None:
+    """Write an ``.npz`` corpus in the schema's names and dtypes, as the JAX
+    package's ``write_dataset`` writes them: float32 series and scalar
+    columns, float64 PSDs; equal-length samples only."""
+    out = {"noisy": _rows("noisy", noisy, np.float32),
+           "signal": _rows("signal", signal, np.float32),
+           "sampling_rate": np.asarray(float(sampling_rate)),
+           "delta_t": np.asarray(1.0 / float(sampling_rate))}
+    for k, arr in meta.items():
+        if len(arr):
+            out[k] = np.asarray(arr, np.float32)
+    if psd_model is not None:
+        out["psd_model"] = _rows("psd_model", psd_model, np.float64)
+    if psd_welch is not None and psd_welch_freqs is not None:
+        out["psd_welch"] = _rows("psd_welch", psd_welch, np.float64)
+        out["psd_welch_freqs"] = _rows("psd_welch_freqs", psd_welch_freqs,
+                                       np.float64)
+    _write_npz(path, out)
+
+
+def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def corpus_to_npz(h5_path: str, npz_path: str) -> None:
+    """The ``.npz`` twin of an HDF5 corpus (needs h5py): the series of
+    :data:`NPZ_SERIES_KEYS` that the file has (its legacy ``psd`` alias
+    only without ``psd_model``) and its scalar columns of
+    :data:`META_SCALAR_KEYS`, each in its dtype, and the sampling rate; a
+    ragged corpus raises."""
+    h5py = _h5py("converting an HDF5 corpus", "save_corpus_npz")
+    out = {}
+    with h5py.File(resolve_h5_path(h5_path), "r") as f:
+        for k in NPZ_SERIES_KEYS:
+            if k in f and not (k == "psd" and "psd_model" in f):
+                ds = f[k]
+                out[k] = _rows(k, ds[:], h5py.check_vlen_dtype(ds.dtype)
+                               or ds.dtype)
+        for k in META_SCALAR_KEYS:
+            if k in f:
+                out[k] = np.asarray(f[k][:])
+        fs = read_sampling_rate(f)
+    out["sampling_rate"] = np.asarray(fs)
+    out["delta_t"] = np.asarray(1.0 / fs)
+    _write_npz(npz_path, out)

@@ -239,7 +239,8 @@ def prepare_dataset(
     max_samples: Optional[int] = None,
     max_len: Optional[int] = None,
 ) -> PreparedDataset:
-    """Load, whiten, pick sigma and bucket an HDF5 dataset once (needs h5py).
+    """Load, whiten, pick sigma and bucket a corpus once: an HDF5 file
+    (needs h5py) or its ``.npz`` twin.
 
     ``bucket_lengths``: explicit static lengths (default: each sample to the
     next power of two >= its length).  ``max_samples``: a cap for quick

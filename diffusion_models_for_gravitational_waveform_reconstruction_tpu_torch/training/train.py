@@ -269,19 +269,22 @@ def _safe_increment(count: torch.Tensor) -> torch.Tensor:
 
 class ClipAdamW:
     """``optax.chain(clip_by_global_norm(clip), adamw(lr_sched,
-    weight_decay=weight_decay))`` (no clip stage when ``clip`` <= 0) on flat
-    float32 buffers, with optax's arithmetic: the clip keeps g when its
-    global norm is below ``clip``, else (g / norm) * clip; adam's moments
+    weight_decay=weight_decay))`` on flat float32 buffers (no clip stage
+    when ``clip`` <= 0, unless ``clip_stage`` asks for one, as the
+    distillation chain does), with optax's arithmetic: the clip keeps g when
+    its global norm is below ``clip``, else (g / norm) * clip; adam's moments
     (1 - b) g^k + b m, bias-corrected by 1 - b^count at the incremented
     count; the update m_hat / (sqrt(v_hat) + eps) + weight_decay * p, scaled
     by -lr read at the schedule's own count."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, lr_sched: Callable, clip: float, weight_decay: float):
+    def __init__(self, lr_sched: Callable, clip: float, weight_decay: float,
+                 clip_stage: Optional[bool] = None):
         self.lr_sched = lr_sched
         self.clip = float(clip)
         self.weight_decay = float(weight_decay)
+        self.clip_stage = clip > 0 if clip_stage is None else bool(clip_stage)
 
     def init(self, flat: torch.Tensor) -> OptState:
         zero = torch.zeros((), dtype=torch.int32, device=flat.device)
@@ -293,7 +296,7 @@ class ClipAdamW:
         """The new parameters and state (new tensors; nothing is mutated).
         ``grad_norm`` is the global norm of ``grads``."""
         g = grads
-        if self.clip > 0:
+        if self.clip_stage:
             g = torch.where(grad_norm < self.clip, g,
                             (g / grad_norm) * self.clip)
         count = _safe_increment(state.count)
@@ -316,17 +319,17 @@ class ClipAdamW:
             flatp.views(state.mu)), "nu": state_dict_to_flax(
             flatp.views(state.nu))}
         inner = {"0": adam, "1": {}, "2": {"count": state.sched_count}}
-        return {"0": {}, "1": inner} if self.clip > 0 else {"0": inner}
+        return {"0": {}, "1": inner} if self.clip_stage else {"0": inner}
 
     def load_state_tree(self, state: OptState, tree: dict,
                         flatp: FlatParams) -> None:
         """Copy a state tree of :meth:`state_tree`'s layout (written by
         either package) into ``state``; a tree of another layout raises."""
-        want = {"0", "1"} if self.clip > 0 else {"0"}
-        if set(tree) != want or (self.clip > 0 and tree["0"]):
+        want = {"0", "1"} if self.clip_stage else {"0"}
+        if set(tree) != want or (self.clip_stage and tree["0"]):
             raise ValueError(f"optimizer state: keys {sorted(tree)}, not "
                              f"those of this optimizer's chain")
-        inner = tree["1"] if self.clip > 0 else tree["0"]
+        inner = tree["1"] if self.clip_stage else tree["0"]
         if (set(inner) != {"0", "1", "2"} or inner["1"]
                 or set(inner["0"]) != {"count", "mu", "nu"}
                 or set(inner["2"]) != {"count"}):
@@ -726,7 +729,8 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
     with the final state, model, schedule, checkpoint path, history and
     output directory.  ``dataset``: a ready :class:`PreparedDataset`,
     else ``cfg.data`` is read (``synth:N`` synthesises N samples on the
-    device; anything else is an HDF5 corpus, which needs h5py)."""
+    device; anything else is an HDF5 corpus, which needs h5py, or its
+    ``.npz`` twin)."""
     from ..data import pipeline as dpipe
     from ..data.hdf5io import compute_meta_scale
     from ..utils.roofline import peak_for, unet_flops_per_sample

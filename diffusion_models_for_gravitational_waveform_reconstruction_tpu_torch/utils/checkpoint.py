@@ -5,7 +5,8 @@ A checkpoint is one flax-msgpack payload (``utils/msgpack.py``) with the keys
 ``model_state``, optional ``model_ema_state`` / ``optimizer_state`` /
 ``global_step`` / ``rng_key``, ``epoch`` and ``args_json`` (the architecture,
 domain and sampler contract as JSON), plus a readable ``<path>.args.json``
-sidecar.  Parameter trees are flax's nested layout, ``{"params": {"enc0":
+sidecar.  :func:`average_checkpoints` makes a model soup of several.
+Parameter trees are flax's nested layout, ``{"params": {"enc0":
 {"conv": {"kernel": ...}}}}``: the port's ``UNet1D`` keeps flax's names and
 layouts, so a ``state_dict`` nests by splitting its dotted names, and the JAX
 package's ``load_checkpoint`` reads what this module writes.
@@ -109,3 +110,85 @@ def select_weights(ckpt: Dict[str, Any], use_ema: bool = True):
     if use_ema and "model_ema_state" in ckpt:
         return ckpt["model_ema_state"], True
     return ckpt["model_state"], False
+
+
+_ARCH_KEYS = ("base_ch", "in_ch", "cond_in_ch", "T", "schedule", "pred_type",
+              "use_attention", "selfcond_mode")
+
+
+def _structure(tree):
+    if isinstance(tree, Mapping):
+        return tuple(sorted((k, _structure(v)) for k, v in tree.items()))
+    return None
+
+
+def _weighted_mean_tree(trees, weights):
+    """Leaf-wise weighted mean over structurally identical nested dicts,
+    accumulated in float64 and cast back to the first tree's leaf dtype
+    (a bfloat16 tensor leaf stays a bfloat16 tensor)."""
+    if len({_structure(t) for t in trees}) != 1:
+        raise ValueError("checkpoints have different parameter structures")
+    w = np.asarray(weights, np.float64)
+    w = w / w.sum()
+
+    def f64(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().cpu().to(torch.float64).numpy()
+        return np.asarray(leaf, np.float64)
+
+    def avg(leaves):
+        shapes = {tuple(np.shape(leaf)) for leaf in leaves}
+        if len(shapes) != 1:
+            raise ValueError(f"leaf shape mismatch across members: {shapes}")
+        acc = sum(wi * f64(leaf) for wi, leaf in zip(w, leaves))
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.from_numpy(acc).to(leaves[0].dtype)
+        return acc.astype(np.asarray(leaves[0]).dtype)
+
+    def walk(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: walk([n[k] for n in nodes]) for k in nodes[0]}
+        return avg(nodes)
+
+    return walk(list(trees))
+
+
+def average_checkpoints(paths, weights=None) -> Dict[str, Any]:
+    """Uniform/weighted parameter averaging across checkpoints (a model
+    soup, Wortsman et al. 2022).
+
+    Averages ``model_state`` and, when ALL members carry one,
+    ``model_ema_state``.  Members must share the architecture contract
+    (validated on the load-bearing args keys) and the exact parameter tree.
+    Returns a payload dict shaped like :func:`load_checkpoint` output, with
+    ``args`` taken from the first member plus ``soup_members``/``soup_weights``
+    provenance; epoch is the max member epoch.
+    """
+    if len(paths) < 2:
+        raise ValueError("need at least 2 checkpoints to average")
+    if weights is None:
+        weights = [1.0] * len(paths)
+    if len(weights) != len(paths):
+        raise ValueError("len(weights) != len(paths)")
+    cks = [load_checkpoint(p) for p in paths]
+    a0 = cks[0]["args"]
+    for p, ck in zip(paths[1:], cks[1:]):
+        for k in _ARCH_KEYS:
+            if ck["args"].get(k) != a0.get(k):
+                raise ValueError(
+                    f"{p}: args[{k!r}]={ck['args'].get(k)!r} differs from "
+                    f"{paths[0]}: {a0.get(k)!r} — cannot average across "
+                    f"architectures/domains")
+    out: Dict[str, Any] = {
+        "model_state": _weighted_mean_tree(
+            [ck["model_state"] for ck in cks], weights),
+        "epoch": max(int(ck.get("epoch", 0)) for ck in cks),
+    }
+    if all("model_ema_state" in ck for ck in cks):
+        out["model_ema_state"] = _weighted_mean_tree(
+            [ck["model_ema_state"] for ck in cks], weights)
+    args = dict(a0)
+    args["soup_members"] = [os.path.basename(p) for p in paths]
+    args["soup_weights"] = [float(w) for w in weights]
+    out["args"] = args
+    return out

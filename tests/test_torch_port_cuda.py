@@ -5,7 +5,8 @@ plain path, a checkpoint written and loaded on the card, the infer CLI on
 the card, the serving artifact traced on the card (its ops, its replay
 against the live function), a grad-enabled forward launching both kernels
 and backpropagating (each op's backward against its plain backward, on
-every route), and a few train steps on the card.
+every route), a few train steps on the card, ``eval_indices`` and
+``gw-grid`` on the card, and a distillation step's gradients.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -606,3 +607,157 @@ def test_seeded_normal_on_the_card(cuda):
     assert not torch.equal(a, seeded_normal(seed, 1, [4, 1, 300],
                                             torch.float32, cuda))
     assert abs(a.mean().item()) < 0.2 and abs(a.std().item() - 1) < 0.2
+
+
+def _grid_corpus(path, n_per_cell=2, L=512, fs=4096.0):
+    """A 2 x 2 mass-grid ``.npz`` corpus of chirps in white noise, the
+    model PSD given by its grid scalars."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+
+    rng = np.random.default_rng(5)
+    t = np.arange(L) / fs
+    sig, noisy, meta = [], [], {k: [] for k in (
+        "mass1", "mass2", "snr", "psd_len", "psd_df", "psd_f_lower")}
+    for m1, m2 in ((30.0, 20.0), (30.0, 25.0), (40.0, 20.0), (40.0, 25.0)):
+        for i in range(n_per_cell):
+            f = 30.0 + 200.0 * (t / t[-1]) ** 3
+            clean = 1e-21 * np.sin(2 * np.pi * np.cumsum(f) / fs)
+            sig.append(clean)
+            noisy.append(clean + 1e-21 * rng.standard_normal(L))
+            for k, v in (("mass1", m1), ("mass2", m2), ("snr", 8.0 + i),
+                         ("psd_len", L // 2 + 1), ("psd_df", fs / L),
+                         ("psd_f_lower", 20.0)):
+                meta[k].append(v)
+    hdf5io.save_corpus_npz(path, sig, noisy, meta, fs)
+
+
+@pytest.mark.parametrize("use_attention", [False, True])
+def test_eval_indices_on_the_card_matches_cpu(cuda, tmp_path, use_attention):
+    """``eval_indices`` of a small f32 checkpoint on the card (2 seeds, MF
+    calibration, chunks of 3) against the CPU plain path with the same
+    injected noise: every per-sample metric within 1e-3 (max-abs
+    normalised), K1 (5 per forward) and K2 (1 per forward) counted."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import grid as grid_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.evals import grid, sweep
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import (
+        FixedNoise,
+    )
+
+    path, npz = str(tmp_path / "ck.msgpack"), str(tmp_path / "c.npz")
+    _small_checkpoint(cuda, path, use_attention)
+    _grid_corpus(npz)
+    z = {}
+
+    def draws(shape):
+        if tuple(shape) not in z:
+            z[tuple(shape)] = torch.randn(*shape, generator=torch.Generator()
+                                          .manual_seed(len(z)))
+        return FixedNoise(z[tuple(shape)])
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        model, schedule, ck = inference.load_model(path, device=dev)
+        preps = sweep.prep_samples(npz, list(range(8)), ck, path, True,
+                                   "model", "std")
+        args = grid_cli.build_parser().parse_args(
+            ["--input-h5", npz, "--model", path, "--steps", "3",
+             "--start-t", "999", "--avg-seeds", "2", "--amp-calib", "mf",
+             "--eval-scan-cap", "3", "--cfg-scale", "1.5", "--whiten", "1",
+             "--whiten-mode", "model", "--sigma-mode", "std",
+             "--sigma-fixed", "1"])
+        reset_launch_counts()
+        rows[dev] = grid.eval_indices(args, model, schedule, ck, preps, draws,
+                                      device=dev)
+        if dev == "cuda":
+            n = len(build_t_schedule(1000, 3, 999)) * 3
+            assert launch_counts() == {"conv_gn_silu": 5 * n,
+                                       "flash_attention": n * use_attention}
+    for k in ("corr", "mae_norm", "unc_rel", "mf_ratio", "res_std_ratio"):
+        got = np.array([r[k] for r in rows["cuda"]])
+        want = np.array([r[k] for r in rows["cpu"]])
+        assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max(), k
+
+
+@pytest.mark.parametrize("use_attention", [False, True])
+def test_distill_step_gradients_on_the_card(cuda, use_attention, monkeypatch):
+    """One distillation step's f32 gradients on the card, kernel path
+    against plain path (the ops swapped for their plain versions), with
+    injected segments and noise: within 1e-3 max-abs normalised; the
+    kernel path launches K1 5 x 3 and K2 3 times (two CFG-doubled teacher
+    forwards and the student's)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        make_schedule,
+    )
+
+    tt = importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".training.train")
+    td = importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".training.distill")
+    kw = dict(in_ch=7, base_ch=16, time_dim=32, depth=2, cond_in_ch=5,
+              use_selfcond=True, use_attention=use_attention)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, L = 4, 1024
+    batch = {"clean": 0.3 * torch.randn(B, 1, L, generator=g, device=cuda),
+             "noisy": torch.randn(B, 1, L, generator=g, device=cuda),
+             "sigma": torch.ones(B, device=cuda),
+             "mask": torch.ones(B, 1, L, device=cuda),
+             "meta": torch.rand(B, 4, generator=g, device=cuda),
+             "j_inject": torch.tensor([0, 1, 2, 3], device=cuda),
+             "eps0_inject": torch.randn(B, 1, L, generator=g, device=cuda)}
+    schedule = make_schedule(1000)
+    cfg = td.DistillConfig(teacher="", data="", cfg_scale=1.5)
+    ladder = td._teacher_ladder(schedule, 4, "lambda", 999)
+
+    def grads(plain):
+        torch.manual_seed(2)
+        student = unet.UNet1D(**kw, device=cuda)
+        teacher = unet.UNet1D(**kw, device=cuda)
+        with torch.no_grad():
+            for p in list(student.parameters()) + list(teacher.parameters()):
+                p.normal_(0.0, 0.2)
+        flat = tt.FlatParams(student, cuda)
+        opt = tt.ClipAdamW(td.distill_lr_schedule(1e-4, 100), 1.0, 0.0)
+        state = tt.TrainState(params=flat, ema_params=flat.flat.clone(),
+                              opt_state=opt.init(flat.flat),
+                              step=torch.zeros((), dtype=torch.int32,
+                                               device=cuda))
+        step = td.make_distill_step(student, schedule, cfg, opt, ladder, "v")
+        if plain:
+            monkeypatch.setattr(unet, "fused_conv_gn_silu",
+                                fused_conv_gn_silu_reference)
+            monkeypatch.setattr(unet, "flash_attention",
+                                flash_attention_reference)
+        reset_launch_counts()
+        m = step(state, teacher, batch, 3)
+        torch.cuda.synchronize()
+        return float(m["loss"]), flat.grad.clone(), launch_counts()
+
+    lk, gk, ck = grads(False)
+    lp, gp, cp = grads(True)
+    assert ck == {"conv_gn_silu": 15, "flash_attention": 3 * use_attention}
+    assert cp == {"conv_gn_silu": 0, "flash_attention": 0}
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    assert (gk - gp).abs().max().item() <= 1e-3 * gp.abs().max().item()
+
+
+def test_grid_cli_on_the_card(cuda, tmp_path):
+    """``gw-grid`` with ``--device cuda`` on an ``.npz`` corpus: every CSV
+    and JSON written, 4 cells, K1 launched 5 times per ladder step."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import grid as grid_cli
+
+    path, npz = str(tmp_path / "ck.msgpack"), str(tmp_path / "c.npz")
+    _small_checkpoint(cuda, path)
+    _grid_corpus(npz)
+    out = tmp_path / "grid"
+    reset_launch_counts()
+    res = grid_cli.main(["--input-h5", npz, "--model", path, "--outdir",
+                         str(out), "--steps", "3", "--start-t", "999",
+                         "--avg-seeds", "2", "--device", "cuda"])
+    n = len(build_t_schedule(1000, 3, 999))
+    assert launch_counts() == {"conv_gn_silu": 5 * n, "flash_attention": 0}
+    assert {"per_index_metrics.csv", "metrics_grid.csv", "metrics_grid.json",
+            "summary.json"} <= set(os.listdir(out))
+    assert res["summary"]["n_cells"] == 4 and res["scan_caps"] == {512: 8}
+    assert np.isfinite(res["summary"]["corr_macro_mean"])
