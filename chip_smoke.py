@@ -115,19 +115,43 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              mean, read by ``load_model``).
 13. bench  - the port's ``bench.py`` (its own JSON line printed as it is)
              and ``graft_entry.entry()``, each with K1's launches.
-14. launched_shapes - every shape each kernel was launched at from phase
+14. parallel - data parallelism and sequence tiling at attn16k's width:
+             (a) a one-process NCCL group, two training steps (batch 16,
+             L 32768, bf16) through ``train(mesh=make_mesh())`` against the
+             same steps without a mesh; (c) a 64 s segment at 16384 Hz
+             (L 2^20) through ``reconstruct(tiled_chunk=16384)``: 64 tiles
+             of 16880 samples x CFG = 128 rows a forward, K2 at (128, 4,
+             2110, 64), 10 steps, launches (K1 7 and K2 1 a forward), wall
+             and device time, peak memory, K2's kernel by name; one tiled
+             forward against the monolithic one (K2 at (2, 4, 131072, 64)),
+             and the same without attention, on the measurement and on
+             stationary noise;
+             the infer CLI with ``--tiled-chunk 16384``; (b) two ranks
+             sharing the card in a gloo group (NCCL takes one rank a
+             device): one f32 step at global batch 16 (8 rows a rank,
+             injected t and eps) against the single-process step, timed
+             and profiled bf16 steps with the all-reduce's time, a NaN in
+             rank 1's rows refused on both; (d) on those ranks, in f32,
+             ``reconstruct_batch(mesh=)`` (16 rows) and ``tiled_apply(
+             mesh=)`` over 3 tiles against their calls without a mesh;
+             then ``dryrun_multichip(2, device="cuda")``.  The ranks
+             record their launched shapes for the next phase.
+15. launched_shapes - every shape each kernel was launched at from phase
              4 on (recorded by wrapping the ops' launch bodies; the
-             op_overhead phase is not recorded) that phase 3 did not check,
-             held against its plain version in the same way; the coverage,
-             and K1's time summed over the blocks of each forward shape of
-             each evals and distill run.
-15. kernels - one ``{"kernels": [...]}`` line, then the last line
+             op_overhead phase and the attention model's monolithic
+             forward of phase 14, whose K2 shape has no plain version that
+             fits the card, are not recorded) that phase 3 did not check, held against its plain
+             version in the same way; the coverage, and K1's time summed
+             over the blocks of each forward shape of each evals, distill
+             and parallel run.
+16. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero before
 printing any result.
 """
+import contextlib
 import copy
 import json
 import os
@@ -671,7 +695,7 @@ def synth_measurement(L, fs, seed, amp=1e-21):
     tau = np.maximum(tc - t, 1e-4)
     f = np.minimum(30.0 * (tau / tc) ** (-3.0 / 8.0), 300.0)
     env = np.where(t < tc, (f / 300.0) ** (2.0 / 3.0),
-                   np.exp(-(t - tc) / 0.01))
+                   np.exp(-np.maximum(t - tc, 0.0) / 0.01))
     clean = amp * env * np.cos(2 * np.pi * np.cumsum(f) / fs)
     freqs = np.fft.rfftfreq(L, 1.0 / fs)
     P = aligo_zdhp_psd_np(freqs)
@@ -2364,6 +2388,555 @@ def phase_distill(torch, tmp, teacher, corpus):
     return launches
 
 
+# the parallel phase: data parallelism and sequence tiling at attn16k's full
+# width.  A 64 s segment at 16384 Hz, tiled in chunks of 16384 with the
+# attention halo receptive_field_radius(3) x 4 = 248: 64 tiles of 16880
+# samples, each tile's bottleneck 2110 tokens; CFG doubles the rows
+PAR_FS = 16384.0
+PAR_L = 1 << 20
+PAR_CHUNK = 16384
+PAR_TILES = PAR_L // PAR_CHUNK
+PAR_TILE_W = PAR_CHUNK + 2 * 248
+PAR_ROWS = 2 * PAR_TILES                 # CFG x tiles, one forward
+PAR_RANKS = 2                            # gloo ranks sharing the card
+PAR_TIMED_STEPS = 6
+PAR_PROFILED_STEPS = 3
+PAR_BATCH_MEASUREMENTS = 8               # x 2 seeds = 16 rows, 8 a rank
+PAR_MESH_TILE_L = 3 * PAR_CHUNK - 1000   # 3 tiles: one dummy on 2 ranks
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cuda_batch(torch, batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in batch.items()}
+
+
+def par_train_batch(rows, seed, inject):
+    """``rows`` rows of 16 kHz training data (the synthetic generator's
+    chirps in coloured noise, whitened) as host arrays; with ``inject`` also
+    t and eps for every row."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+
+    ds = pipeline.synthetic_dataset(rows, segment_len=32768, fs=16384,
+                                    whiten=True, seed=seed, device="cuda")
+    b = {k: v for k, v in ds.buckets[32768].items() if k != "index"}
+    if inject:
+        rng = np.random.default_rng(seed)
+        b["t_inject"] = rng.integers(0, 1000, rows).astype(np.int64)
+        b["eps_inject"] = rng.standard_normal((rows, 1, 32768)).astype(
+            np.float32)
+    return b
+
+
+def par_f32_step(torch, tmp, batch, mesh=None):
+    """One f32 train step at attn16k's full width on ``batch`` (the global
+    batch; with ``mesh`` this rank's rows), self-conditioning on, from the
+    same seeded weights; returns (metrics on the host, the flat parameters
+    after the step, the flat gradient, averaged over the ranks)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
+
+    tt = _train_module()
+    cfg = attn16k_train_config(tmp, "par_f32", bf16=False,
+                               batch_size=len(batch["sigma"]))
+    model, schedule, opt, lr, state, _ = tt.build_model_and_state(
+        cfg, 4, 10, 5, "cuda")
+    randomize_(model, 31)      # the init leaves the final conv at zero
+    step = tt.make_train_step(model, schedule, cfg, opt, lr, mesh)
+    m = step(state, _cuda_batch(torch, batch), 77, 0, 0.0, 1.0)
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in m.items()},
+            state.params.flat.cpu().numpy(), state.params.grad.cpu().numpy())
+
+
+def _par_rank(rank, port, payload, queue):
+    """One of two ranks sharing the card in a gloo group: the f32 step on
+    its rows, timed and profiled bf16 steps, a NaN in rank 1's rows, a
+    sharded ``reconstruct_batch`` and a tiled forward over the mesh; puts
+    its results on ``queue`` and leaves without the interpreter's
+    teardown."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import SamplerConfig
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel import mesh as pmesh
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel.seqtile import tiled_apply
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=PAR_RANKS, rank=rank)
+    mesh = pmesh.make_mesh()
+    out = {"rank": rank, "backend": dist.get_backend(mesh.group)}
+    tt = _train_module()
+    shapes = LaunchShapes()
+    with shapes, tempfile.TemporaryDirectory() as tmp:
+        LaunchShapes.label = "gloo ranks"
+        out["f32_step"], out["f32_flat"], out["f32_grad"] = par_f32_step(
+            torch, tmp, payload["f32_batch"], mesh)
+
+        # bf16 steps at the recipe's knobs on 8 rows a rank
+        cfg = attn16k_train_config(tmp, "par_bf16", p_selfcond=0.5,
+                                   p_uncond=0.2)
+        model, schedule, opt, lr, state, _ = tt.build_model_and_state(
+            cfg, 4, 100, 7, "cuda")
+        step = tt.make_train_step(model, schedule, cfg, opt, lr, mesh)
+        batch = _cuda_batch(torch, payload["bf16_batch"])
+        key = tt.key_from_seed(3)
+        for _ in range(3):
+            key, k = tt.split_key(key)
+            step(state, batch, k, 0, 0.2, 0.5)
+        torch.cuda.synchronize()
+        step_ms, coins = [], []
+        reset_launch_counts()
+        for _ in range(PAR_TIMED_STEPS):
+            key, k = tt.split_key(key)
+            t0 = time.perf_counter()
+            step(state, batch, k, 0, 0.2, 0.5)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            coins.append(tt._uniform(k) < 0.5)
+        out["timed_launches"] = launch_counts()
+        out["step_ms"], out["coins"] = step_ms, coins
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PAR_PROFILED_STEPS):
+                key, k = tt.split_key(key)
+                step(state, batch, k, 0, 0.2, 0.5)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        trace = TRACES / f"parallel_gloo_rank{rank}_trace.json"
+        TRACES.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+        reduce_us = [float(e["dur"]) for e in events
+                     if e.get("cat") == "user_annotation"
+                     and e["name"] == "train/all_reduce"]
+        out["profile"] = {"trace": str(trace.relative_to(TRACES.parent)),
+                          "all_reduce_ms_per_step":
+                              sum(reduce_us) / 1e3 / PAR_PROFILED_STEPS,
+                          "all_reduces": len(reduce_us),
+                          **train_split(trace, wall_us, PAR_PROFILED_STEPS)}
+
+        # a NaN in one of rank 1's rows: both ranks refuse the batch
+        bad = dict(payload["bf16_batch"])
+        bad["clean"] = bad["clean"].copy()
+        bad["clean"][PAR_BATCH_MEASUREMENTS + 3, 0, 100] = np.nan
+        before = state.params.flat.clone()
+        key, k = tt.split_key(key)
+        m = step(state, _cuda_batch(torch, bad), k, 0, 0.2, 0.5)
+        out["nan_ok"] = bool(m["ok"])
+        out["nan_unchanged"] = bool(torch.equal(before, state.params.flat))
+        out["bf16_flat"] = state.params.flat.cpu().numpy()
+        del model, state, step, batch, before
+        torch.cuda.empty_cache()
+
+        # sampling (f32): the batch's rows and the tiles over the ranks
+        model, schedule, _ = inference.load_model(payload["ckpt32"],
+                                                  device="cuda")
+        scfg = SamplerConfig(steps=INFER_STEPS, pred_type="v",
+                             use_selfcond=True, cfg_scale=1.5, ladder="t")
+        reset_launch_counts()
+        with torch.no_grad():
+            out["batch_x0"], out["batch_std"] = inference.reconstruct_batch(
+                model, schedule, payload["cond"], payload["sigmas"], scfg,
+                torch.Generator(device="cuda").manual_seed(5), mesh=mesh,
+                avg_seeds=2, amp_calib="mf", return_seed_std=True,
+                device="cuda")
+        out["batch_launches"] = launch_counts()
+        reset_launch_counts()
+        with torch.no_grad():
+            y = tiled_apply(model, torch.from_numpy(payload["tile_x"]).cuda(),
+                            torch.tensor([300, 700], device="cuda"),
+                            chunk=PAR_CHUNK, mesh=mesh)
+        out["tile_y"] = y.float().cpu().numpy()
+        out["tile_launches"] = launch_counts()
+    out["shapes"] = shapes.raw
+    queue.put(out)
+    queue.close()
+    queue.join_thread()
+    dist.barrier()
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_parallel_nccl(torch, tmp):
+    """(a) A one-process NCCL group: two attn16k training steps at batch
+    16, L 32768, bf16 through ``train(mesh=make_mesh())``, against the same
+    steps without a mesh, which they must equal bit for bit.  Returns the
+    meshed run's launches."""
+    import torch.distributed as dist
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel import mesh as pmesh
+
+    tt = _train_module()
+    ds = pipeline.synthetic_dataset(2 * TRAIN_BATCH, segment_len=32768,
+                                    fs=16384, whiten=True, seed=3,
+                                    device="cuda")
+    want = {"conv_gn_silu": 14 * 2, "flash_attention": 2 * 2}
+
+    def run(name, mesh):
+        cfg = attn16k_train_config(tmp, name, epochs=1, p_selfcond=1.0,
+                                   p_uncond=0.2)
+        return run_counted(torch, lambda: tt.train(cfg, dataset=ds, mesh=mesh,
+                                                   device="cuda"),
+                           want, f"attn16k train {name}")
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh()
+        backend = dist.get_backend(mesh.group)
+        meshed, launches, mesh_s = run("nccl", mesh)
+    finally:
+        dist.destroy_process_group()
+    plain, _, plain_s = run("no mesh", None)
+    a, b = meshed["state"].params.flat, plain["state"].params.flat
+    diff = float((a - b).abs().max())
+    rec = {"phase": "parallel_nccl", "config": "attn16k bf16", "backend":
+           backend, "mesh": mesh.shape, "batch": TRAIN_BATCH, "L": 32768,
+           "steps": 2, "launches": launches,
+           "params_bit_equal": bool(torch.equal(a, b)),
+           "params_max_abs_diff": diff,
+           "params_max_rel_diff": diff / float(b.abs().max()),
+           "seconds": {"mesh": mesh_s, "no_mesh": plain_s},
+           "loss": [meshed["history"][0]["avg_per_sample"],
+                    plain["history"][0]["avg_per_sample"]]}
+    emit(rec)
+    check(backend == "nccl" and int(meshed["state"].step) == 2,
+          "one-rank NCCL training")
+    # AVG over one rank is the identity: any difference is a wiring fault
+    check(rec["params_bit_equal"],
+          f"NCCL one-rank training vs no mesh: not bit-equal ({diff})")
+    return launches
+
+
+def phase_parallel_tiles(torch, tmp, shapes):
+    """(c) A 64 s segment at 16384 Hz through ``reconstruct(tiled_chunk=
+    16384)`` and the infer CLI's ``--tiled-chunk``: 64 tiles x CFG = 128
+    rows of 16880 samples a forward; launches, wall and device time, peak
+    memory, K2's kernel for the 2110-token bottleneck; one tiled U-Net
+    forward against the monolithic one at the same L, with attention and
+    without (seeded weights), on the measurement and on stationary noise.
+    Returns the
+    measurement's preparation and the two runs' launches."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import infer as infer_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import SamplerConfig
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        build_t_schedule,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel.seqtile import tiled_apply
+
+    ckpt = os.path.join(tmp, "attn16k_tiles.msgpack")
+    write_checkpoint(dict(ATTN16K, t_embed_max_time=999.0),
+                     infer_args(ATTN16K), ckpt, 13)
+    model, schedule, _ = inference.load_model(ckpt, device="cuda")
+    clean, noise, P = synth_measurement(PAR_L, PAR_FS, 14)
+    y = (clean + noise).astype(np.float32)
+    t0 = time.perf_counter()
+    prep = inference.prepare_measurement(
+        y, clean.astype(np.float32), PAR_FS, P, (None, None), INFER_META,
+        cond_in_ch=5, whiten=True, whiten_mode="model", ckpt_path=ckpt)
+    prep_s = time.perf_counter() - t0
+    cfg = SamplerConfig(steps=INFER_STEPS, pred_type="v", use_selfcond=True,
+                        cfg_scale=1.5, ladder="t")
+    n_steps = len(build_t_schedule(1000, INFER_STEPS, None))
+    want = expected_launches(model, n_steps)
+
+    def run(seed):
+        return inference.reconstruct(
+            model, schedule, prep, cfg,
+            torch.Generator(device="cuda").manual_seed(seed),
+            tiled_chunk=PAR_CHUNK, amp_calib="mf", device="cuda")
+
+    (x0_raw, x0_white, _), launches, first_s = run_counted(
+        torch, lambda: run(0), want, "attn16k tiled infer")
+    check(x0_raw.shape == (PAR_L,) and bool(np.isfinite(x0_raw).all()),
+          "tiled reconstruction finite, of the segment's length")
+    seen = shapes.seen
+    k2_shape = ("bfloat16", PAR_ROWS, 4, PAR_TILE_W // 8, 64)
+    check(k2_shape in seen["flash_attention"]
+          and ("bfloat16", PAR_ROWS, PAR_TILE_W, 7, 64, 8)
+          in seen["conv_gn_silu"],
+          f"the tiled forward ran {PAR_ROWS} rows of {PAR_TILE_W}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(2)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / "parallel_tiles_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    breakdown = device_breakdown(trace, wall_us)
+    check(sum(breakdown["k2_launches_by_kernel"].values())
+          == launches["flash_attention"],
+          f"the tiled trace holds K2's launches: {breakdown}")
+
+    # one forward by tiles against the monolithic forward (its bottleneck
+    # (2, 4, 131072, 64) for K2), on the measurement and on stationary
+    # noise in its place: per-tile GroupNorm statistics follow the signal's
+    # loudness, which the chirp makes vary along the segment.  The attention
+    # model's runs go unrecorded: that K2 shape has no plain version that
+    # fits the card (its f32 scores take 275 GB).  The architecture without
+    # attention (seeded weights) isolates the GroupNorm part; its
+    # monolithic K1 shapes are recorded and checked like the others
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
+
+    no_attn = UNet1D(**dict(ATTN16K, use_attention=False),
+                     dtype=torch.bfloat16, device="cuda").eval()
+    randomize_(no_attn, 17)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    cond = torch.from_numpy(prep["cond_stack"]).cuda().repeat(2, 1, 1)
+    x_t = torch.randn(2, 1, PAR_L, generator=g, device="cuda")
+    inputs = {"measurement": torch.cat([x_t, cond, torch.zeros_like(x_t)],
+                                       dim=1)}
+    inputs["stationary"] = inputs["measurement"].clone()
+    inputs["stationary"][:, 1:2] = torch.randn(2, 1, PAR_L, generator=g,
+                                               device="cuda")
+    t = torch.tensor([300, 700], device="cuda")
+    y_rms = prep["cond_stack"][0, 0].reshape(PAR_TILES, -1).std(axis=1)
+    versus = {"measurement_y_rms_by_chunk": [float(y_rms.min()),
+                                             float(y_rms.max())]}
+    for name, net in (("attention", model), ("no_attention", no_attn)):
+        LaunchShapes.label = f"tiled vs monolithic, {name}"
+        for kind, x in inputs.items():
+            record = (contextlib.nullcontext() if name == "no_attention"
+                      else shapes.paused())
+            with torch.no_grad(), record:
+                tiled = tiled_apply(net, x, t, chunk=PAR_CHUNK)
+                mono = net(x, t)
+            a = tiled.double().cpu().numpy().ravel()
+            b = mono.double().cpu().numpy().ravel()
+            a0, b0 = a - a.mean(), b - b.mean()
+            rec = {"corr": float((a0 * b0).sum() / np.sqrt(
+                       (a0 * a0).sum() * (b0 * b0).sum())),
+                   "rel_max_dev": float(np.abs(a - b).max() / np.abs(b).max())}
+            check(np.isfinite(rec["corr"]) and np.isfinite(rec["rel_max_dev"]),
+                  f"tiled vs monolithic, {name}, {kind}")
+            versus.setdefault(name, {})[kind] = rec
+        LaunchShapes.label = "other"
+        x = inputs["measurement"]
+        with torch.no_grad(), shapes.paused():
+            versus[name]["tiled_forward_ms"] = cuda_ms(
+                torch, lambda: tiled_apply(net, x, t, chunk=PAR_CHUNK), 2)
+            versus[name]["monolithic_forward_ms"] = cuda_ms(
+                torch, lambda: net(x, t), 2)
+    versus["monolithic_k2_shape"] = [2, 4, PAR_L // 8, 64]
+    del x, x_t, cond, inputs, tiled, mono, no_attn
+
+    npy = os.path.join(tmp, "attn16k_long_y.npy")
+    np.save(npy, y)
+    outdir = os.path.join(tmp, "tiled_cli_out")
+    _, cli_launches, cli_s = run_counted(
+        torch, lambda: infer_cli.main([
+            "--input-npy", npy, "--fs", str(PAR_FS), "--model", ckpt,
+            "--outdir", outdir, "--steps", str(INFER_STEPS),
+            "--tiled-chunk", str(PAR_CHUNK), "--amp-calib", "mf",
+            "--run-tag", "tiled", "--device", "cuda"]),
+        want, "attn16k tiled infer cli")
+    recon = np.load(os.path.join(outdir, "recon_tiled.npy"))
+    with open(os.path.join(outdir, "metrics_tiled.json")) as fh:
+        cli_metrics = json.load(fh)
+    check(recon.shape == (PAR_L,) and bool(np.isfinite(recon).all()),
+          "the tiled CLI's reconstruction")
+    emit({"phase": "parallel_tiles", "config": "attn16k bf16", "L": PAR_L,
+          "fs": PAR_FS, "chunk": PAR_CHUNK, "tiles": PAR_TILES,
+          "tile_width": PAR_TILE_W, "rows_per_forward": PAR_ROWS,
+          "steps": INFER_STEPS, "ladder_steps": n_steps,
+          "launches": launches, "launches_per_forward": {
+              k: v / n_steps for k, v in launches.items()},
+          "host_prep_s": prep_s, "reconstruct_first_s": first_s,
+          "reconstruct_s": wall_s, "peak_memory_gb": peak_gb,
+          "trace": str(trace.relative_to(TRACES.parent)), **breakdown,
+          "k2_tile_shape": list(k2_shape[1:]),
+          "tiled_vs_monolithic": versus,
+          "cli": {"seconds": cli_s, "launches": cli_launches,
+                  "whiten_kind": cli_metrics["whiten_kind"],
+                  "residuals": cli_metrics["residuals"]}})
+    return prep, launches, cli_launches
+
+
+def phase_parallel_ranks(torch, tmp, prep, shapes):
+    """(b) and (d): two ranks sharing the card in a gloo group (NCCL
+    refuses two ranks on one device).  (b) One f32 step at global batch 16
+    (8 rows a rank) with injected t and eps against the single-process
+    step on the same rows; timed and profiled bf16 steps; a NaN in rank 1's
+    rows refused on both.  (d) In f32, so that the check sees the sharding
+    and not bf16 rounding: ``reconstruct_batch(mesh=)`` (8 measurements x
+    2 seeds = 16 rows) and ``tiled_apply(mesh=)`` over 3 tiles against
+    their calls without a mesh; then ``dryrun_multichip(2, "cuda")``."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        build_t_schedule,
+    )
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import graft_entry, inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import SamplerConfig
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel.seqtile import tiled_apply
+
+    ckpt32 = os.path.join(tmp, "attn16k_f32.msgpack")
+    write_checkpoint(dict(ATTN16K, t_embed_max_time=999.0),
+                     dict(infer_args(ATTN16K), bf16=False), ckpt32, 16)
+    f32_batch = par_train_batch(TRAIN_BATCH, 41, inject=True)
+    rng = np.random.default_rng(42)
+    payload = {"f32_batch": f32_batch,
+               "bf16_batch": par_train_batch(TRAIN_BATCH, 43, inject=False),
+               "ckpt32": ckpt32,
+               "cond": np.repeat(prep["cond_stack"][:, :, :32768],
+                                 PAR_BATCH_MEASUREMENTS, axis=0)
+               + 0.1 * rng.standard_normal(
+                   (PAR_BATCH_MEASUREMENTS, 5, 32768)).astype(np.float32),
+               "sigmas": rng.uniform(0.5, 2.0, PAR_BATCH_MEASUREMENTS),
+               "tile_x": rng.standard_normal(
+                   (2, 7, PAR_MESH_TILE_L)).astype(np.float32)}
+    with tempfile.TemporaryDirectory() as tmp2:
+        LaunchShapes.label = "single-process references"
+        want_m, want_flat, want_grad = par_f32_step(torch, tmp2, f32_batch)
+    model, schedule, _ = inference.load_model(ckpt32, device="cuda")
+    scfg = SamplerConfig(steps=INFER_STEPS, pred_type="v", use_selfcond=True,
+                         cfg_scale=1.5, ladder="t")
+    with torch.no_grad():
+        want_x0, want_std = inference.reconstruct_batch(
+            model, schedule, payload["cond"], payload["sigmas"], scfg,
+            torch.Generator(device="cuda").manual_seed(5), avg_seeds=2,
+            amp_calib="mf", return_seed_std=True, device="cuda")
+        want_tile = tiled_apply(
+            model, torch.from_numpy(payload["tile_x"]).cuda(),
+            torch.tensor([300, 700], device="cuda"),
+            chunk=PAR_CHUNK).float().cpu().numpy()
+    LaunchShapes.label = "other"
+    del model
+    torch.cuda.empty_cache()
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = mp.start_processes(_par_rank, args=(_free_port(), payload, queue),
+                               nprocs=PAR_RANKS, join=False,
+                               start_method="spawn")
+    got = []
+    while len(got) < PAR_RANKS:
+        try:
+            got.append(queue.get(timeout=5))
+        except queue_mod.Empty:
+            procs.join(timeout=0)        # raises if a rank failed
+    while not procs.join():
+        pass
+    got.sort(key=lambda r: r["rank"])
+    ranks_s = time.perf_counter() - t0
+    for r in got:
+        for kernel, raw in r.pop("shapes").items():
+            for key, labels in raw.items():
+                shapes.raw[kernel].setdefault(key, set()).update(labels)
+
+    r0, r1 = got
+    f32_rel = float(np.abs(r0["f32_flat"] - want_flat).max()
+                    / np.abs(want_flat).max())
+    f32_grad_rel = float(np.abs(r0["f32_grad"] - want_grad).max()
+                         / np.abs(want_grad).max())
+    f32_loss_rel = abs(r0["f32_step"]["loss"] - want_m["loss"]) / abs(
+        want_m["loss"])
+    batch_rel = float(np.abs(r0["batch_x0"] - want_x0).max()
+                      / np.abs(want_x0).max())
+    std_rel = float(np.abs(r0["batch_std"] - want_std).max()
+                    / np.abs(want_std).max())
+    tile_rel = float(np.abs(r0["tile_y"] - want_tile).max()
+                     / np.abs(want_tile).max())
+    step_ms = float(np.median(r0["step_ms"]))
+    n_fwd = len(build_t_schedule(1000, INFER_STEPS, None))
+    emit({"phase": "parallel_gloo", "config": "attn16k", "ranks": PAR_RANKS,
+          "backend": r0["backend"], "card_shared": True, "seconds": ranks_s,
+          "f32_step": {"global_batch": TRAIN_BATCH,
+                       "rows_per_rank": TRAIN_BATCH // PAR_RANKS,
+                       "loss_ranks": [r0["f32_step"]["loss"],
+                                      r1["f32_step"]["loss"]],
+                       "loss_single": want_m["loss"],
+                       "loss_rel_err": f32_loss_rel,
+                       "grad_norm_ranks": r0["f32_step"]["grad_norm"],
+                       "grad_norm_single": want_m["grad_norm"],
+                       "grad_max_rel_err": f32_grad_rel,
+                       "params_max_rel_err": f32_rel, "tol": MODEL_TOL},
+          "bf16_steps": {"step_ms_median": step_ms, "step_ms": r0["step_ms"],
+                         "step_ms_rank1": r1["step_ms"],
+                         "selfcond": r0["coins"],
+                         "samples_per_sec": TRAIN_BATCH / step_ms * 1e3,
+                         "launches_rank0": r0["timed_launches"],
+                         **r0["profile"]},
+          "nan_in_rank1_rows": {"ok": [r0["nan_ok"], r1["nan_ok"]],
+                                "unchanged": [r0["nan_unchanged"],
+                                              r1["nan_unchanged"]]},
+          "reconstruct_batch": {"dtype": "float32",
+                                "rows": 2 * PAR_BATCH_MEASUREMENTS,
+                                "rows_per_rank_forward":
+                                    2 * PAR_BATCH_MEASUREMENTS,
+                                "max_rel_err": batch_rel,
+                                "seed_std_max_rel_err": std_rel,
+                                "launches_rank0": r0["batch_launches"]},
+          "tiled_mesh": {"dtype": "float32", "tiles": 3, "padded_tiles": 4,
+                         "max_rel_err": tile_rel,
+                         "launches_rank0": r0["tile_launches"]}})
+    check(r0["backend"] == "gloo", "the ranks' backend")
+    check(f32_rel <= MODEL_TOL and f32_grad_rel <= MODEL_TOL
+          and f32_loss_rel <= MODEL_TOL,
+          f"2-rank f32 step vs single process: params {f32_rel}, gradient "
+          f"{f32_grad_rel}, loss {f32_loss_rel}")
+    check(r0["f32_step"] == r1["f32_step"]
+          and np.array_equal(r0["f32_flat"], r1["f32_flat"])
+          and np.array_equal(r0["bf16_flat"], r1["bf16_flat"]),
+          "the ranks' parameters stay equal")
+    check(not r0["nan_ok"] and not r1["nan_ok"] and r0["nan_unchanged"]
+          and r1["nan_unchanged"], "a NaN in rank 1's rows is refused on both")
+    check(np.array_equal(r0["batch_x0"], r1["batch_x0"])
+          and batch_rel <= MODEL_TOL and std_rel <= MODEL_TOL,
+          f"sharded reconstruct_batch vs unsharded: {batch_rel}, {std_rel}")
+    check(np.array_equal(r0["tile_y"], r1["tile_y"]) and tile_rel <= MODEL_TOL,
+          f"tiled_apply(mesh=) vs unmeshed: {tile_rel}")
+    check(r0["batch_launches"] == {"conv_gn_silu": 7 * n_fwd,
+                                   "flash_attention": n_fwd}
+          and r0["tile_launches"] == {"conv_gn_silu": 7,
+                                      "flash_attention": 1},
+          f"the ranks' launches {r0['batch_launches']} "
+          f"{r0['tile_launches']}")
+
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(2, device="cuda")
+    emit({"phase": "parallel_dryrun", "n_devices": 2, "device": "cuda",
+          "backend": "gloo", "seconds": time.perf_counter() - t0})
+
+
 class LaunchShapes:
     """While installed (``with``), the input shapes each kernel is launched
     at: it wraps each kernel module's launch body (``_launch``, which the
@@ -2417,6 +2990,15 @@ class LaunchShapes:
     def __exit__(self, *exc):
         for k, m in self.mods.items():
             m._launch = self.bodies[k]
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The launches inside go unrecorded."""
+        self.__exit__()
+        try:
+            yield
+        finally:
+            self.__enter__()
 
 
 def k1_sum(recs):
@@ -2670,6 +3252,12 @@ def main():
             phase_distill_grads(torch, corpus)
             launches.update(phase_distill(torch, tmp, trained, corpus))
         launches["bench"], launches["entry"] = phase_bench(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches["attn16k train nccl"] = phase_parallel_nccl(torch, tmp)
+            (prep, launches["attn16k tiled infer"],
+             launches["attn16k tiled infer cli"]) = phase_parallel_tiles(
+                torch, tmp, shapes)
+            phase_parallel_ranks(torch, tmp, prep, shapes)
     by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2)
 
     emit(kernels_line(k1, k2, launches, by_run, coverage))

@@ -12,8 +12,9 @@ right knobs themselves:
 
 ``--data`` takes an HDF5 corpus (needs h5py) or its ``.npz`` twin.
 ``--device`` takes ``cuda`` (the default: the GPU, an error without one) or
-``cpu``.  Multi-host initialisation is not called: multi-GPU runs are not
-ported (ROADMAP.md P10).
+``cpu``.  Under ``torchrun`` every process joins the group
+(``multihost_init``) and runs the same chain on its own GPU, as JAX's
+processes do; only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -63,8 +64,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the stage chain; returns ``distill()``'s result."""
     args = build_parser().parse_args(argv)
 
+    from ..parallel.mesh import multihost_init, rank0_writes
     from ..training.distill import DistillConfig, distill
 
+    multihost_init(args.device)
+    rank0_writes(args, "model_dir", "log_jsonl")
     chain = [int(x) for x in args.steps_schedule.split(",") if x]
     cfg = DistillConfig(
         teacher=args.teacher, data=args.data, model_dir=args.model_dir,

@@ -4,10 +4,10 @@
 Counterpart of the JAX package's ``cli/export.py``, with the same flags
 except two: ``--device`` (default: the GPU) names the device the program is
 traced for and served on, in place of ``--platforms``, and ``--dp`` above 1
-raises (P10).  The artifact holds the weights and the whole recipe (ladder,
-CFG, self-conditioning, seed averaging, sigma rescale, MF amplitude
-calibration); a CUDA artifact launches the port's kernels through their
-registered ops.  Sampler knobs left unset resolve from the checkpoint as in
+raises (``ROADMAP.md`` P10.2).  The artifact holds the weights and the
+whole recipe (ladder, CFG, self-conditioning, seed averaging, sigma
+rescale, MF amplitude calibration); a CUDA artifact launches the port's
+kernels through their registered ops.  Sampler knobs left unset resolve from the checkpoint as in
 ``gw-infer``.
 
     python -m diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli.export \\

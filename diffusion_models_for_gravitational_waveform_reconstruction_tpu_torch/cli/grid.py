@@ -10,9 +10,10 @@ defaults and artifacts).
 ``cpu``; ``--seed`` seeds the cell selection (numpy, as the JAX package
 does) and a ``torch.Generator`` on that device for the sampler.  ``--amp``
 and ``--metrics`` are accepted and ignored.  The heatmap PNGs need
-matplotlib; without it every CSV and JSON is still written.  Multi-host
-initialisation is not called: multi-GPU runs are not ported (ROADMAP.md
-P10).
+matplotlib; without it every CSV and JSON is still written.  Under
+``torchrun`` every process joins the group (``multihost_init``) and runs
+the same evaluation on its own GPU, as JAX's processes do; only rank 0
+writes files.
 """
 from __future__ import annotations
 
@@ -166,8 +167,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
         select_per_cell,
     )
     from ..inference import apply_distilled_defaults, load_model
+    from ..parallel.mesh import multihost_init, rank0_writes
     from ..utils.device import resolve_device
 
+    multihost_init(args.device)
+    rank0_writes(args, "outdir")
     dev = resolve_device(args.device)
     if args.from_sweep:
         knobs = parse_sweep_best(args.from_sweep)

@@ -15,7 +15,12 @@ mode come from the checkpoint's args.  Artifacts in ``--outdir``:
 
 ``--device`` defaults to the GPU and never falls back to the CPU; ``--seed``
 seeds a ``torch.Generator`` on that device.  ``--amp``, ``--selfcond-ema``
-and ``--save-every`` are accepted and ignored.
+and ``--save-every`` are accepted and ignored.  ``--tiled-chunk`` N
+evaluates the U-Net in halo tiles of N samples (``parallel/seqtile.py``),
+for segments longer than one forward can take.  Under ``torchrun`` every
+process joins the group (``multihost_init``) and runs the same
+reconstruction on its own GPU, as JAX's processes do; only rank 0 writes
+files.
 """
 from __future__ import annotations
 
@@ -81,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--oracle-init", action="store_true")
     s.add_argument("--tiled-chunk", type=int, default=0,
                    help="Evaluate the U-Net in halo tiles of this length "
-                        "(not ported yet: > 0 raises; 0 = off).")
+                        "(sequence-parallel long-segment path; 0 = off).")
     s.add_argument("--ladder", choices=["t", "lambda"], default=None,
                    help="Timestep ladder: 't' = reference-parity linspace in "
                         "t; 'lambda' = uniform in log-SNR (better low-step "
@@ -168,9 +173,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         resolve_start_t,
     )
     from ..ops.sampling import SamplerConfig
+    from ..parallel.mesh import multihost_init, rank0_writes
     from ..utils.device import resolve_device
     from ..utils.jsonl import JsonlLogger
 
+    multihost_init(args.device)
+    rank0_writes(args, "outdir", "log_jsonl")
     dev = resolve_device(args.device)
     os.makedirs(args.outdir, exist_ok=True)
     model, schedule, ck = load_model(args.model, use_ema=args.use_ema,

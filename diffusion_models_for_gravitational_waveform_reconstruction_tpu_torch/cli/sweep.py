@@ -9,8 +9,9 @@ defaults and artifacts).
 ``--device`` takes ``cuda`` (the default: the GPU, an error without one) or
 ``cpu``; ``--seed`` seeds a ``torch.Generator`` on that device, so the
 draws differ from the JAX package's.  ``--amp`` is accepted and ignored.
-Multi-host initialisation is not called: multi-GPU runs are not ported
-(ROADMAP.md P10).
+Under ``torchrun`` every process joins the group (``multihost_init``) and
+runs the same sweep on its own GPU, as JAX's processes do; only rank 0
+writes files.
 """
 from __future__ import annotations
 
@@ -114,9 +115,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from ..data.hdf5io import resolve_h5_path
     from ..evals import sweep
     from ..inference import load_model
+    from ..parallel.mesh import multihost_init, rank0_writes
     from ..utils.device import resolve_device
     from .grid import _inherit_domain_flags
 
+    multihost_init(args.device)
+    rank0_writes(args, "outdir")
     dev = resolve_device(args.device)
     args.input_h5 = resolve_h5_path(args.input_h5)
     model, schedule, ck = load_model(args.model, device=dev)

@@ -9,9 +9,18 @@ package's ``cli/train.py``: the same flags and defaults, and
 ``cpu``.  ``--num_workers`` and ``--amp`` are accepted and change nothing
 (bf16 activations are the default; ``--no-bf16`` turns them off).
 ``--data synth:N`` synthesises N samples on the device; any other ``--data``
-is an HDF5 corpus, which needs h5py, or its ``.npz`` twin.  ``--streaming``,
-``--tp`` > 1 and data parallelism over more than one visible GPU are not
-ported and raise.
+is an HDF5 corpus, which needs h5py, or its ``.npz`` twin.  ``--streaming``
+and ``--tp`` > 1 are not ported and raise.
+
+Data parallelism runs one process per GPU:
+
+    torchrun --nproc-per-node N -m \
+        diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli.train ...
+
+Each process joins the NCCL group, takes its rows of every global batch and
+averages the gradient with the others; only rank 0 writes the checkpoint
+and the logs.  One process that sees several GPUs with data parallelism on
+raises and names this command (``--no-data-parallel`` trains on one).
 """
 from __future__ import annotations
 

@@ -36,8 +36,11 @@ from .data.pipeline import (
     whiten_welch_np,
 )
 from .models.unet import UNet1D
-from .ops.sampling import (SAMPLERS, Noise, SamplerConfig, aggregate_seeds,
-                           one_step_proxy, sample_with_refinement)
+from .parallel import mesh as pmesh
+from .parallel.seqtile import tiled_apply
+from .ops.sampling import (SAMPLERS, Noise, RankNoise, SamplerConfig,
+                           aggregate_seeds, one_step_proxy,
+                           sample_with_refinement)
 from .ops.schedules import make_schedule, snr_from_alpha_bar, t_for_target_snr
 from .utils.checkpoint import load_checkpoint, select_weights
 from .utils.device import resolve_device
@@ -395,13 +398,6 @@ def make_run_tag(mode: str, cfg: SamplerConfig, schedule, whiten: bool,
     return tag.replace(".", "p")
 
 
-def _no_tiling(tiled_chunk: int, mesh) -> None:
-    if tiled_chunk > 0 or mesh is not None:
-        raise NotImplementedError(
-            "tiled_chunk > 0 and mesh= (sequence-tiled and multi-device "
-            "sampling) are not ported yet: ROADMAP.md P10")
-
-
 def reconstruct(model, schedule, prep: dict, cfg: SamplerConfig, noise, *,
                 sampler: str = "ddim", collect_diagnostics: bool = False,
                 tiled_chunk: int = 0, mesh=None, avg_seeds: int = 1,
@@ -416,8 +412,20 @@ def reconstruct(model, schedule, prep: dict, cfg: SamplerConfig, noise, *,
     the base pass; refinement passes run after it.  ``amp_calib="mf"``
     rescales by the matched-filter amplitude against ``y_for_cond``.
     ``noise`` is a ``torch.Generator`` on ``device``, a ``FixedNoise``, or a
-    list with one per pass."""
-    _no_tiling(tiled_chunk, mesh)
+    list with one per pass.
+
+    ``tiled_chunk`` > 0 evaluates the U-Net in halo tiles of that length
+    (``parallel/seqtile.py``), for segments longer than one forward can
+    take; with ``mesh`` (``parallel.mesh.make_mesh``) the tiles are spread
+    over its data axis, and every rank samples the same noise and returns
+    the same reconstruction.  Without tiling ``mesh`` is not used, as in
+    the JAX package."""
+    if mesh is not None:
+        pmesh.check_mesh(mesh)
+    model_fn = model
+    if tiled_chunk > 0:
+        def model_fn(x, t):
+            return tiled_apply(model, x, t, chunk=tiled_chunk, mesh=mesh)
     dev = resolve_device(device)
     cond = torch.as_tensor(prep["cond_stack"], dtype=torch.float32, device=dev)
     clean_norm = (torch.as_tensor(prep["clean_norm"], dtype=torch.float32,
@@ -432,7 +440,7 @@ def reconstruct(model, schedule, prep: dict, cfg: SamplerConfig, noise, *,
             clean_norm = clean_norm.repeat(S, 1, 1)
 
     diagnostics = sampler == "ddim" and collect_diagnostics
-    out = sample_with_refinement(SAMPLERS[sampler], model, schedule, cond,
+    out = sample_with_refinement(SAMPLERS[sampler], model_fn, schedule, cond,
                                  cfg, noise, clean_norm=clean_norm,
                                  x0_std_est=x0_std,
                                  collect_diagnostics=diagnostics)
@@ -471,8 +479,15 @@ def reconstruct_batch(model, schedule, cond_stacks, sigmas,
     ``noise`` is a ``torch.Generator`` on ``device`` or a ``FixedNoise``.
     With ``return_seed_std`` (S > 1) also returns the per-element seed std
     (B, L), rescaled with the same MF calibration as the aggregate.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``) the B*S rows, which must
+    split evenly, are spread over its data axis: each rank samples its rows
+    with its rows of the global noise draws, the members' weights are
+    broadcast from data rank 0, and every rank gathers all rows and returns
+    the same result as the call without a mesh.
     """
-    _no_tiling(0, mesh)
+    if mesh is not None:
+        pmesh.check_mesh(mesh)
     dev = resolve_device(device)
     sample_fn = SAMPLERS[sampler]
     cond = torch.as_tensor(np.asarray(cond_stacks), dtype=torch.float32,
@@ -481,20 +496,29 @@ def reconstruct_batch(model, schedule, cond_stacks, sigmas,
                           device=dev) if clean_norms is not None else None)
     B = cond.shape[0]
     S = max(1, int(avg_seeds))
+    cond_all = cond
     if S > 1:
-        cond = cond.repeat(S, 1, 1)
+        cond_all = cond.repeat(S, 1, 1)
         if cn is not None:
             cn = cn.repeat(S, 1, 1)
-    state = noise.get_state() if isinstance(noise, torch.Generator) else None
     members = [model] + list(extra_models or [])
+    cond_rows = cond_all
+    if mesh is not None:
+        cond_rows = pmesh.local_rows(mesh, cond_all)
+        cn = pmesh.local_rows(mesh, cn) if cn is not None else None
+        pmesh.replicate_tree(members, mesh)
+    state = noise.get_state() if isinstance(noise, torch.Generator) else None
     x0_norm = None
     for m in members:
         if state is not None:
             noise.set_state(state)
-        out = sample_with_refinement(sample_fn, m, schedule, cond, cfg, noise,
-                                     clean_norm=cn)
+        z = noise if mesh is None else RankNoise(noise, mesh.rank, mesh.n_data)
+        out = sample_with_refinement(sample_fn, m, schedule, cond_rows, cfg,
+                                     z, clean_norm=cn)
         x0_norm = out if x0_norm is None else x0_norm + out
     x0_norm = x0_norm / len(members)
+    if mesh is not None:
+        x0_norm = pmesh.gather_rows(mesh, x0_norm)
     sig = np.asarray(sigmas)
     std_white = None
     if S > 1:
@@ -502,7 +526,7 @@ def reconstruct_batch(model, schedule, cond_stacks, sigmas,
         if return_seed_std:
             std_white = (per_seed.std(dim=0, correction=0)[:, 0, :]
                          .cpu().numpy() * sig[:, None])
-        x0_norm = aggregate_seeds(per_seed, avg_mode, y_norm=cond[:B, 0, :])
+        x0_norm = aggregate_seeds(per_seed, avg_mode, y_norm=cond[:, 0, :])
     x0_white = x0_norm[:, 0, :].cpu().numpy() * sig[:, None]
     if amp_calib == "mf":
         y_white = np.asarray(cond_stacks)[:, 0, :] * sig[:, None]

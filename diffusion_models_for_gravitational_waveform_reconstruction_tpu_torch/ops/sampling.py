@@ -170,6 +170,28 @@ def _noise_source(noise: Noise):
     return _GeneratorNoise(noise) if isinstance(noise, torch.Generator) else noise
 
 
+class RankNoise:
+    """Rank ``rank`` of ``n``'s rows of ``noise``'s draws: each draw of b
+    rows is drawn for n*b rows (the global batch) and rows [rank*b,
+    (rank+1)*b) are kept, so a sampler that holds its rank's rows of a
+    batch sees the noise of the unsharded call."""
+
+    def __init__(self, noise, rank: int, n: int):
+        self.source, self.rank, self.n = _noise_source(noise), rank, n
+
+    def _rows(self, draw, shape):
+        b = shape[0]
+        z = draw((self.n * b,) + tuple(shape[1:]))
+        return z[self.rank * b:(self.rank + 1) * b]
+
+    def init(self, shape, dtype, device):
+        return self._rows(lambda s: self.source.init(s, dtype, device), shape)
+
+    def step(self, i, shape, dtype, device):
+        return self._rows(lambda s: self.source.step(i, s, dtype, device),
+                          shape)
+
+
 def _f32(v) -> np.float32:
     return np.float32(v)
 

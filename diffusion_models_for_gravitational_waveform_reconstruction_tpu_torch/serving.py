@@ -213,12 +213,14 @@ def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
     weights inside the program.  Trace where you serve: a CUDA export holds
     the kernels' ops (checked here: K1, and K2 for an attention
     checkpoint), a CPU export their plain versions.  Knobs resolve as in
-    :func:`resolve_serving_config`.  ``dp > 1`` (an artifact sharded over
-    several cards) is not ported yet."""
+    :func:`resolve_serving_config`.  ``dp > 1`` (one artifact sharded over
+    several cards) is not ported yet: ``torch.export`` has no SPMD, so it
+    needs a contract of its own (``ROADMAP.md`` P10.2)."""
     if int(dp) > 1:
         raise NotImplementedError(
             f"export_sampler(dp={dp}): an artifact sharded over several "
-            f"cards waits for P10 (parallelism, ROADMAP.md)")
+            f"cards is not ported yet: ROADMAP.md P10.2 (a sharded serving "
+            f"artifact)")
     dev = resolve_device(device)
     model, schedule, ck = load_model(ckpt_path, use_ema=use_ema, device=dev)
     cfg, sampler = resolve_serving_config(

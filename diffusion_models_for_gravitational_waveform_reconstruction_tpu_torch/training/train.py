@@ -30,6 +30,16 @@ How it runs on the card:
   and are fetched once per epoch.
 - The self-conditioning coin is drawn on the host (one per batch), so the
   extra forward runs only when it comes up.
+- Data parallelism (``mesh=``, or a process group of several ranks, one
+  per GPU as ``torchrun --nproc-per-node N`` starts them): every rank
+  walks the same global batches and keeps its rows; the step draws t, eps
+  and the dropout mask for the global batch and keeps its rows, averages
+  the flat gradient and the loss over the ranks (one all-reduce each) and
+  gates on those global values, so parameters, EMA and optimizer state
+  stay the same on every rank.  Only rank 0 writes checkpoints, logs,
+  probes, debug dumps and profiles; every rank reads ``--resume``.  Each
+  rank keeps the whole corpus resident and gathers the global batch, then
+  slices it.
 
 Random streams: a 64-bit key (``rng_key`` in checkpoints, uint32[2] as the
 JAX package writes it) is split per step; the step seeds a generator on the
@@ -37,9 +47,11 @@ device with its key and draws the coin on the host from the same key.  A checkpo
 either package resumes in the other, but the two packages' random streams
 differ, so a resumed run does not repeat the other package's draws.
 
-Not here: ``--streaming`` (needs ``StreamingDataset``) and any mesh (more
-than one visible device with data parallelism, or ``--tp`` > 1): each raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Not here: ``--streaming`` (needs ``StreamingDataset``) and tensor
+parallelism (``--tp`` > 1): each raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.  One process that sees several GPUs with data
+parallelism on raises too, naming ``torchrun``: JAX's single controller
+takes every visible device, torch runs one process per GPU.
 """
 from __future__ import annotations
 
@@ -65,6 +77,7 @@ from ..ops.diffusion import (
     v_to_x0_eps,
 )
 from ..ops.schedules import DiffusionSchedule, make_schedule
+from ..parallel import mesh as pmesh
 from ..utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -391,22 +404,31 @@ def _on_device(schedule: DiffusionSchedule, device) -> DiffusionSchedule:
 
 
 def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
-                    cfg: TrainConfig, optimizer: ClipAdamW, lr_sched):
+                    cfg: TrainConfig, optimizer: ClipAdamW, lr_sched,
+                    mesh: Optional[pmesh.Mesh] = None):
     """The train step:
 
         step(state, batch, key, t_min, p_uncond_eff, p_selfcond_eff) -> metrics
 
-    ``batch``: tensors on the model's device (clean, noisy, mask (B, 1, L),
-    sigma (B,), meta (B, C); ``t_inject`` / ``eps_inject`` replace the draws
-    of t and eps); ``key``: an int from :func:`split_key`.  Updates ``state``
-    in place and returns device scalars (loss, grad_norm, lr, ok, t_min,
-    t_mean, t_max) and ``bsz_eff``.  The self-conditioning forward, the
-    forward, the backward and the optimizer (with the EMA and the gate) run
-    in ``torch.profiler`` ranges named ``train/...``."""
+    ``batch``: the global batch, tensors on the model's device (clean,
+    noisy, mask (B, 1, L), sigma (B,), meta (B, C); ``t_inject`` (B*K,) /
+    ``eps_inject`` (B*K, 1, L) replace the draws of t and eps); ``key``: an
+    int from :func:`split_key`.  Updates ``state`` in place and returns
+    device scalars (loss, grad_norm, lr, ok, t_min, t_mean, t_max) and
+    ``bsz_eff`` (B*K), all of the global batch.  With ``mesh`` this rank
+    trains on its rows of the batch and of every draw, and the loss and the
+    gradient are averaged over the data axis (B must split evenly).  The
+    self-conditioning forward, the forward, the backward, the all-reduce and
+    the optimizer (with the EMA and the gate) run in ``torch.profiler``
+    ranges named ``train/...``."""
     K = max(1, int(cfg.t_multi))
     dev = next(model.parameters()).device
     sched = _on_device(schedule, dev)
     gen = torch.Generator(device=dev)
+    mesh = mesh or pmesh.Mesh(1)
+
+    def rows(x):
+        return pmesh.local_rows(mesh, x)
 
     def apply_model(net_in, t):
         if cfg.remat:
@@ -417,16 +439,17 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
     def step(state: TrainState, batch: Dict[str, torch.Tensor], key: int,
              t_min: int, p_uncond_eff: float, p_selfcond_eff: float):
         gen.manual_seed(key)
-        clean_raw = batch["clean"].float()
-        noisy_raw = batch["noisy"].float()
-        sigma = batch["sigma"].float()
-        mask = batch["mask"].float()
+        clean_raw = rows(batch["clean"]).float()
+        noisy_raw = rows(batch["noisy"]).float()
+        sigma = rows(batch["sigma"]).float()
+        mask = rows(batch["mask"]).float()
         L = clean_raw.shape[-1]
 
         sigma_ = sigma.reshape(-1, 1, 1)
         clean_norm = clean_raw / sigma_
         y_norm = noisy_raw / sigma_
-        meta_bc = _broadcast_meta(batch.get("meta"), L)
+        meta = batch.get("meta")
+        meta_bc = _broadcast_meta(rows(meta) if meta is not None else None, L)
         if cfg.clamp_inputs > 0:
             clean_norm = clean_norm.clamp(-cfg.clamp_inputs, cfg.clamp_inputs)
             y_norm = y_norm.clamp(-cfg.clamp_inputs, cfg.clamp_inputs)
@@ -436,25 +459,29 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
             mask = mask.repeat_interleave(K, dim=0)
             if meta_bc is not None:
                 meta_bc = meta_bc.repeat_interleave(K, dim=0)
-        bsz_eff = clean_norm.shape[0]
-
+        # every draw is made for the global batch (bsz_eff rows) and this
+        # rank keeps its rows, so the ranks train on the unsharded draws
+        bsz_eff = batch["clean"].shape[0] * K
         if "t_inject" in batch:
-            t = batch["t_inject"].long()
+            t_all = batch["t_inject"].long()
         elif cfg.t_cover == "strat":
-            t = sample_timesteps_stratified(gen, bsz_eff, t_min, cfg.T - 1,
-                                            cfg.t_bins)
+            t_all = sample_timesteps_stratified(gen, bsz_eff, t_min,
+                                                cfg.T - 1, cfg.t_bins)
         else:
             u = torch.rand(bsz_eff, generator=gen, device=dev)
-            t = (t_min + torch.floor(u * (cfg.T - t_min))).long()
+            t_all = (t_min + torch.floor(u * (cfg.T - t_min))).long()
+        t = rows(t_all)
         if "eps_inject" in batch:
-            eps = batch["eps_inject"].float()
-            x_t = q_sample_with_eps(sched, clean_norm, t, eps)
+            eps = rows(batch["eps_inject"]).float()
         else:
-            x_t, eps = q_sample(sched, clean_norm, t, gen)
+            eps = rows(torch.randn((bsz_eff,) + tuple(clean_norm.shape[1:]),
+                                   generator=gen, device=dev,
+                                   dtype=clean_norm.dtype))
+        x_t = q_sample_with_eps(sched, clean_norm, t, eps)
         if cfg.clamp_inputs > 0:
             x_t = x_t.clamp(-cfg.clamp_inputs, cfg.clamp_inputs)
 
-        drop = (torch.rand((bsz_eff, 1, 1), generator=gen, device=dev)
+        drop = (rows(torch.rand((bsz_eff, 1, 1), generator=gen, device=dev))
                 < p_uncond_eff).float()
         if meta_bc is not None and cfg.dropout_y_only:
             cond_used = torch.cat([y_norm * (1.0 - drop), meta_bc], dim=1)
@@ -485,6 +512,10 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
             flatp.grad.zero_()
             loss.backward()
         loss = loss.detach()
+        if mesh.group is not None:
+            with record_function("train/all_reduce"):
+                pmesh.mean_(mesh, flatp.grad)
+                loss = pmesh.mean_(mesh, loss.reshape(1)).reshape(())
 
         with record_function("train/optimizer"):
             grad_norm = torch.linalg.vector_norm(flatp.grad)
@@ -506,8 +537,8 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
                 old.copy_(torch.where(ok, new, old))
             state.step.add_(ok.to(torch.int32))
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "ok": ok,
-                "t_min": t.min(), "t_mean": t.float().mean(), "t_max": t.max(),
-                "bsz_eff": bsz_eff}
+                "t_min": t_all.min(), "t_mean": t_all.float().mean(),
+                "t_max": t_all.max(), "bsz_eff": bsz_eff}
 
     return step
 
@@ -730,35 +761,58 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
     output directory.  ``dataset``: a ready :class:`PreparedDataset`,
     else ``cfg.data`` is read (``synth:N`` synthesises N samples on the
     device; anything else is an HDF5 corpus, which needs h5py, or its
-    ``.npz`` twin)."""
+    ``.npz`` twin).
+
+    ``mesh`` (``parallel.mesh.make_mesh``) trains data-parallel over its
+    data axis.  Without one, a process group of several ranks (``torchrun``;
+    joined here by ``multihost_init``) with ``cfg.data_parallel`` makes the
+    mesh of all ranks, unless the batch does not split evenly over them:
+    then every rank trains unsharded.  Only rank 0 writes files."""
     from ..data import pipeline as dpipe
     from ..data.hdf5io import compute_meta_scale
     from ..utils.roofline import peak_for, unet_flops_per_sample
 
-    if mesh is not None or int(cfg.tp) > 1:
-        raise NotImplementedError(
-            "a device mesh (mesh=, --tp > 1) is not ported yet: ROADMAP.md "
-            "P10 (multi-GPU)")
+    if mesh is not None:
+        pmesh.check_mesh(mesh)
+    if int(cfg.tp) > 1:
+        raise NotImplementedError(pmesh.TP_TODO)
     if cfg.streaming:
         raise NotImplementedError(
             "--streaming needs StreamingDataset, not ported yet: ROADMAP.md "
             "P8 (training), its last part")
+    pmesh.multihost_init(device)
     dev = resolve_device(device)
-    if (dev.type == "cuda" and cfg.data_parallel
-            and torch.cuda.device_count() > 1):
+    n_world = pmesh.world_size()
+    if mesh is None and cfg.data_parallel and n_world > 1:
+        if cfg.batch_size % n_world == 0:
+            mesh = pmesh.make_mesh(n_data=n_world)
+        else:
+            print(f"[train] batch_size={cfg.batch_size} not divisible by "
+                  f"{n_world} data-parallel devices; running without "
+                  f"sharding")
+    if (mesh is None and n_world == 1 and dev.type == "cuda"
+            and cfg.data_parallel and torch.cuda.device_count() > 1):
+        n_gpu = torch.cuda.device_count()
         raise NotImplementedError(
-            f"{torch.cuda.device_count()} GPUs are visible and data "
-            f"parallelism is on, which the JAX trainer would shard over a "
-            f"mesh: not ported yet (ROADMAP.md P10). Expose one GPU "
-            f"(CUDA_VISIBLE_DEVICES) or pass --no-data-parallel")
+            f"{n_gpu} GPUs are visible to one process with data parallelism "
+            f"on: the port runs one process per GPU. Launch with `torchrun "
+            f"--nproc-per-node {n_gpu} -m "
+            f"diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+            f".cli.train ...`, expose one GPU (CUDA_VISIBLE_DEVICES) or pass "
+            f"--no-data-parallel")
+    n_data = mesh.n_data if mesh is not None else 1
+    writer = pmesh.process_index() == 0
 
     t_run0 = time.time()
     rng = np.random.default_rng(cfg.seed)
     key = key_from_seed(cfg.seed)
-    # read the resume payload before the output directory is emptied
+    # read the resume payload before the output directory is emptied (by
+    # rank 0, once every rank has read it)
     ck_resume = load_checkpoint(cfg.resume) if cfg.resume else None
-    out_dir = prepare_output_dir(cfg.model_dir)
-    logger = JsonlLogger(cfg.log_jsonl)
+    pmesh.barrier()
+    out_dir = (prepare_output_dir(cfg.model_dir) if writer
+               else os.path.join(cfg.model_dir, "latest_model"))
+    logger = JsonlLogger(cfg.log_jsonl if writer else None)
 
     if dataset is None:
         if cfg.data.startswith("synth:"):
@@ -789,7 +843,9 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
     print(f"[train] dataset n={dataset.n} buckets={dataset.bucket_lengths} "
           f"meta_scale={meta_scale}")
     print(f"[train] C_meta={c_meta} cond_in_ch={cond_in_ch} in_ch={in_ch} "
-          f"batches/epoch={n_batches} device={dev}")
+          f"batches/epoch={n_batches} device={dev}"
+          + (f" mesh={mesh.shape} rank={mesh.rank}" if mesh is not None
+             else ""))
 
     # analytic MFU: forward + ~2x backward + the self-conditioning forward
     # on p_selfcond of the steps; the FLOPs the port runs (no folded decoder)
@@ -801,8 +857,9 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
     peak = peak_for(torch.cuda.get_device_name(dev)) if dev.type == "cuda" \
         else None
 
-    step_fn = make_train_step(model, schedule, cfg, optimizer, lr_sched)
-    probe_fn = make_probe_fn(model, schedule, cfg) if cfg.probe_cond else None
+    step_fn = make_train_step(model, schedule, cfg, optimizer, lr_sched, mesh)
+    probe_fn = (make_probe_fn(model, schedule, cfg)
+                if cfg.probe_cond and writer else None)
     debug_x0_fn = None
     side_gen = torch.Generator(device=dev)
 
@@ -814,6 +871,10 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         start_epoch = int(ck_resume.get("epoch", 0)) + 1
         print(f"[train] resumed from {cfg.resume} at epoch {start_epoch} "
               f"(global step {step_restored})")
+    if mesh is not None:
+        # the optimizer state and the step are replicated with the weights
+        pmesh.replicate_tree([state.params.flat, state.ema_params,
+                              *state.opt_state, state.step], mesh)
 
     if cfg.t_min_frac > 0:
         print(f"[train] WARNING: t_min_frac={cfg.t_min_frac} — timesteps "
@@ -851,7 +912,8 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
                                                       rng))
         pending = []   # metrics stay on the device until the epoch's end
         for i, jb in enumerate(batches):
-            if cfg.profile_dir and global_step == cfg.profile_steps[0]:
+            if (cfg.profile_dir and writer
+                    and global_step == cfg.profile_steps[0]):
                 prof = _start_profiler(dev)
             key, k_step = split_key(key)
             m = step_fn(state, jb, k_step, t_min_epoch, p_u, p_sc)
@@ -861,7 +923,9 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
                 _stop_profiler(prof, dev, cfg.profile_dir)
                 prof = None
 
-            if probe_fn is not None and (i % max(1, cfg.probe_interval) == 0):
+            # probes and the debug dump run on rank 0, but every rank
+            # splits their keys, so the step keys stay the same everywhere
+            if cfg.probe_cond and (i % max(1, cfg.probe_interval) == 0):
                 sigma_ = jb["sigma"].reshape(-1, 1, 1)
                 c0 = (jb["clean"] / sigma_)[:1]
                 y0 = (jb["noisy"] / sigma_)[:1]
@@ -869,6 +933,8 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
                 meta0 = meta0[:1] if meta0 is not None else None
                 for t_pick in cfg.probe_t:
                     key, k_p = split_key(key)
+                    if probe_fn is None:
+                        continue
                     side_gen.manual_seed(k_p)
                     pm = probe_fn(c0, y0, meta0,
                                   int(np.clip(t_pick, 0, cfg.T - 1)), side_gen)
@@ -879,14 +945,15 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
             if cfg.debug_first and i == 0 and (
                     epoch == 1 or (cfg.debug_first_every
                                    and epoch % cfg.debug_first_every == 0)):
-                if debug_x0_fn is None:
-                    debug_x0_fn = make_debug_x0_fn(model, schedule, cfg)
                 key, k_dbg = split_key(key)
-                side_gen.manual_seed(k_dbg)
-                x0m = debug_x0_fn(jb["clean"], jb["noisy"], jb["sigma"],
-                                  jb["mask"], jb.get("meta"), cfg.T // 2,
-                                  side_gen)
-                _first_batch_debug(jb, m, out_dir, epoch, x0m)
+                if writer:
+                    if debug_x0_fn is None:
+                        debug_x0_fn = make_debug_x0_fn(model, schedule, cfg)
+                    side_gen.manual_seed(k_dbg)
+                    x0m = debug_x0_fn(jb["clean"], jb["noisy"], jb["sigma"],
+                                      jb["mask"], jb.get("meta"), cfg.T // 2,
+                                      side_gen)
+                    _first_batch_debug(jb, m, out_dir, epoch, x0m)
 
         # the epoch's metrics in one device-to-host copy
         table = _metric_table(pending) if pending else np.zeros((0, 7))
@@ -910,10 +977,11 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         # a majority-skipped epoch means divergence or broken data: stop
         n_seen = len(batch_losses) + skipped
         if cfg.skip_bad_batches and n_seen >= 4 and skipped > n_seen // 2:
-            _save(out_dir, state, cfg, in_ch, cond_in_ch, c_meta, meta_scale,
-                  epoch, name="model_diffusion_aborted.msgpack", key=key,
-                  whiten_mode_resolved=wm_resolved, data_fs=data_fs,
-                  optimizer=optimizer)
+            if writer:
+                _save(out_dir, state, cfg, in_ch, cond_in_ch, c_meta,
+                      meta_scale, epoch, name="model_diffusion_aborted.msgpack",
+                      key=key, whiten_mode_resolved=wm_resolved,
+                      data_fs=data_fs, optimizer=optimizer)
             raise RuntimeError(
                 f"epoch {epoch}: {skipped}/{n_seen} batches skipped "
                 f"(non-finite or above loss threshold) — aborting; last "
@@ -925,24 +993,25 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         dt_epoch = max(1e-9, time.time() - t_epoch0)
         steps_per_s = n_batches / dt_epoch
         samples_per_s = steps_per_s * cfg.batch_size
-        mfu_est = (train_flops_per_sample * samples_per_s / peak[0]
+        mfu_est = (train_flops_per_sample * samples_per_s / n_data / peak[0]
                    if peak else None)
         print(f"[train] epoch {epoch}: avg/sample={avg:.6f} mean/batch={mean_b:.6f} "
               f"median/batch={med_b:.6f} skipped={skipped} "
               f"({steps_per_s:.2f} steps/s, {samples_per_s:.1f} samples/s, "
-              f"{samples_per_s:.1f} samples/s/chip"
+              f"{samples_per_s / n_data:.1f} samples/s/chip"
               + (f", MFU~{mfu_est:.3f}" if mfu_est is not None else "") + ")")
         logger.log({"phase": "epoch_end", "epoch": epoch, "avg_per_sample": avg,
                     "mean_per_batch": mean_b, "median_per_batch": med_b,
                     "skipped_batches": skipped,
                     "steps_per_sec": steps_per_s,
                     "samples_per_sec": samples_per_s,
-                    "samples_per_sec_per_chip": samples_per_s,
+                    "samples_per_sec_per_chip": samples_per_s / n_data,
                     "mfu_est": mfu_est,
                     "elapsed_s": time.time() - t_run0})
         history.append({"epoch": epoch, "avg_per_sample": avg})
 
-        if cfg.save_every_epochs and epoch % cfg.save_every_epochs == 0:
+        if (cfg.save_every_epochs and epoch % cfg.save_every_epochs == 0
+                and writer):
             _save(out_dir, state, cfg, in_ch, cond_in_ch, c_meta, meta_scale,
                   epoch, name=f"model_diffusion_ep{epoch}.msgpack", key=key,
                   whiten_mode_resolved=wm_resolved, data_fs=data_fs,
@@ -950,11 +1019,12 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
 
     if prof is not None:
         _stop_profiler(prof, dev, cfg.profile_dir)
-    save_path = _save(out_dir, state, cfg, in_ch, cond_in_ch, c_meta,
-                      meta_scale, cfg.epochs, key=key,
-                      whiten_mode_resolved=wm_resolved, data_fs=data_fs,
-                      optimizer=optimizer)
-    print(f"[train] saved model to {save_path}")
+    save_path = os.path.join(out_dir, "model_diffusion.msgpack")
+    if writer:
+        _save(out_dir, state, cfg, in_ch, cond_in_ch, c_meta, meta_scale,
+              cfg.epochs, key=key, whiten_mode_resolved=wm_resolved,
+              data_fs=data_fs, optimizer=optimizer)
+        print(f"[train] saved model to {save_path}")
     return {
         "state": state, "model": model, "schedule": schedule,
         "checkpoint": save_path, "history": history, "out_dir": out_dir,

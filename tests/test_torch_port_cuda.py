@@ -6,7 +6,9 @@ the card, the serving artifact traced on the card (its ops, its replay
 against the live function), a grad-enabled forward launching both kernels
 and backpropagating (each op's backward against its plain backward, on
 every route), a few train steps on the card, ``eval_indices`` and
-``gw-grid`` on the card, and a distillation step's gradients.
+``gw-grid`` on the card, a distillation step's gradients, the tiled
+forward's kernel path against its plain path, a data-parallel train step
+on two gloo ranks sharing the card, and a one-rank NCCL group.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -16,6 +18,9 @@ is not installed:
 import importlib
 import json
 import os
+import queue as queue_mod
+import socket
+import sys
 
 import numpy as np
 import pytest
@@ -761,3 +766,161 @@ def test_grid_cli_on_the_card(cuda, tmp_path):
             "summary.json"} <= set(os.listdir(out))
     assert res["summary"]["n_cells"] == 4 and res["scan_caps"] == {512: 8}
     assert np.isfinite(res["summary"]["corr_macro_mean"])
+
+
+def test_tiled_apply_kernel_path_matches_plain_path(cuda, monkeypatch):
+    """An attention U-Net (f32) over L 3000 in tiles of 1024 with the
+    default halo (4 x 30 = 120): one forward of 3 tiles x 2 rows, whose
+    bottleneck is a ragged 316 tokens; kernel path against plain path, K1
+    launched 5 and K2 once."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel.seqtile import (
+        tiled_apply,
+    )
+
+    model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
+                        cond_in_ch=5, use_selfcond=True, use_attention=True,
+                        device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g, device=cuda))
+        x = torch.randn(2, 7, 3000, generator=g, device=cuda)
+        t = torch.tensor([10, 900], device=cuda)
+        reset_launch_counts()
+        got = tiled_apply(model, x, t, chunk=1024)
+        assert launch_counts() == {"conv_gn_silu": 5, "flash_attention": 1}
+        monkeypatch.setattr(unet, "fused_conv_gn_silu",
+                            fused_conv_gn_silu_reference)
+        monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
+        want = tiled_apply(model, x, t, chunk=1024)
+    assert got.shape == (2, 1, 3000)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-4   # f32: summation order through five blocks
+
+
+def _dp_train_parts(device):
+    tt = importlib.import_module(
+        "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
+        ".training.train")
+    cfg = tt.TrainConfig(batch_size=8, base_ch=16, time_dim=32, depth=2,
+                         use_attention=True, pred_type="v", bf16=False,
+                         t_min_frac=0.0, warmup_steps=2)
+    model, schedule, opt, lr, state, _ = tt.build_model_and_state(
+        cfg, 4, 10, 5, device)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(4)
+        state.params.flat.copy_(0.2 * torch.randn(state.params.flat.shape,
+                                                  generator=g))
+    return tt, cfg, model, schedule, opt, lr, state
+
+
+def _dp_batch(device):
+    g = torch.Generator().manual_seed(6)
+    B, L = 8, 1024
+    b = {"clean": 0.3 * torch.randn(B, 1, L, generator=g),
+         "noisy": torch.randn(B, 1, L, generator=g),
+         "sigma": torch.rand(B, generator=g) + 0.5,
+         "mask": torch.ones(B, 1, L),
+         "meta": torch.rand(B, 4, generator=g),
+         "t_inject": torch.randint(0, 1000, (B,), generator=g),
+         "eps_inject": torch.randn(B, 1, L, generator=g)}
+    return {k: v.to(device) for k, v in b.items()}
+
+
+def _dp_rank(rank, port, queue):
+    """A rank of the two-rank gloo group on the card: two f32 steps on its
+    rows of the global batch (the second with a NaN in rank 1's rows)."""
+    import torch.distributed as dist
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    cuda = torch.device("cuda", 0)
+    tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(cuda)
+    step = tt.make_train_step(model, schedule, cfg, opt, lr,
+                              pmesh.make_mesh())
+    batch = _dp_batch(cuda)
+    m = step(state, batch, 11, 0, 0.0, 1.0)
+    bad = dict(batch, clean=batch["clean"].clone())
+    bad["clean"][6, 0, 5] = float("nan")
+    m_bad = step(state, bad, 12, 0, 0.0, 1.0)
+    # numpy, not tensors: a tensor goes through a file descriptor that
+    # dies with this process
+    queue.put({"rank": rank, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "ok_bad": bool(m_bad["ok"]),
+               "flat": state.params.flat.cpu().numpy()})
+    queue.close()
+    queue.join_thread()
+    dist.barrier()
+    sys.stdout.flush()
+    os._exit(0)      # no interpreter teardown after gloo
+
+
+def test_data_parallel_step_on_two_gloo_ranks(cuda):
+    """Two ranks sharing the card (gloo: NCCL takes one rank a device), 4
+    rows each of a global batch of 8 with injected t and eps: the loss,
+    the gradient norm and the parameters of the single-process step within
+    1e-4 (f32, summation order), equal on both ranks; a NaN in rank 1's
+    rows is refused on both."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    q = mp.get_context("spawn").Queue()
+    procs = mp.start_processes(_dp_rank, args=(port, q), nprocs=2,
+                               join=False, start_method="spawn")
+    got = []
+    while len(got) < 2:
+        try:
+            got.append(q.get(timeout=5))
+        except queue_mod.Empty:
+            procs.join(timeout=0)       # raises if a rank failed
+    while not procs.join():
+        pass
+    r0, r1 = sorted(got, key=lambda r: r["rank"])
+    tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(cuda)
+    m = tt.make_train_step(model, schedule, cfg, opt, lr)(
+        state, _dp_batch(cuda), 11, 0, 0.0, 1.0)
+    want = state.params.flat.cpu().numpy()
+    for r in (r0, r1):
+        assert abs(r["loss"] - float(m["loss"])) <= 1e-4 * abs(float(m["loss"]))
+        assert abs(r["grad_norm"] - float(m["grad_norm"])) <= 1e-4 * float(
+            m["grad_norm"])
+        assert not r["ok_bad"]
+        assert np.abs(r["flat"] - want).max() <= 1e-4
+    np.testing.assert_array_equal(r0["flat"], r1["flat"])
+
+
+def test_nccl_one_rank_group(cuda):
+    """A one-process NCCL group: the collectives run on the card, and a
+    train step through the mesh equals the step without one bit for bit
+    (NCCL's average over one rank is the identity)."""
+    import torch.distributed as dist
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh()
+        assert dist.get_backend(mesh.group) == "nccl"
+        x = torch.arange(6.0, device=cuda).reshape(3, 2)
+        assert torch.equal(pmesh.mean_(mesh, x.clone()), x)
+        assert torch.equal(pmesh.gather_rows(mesh, x), x)
+        flats = []
+        for mesh_ in (mesh, None):
+            tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(cuda)
+            tt.make_train_step(model, schedule, cfg, opt, lr, mesh_)(
+                state, _dp_batch(cuda), 11, 0, 0.0, 1.0)
+            flats.append(state.params.flat)
+        assert torch.equal(flats[0], flats[1])
+    finally:
+        dist.destroy_process_group()

@@ -389,11 +389,16 @@ def test_reconstruct_matches_jax(pair, case):
 
 
 def test_reconstruct_refuses_tiling_and_mesh(pair):
+    """Tiling runs (two tiles of 128: finite, of the input's length); a
+    ``mesh`` that is not a ``parallel.mesh.Mesh`` is refused."""
     cfg = tsp.SamplerConfig(steps=2)
-    for kw in (dict(tiled_chunk=128), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="P10"):
-            tinf.reconstruct(pair.tm, pair.ts, pair.prep, cfg,
-                             torch.Generator(), device="cpu", **kw)
+    _, x0_white, _ = tinf.reconstruct(pair.tm, pair.ts, pair.prep, cfg,
+                                      torch.Generator().manual_seed(0),
+                                      device="cpu", tiled_chunk=128)
+    assert x0_white.shape == (L,) and np.isfinite(x0_white).all()
+    with pytest.raises(TypeError, match="make_mesh"):
+        tinf.reconstruct(pair.tm, pair.ts, pair.prep, cfg, torch.Generator(),
+                         device="cpu", tiled_chunk=128, mesh=object())
 
 
 # ---------------------------------------------------------------------------

@@ -134,7 +134,7 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tinf.reconstruct_batch(None, ts, np.zeros((1, 1, 8), np.float32),
                                np.ones(1), cfg, torch.Generator())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="make_mesh"):
         tinf.reconstruct_batch(None, ts, np.zeros((1, 1, 8), np.float32),
                                np.ones(1), cfg, torch.Generator(), mesh=object())
 

@@ -326,11 +326,11 @@ def test_train_end_to_end(tmp_path):
 def test_train_refuses_what_is_not_ported(tmp_path):
     ds = _tiny_dataset(4)
     for kw, match in ((dict(streaming=True), "StreamingDataset"),
-                      (dict(tp=2), "P10")):
+                      (dict(tp=2), r"P10\.1 \(tensor parallelism\)")):
         with pytest.raises(NotImplementedError, match=match):
             tt.train(tt.TrainConfig(**dict(BASE, model_dir=str(tmp_path),
                                            **kw)), dataset=ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.train(tt.TrainConfig(**dict(BASE, model_dir=str(tmp_path))),
                  dataset=ds, mesh=object(), device="cpu")
 
@@ -353,7 +353,8 @@ def test_parser_matches_jax():
 
 def test_train_imports_without_jax(tmp_path):
     """With jax, flax, optax, msgpack, h5py and the JAX package blocked, the
-    trainer and its CLI import, and ``gw-train --data synth:4`` trains and
+    trainer and its CLI, ``parallel.mesh``, ``parallel.seqtile``,
+    ``graft_entry`` and ``inference`` import, and ``gw-train --data synth:4`` trains and
     writes its checkpoint; an HDF5 corpus explains that it needs h5py."""
     code = textwrap.dedent(f"""
         import sys
@@ -363,6 +364,8 @@ def test_train_imports_without_jax(tmp_path):
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.training import train
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import train as cli
         from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
+        from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel import mesh, seqtile
+        from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import graft_entry, inference
         out = cli.main(["--data", "synth:4", "--model_dir", {str(tmp_path)!r},
                         "--epochs", "1", "--batch-size", "2", "--base_ch",
                         "8", "--time_dim", "16", "--depth", "2", "--device",
