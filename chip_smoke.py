@@ -136,15 +136,34 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              mesh=)`` over 3 tiles against their calls without a mesh;
              then ``dryrun_multichip(2, device="cuda")``.  The ranks
              record their launched shapes for the next phase.
-15. launched_shapes - every shape each kernel was launched at from phase
+15. data   - the data side through the CLIs in-process: gw-gen of the
+             README quickstart corpus as written (grid, 2000 samples, 10-90
+             Msun, spins +-0.8, SNR 8-30, fs 4096, every PSD saved, PN
+             engine) to a ragged ``.npz`` twin, a 16 kHz corpus (random,
+             256 samples, 20-50 Msun, buckets to 65536) and a low-mass
+             top-up (random, 256, 10-20 Msun), each with its stage times,
+             samples/s, buckets and peak device memory; gates on each: every
+             row's matched-filter SNR (float64 numpy) within 1e-3 of its
+             column, the noise whitened by the model PSD at sqrt(fs / 2);
+             the card's Welch PSDs against ``scipy.signal.welch`` on 64
+             rows; a chunk synthesised on the card against the CPU from the
+             same draws (the gate on the quickstart's most common bucket,
+             the 65536-sample buckets reported); gw-merge of the quickstart
+             and the top-up; the streaming batches bit-equal to the dense
+             loader's with shuffle off; gw-train --streaming on the merged
+             corpus at pn128 width (bf16, batch 16, chunks of 256, model
+             whitening, 2 epochs: samples/s, the bytes copied to the card a
+             epoch, ``peak_live_samples``, K1's launches); gw-infer on its
+             index 0.
+16. launched_shapes - every shape each kernel was launched at from phase
              4 on (recorded by wrapping the ops' launch bodies; the
              op_overhead phase and the attention model's monolithic
              forward of phase 14, whose K2 shape has no plain version that
              fits the card, are not recorded) that phase 3 did not check, held against its plain
              version in the same way; the coverage, and K1's time summed
-             over the blocks of each forward shape of each evals, distill
-             and parallel run.
-16. kernels - one ``{"kernels": [...]}`` line, then the last line
+             over the blocks of each forward shape (rows and length) of
+             each evals, distill, parallel and data run.
+17. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
@@ -2937,6 +2956,314 @@ def phase_parallel_ranks(torch, tmp, prep, shapes):
           "backend": "gloo", "seconds": time.perf_counter() - t0})
 
 
+# the data phase: the README quickstart's gw-gen corpus as written, a 16 kHz
+# corpus in attn16k's domain, a low-mass top-up merged into the first, and
+# gw-train --streaming on the merged corpus at pn128 width
+DATA_SPINS = ["--spin1-min", "-0.8", "--spin1-max", "0.8",
+              "--spin2-min", "-0.8", "--spin2-max", "0.8"]
+DATA_QUICKSTART = ["--mode", "grid", "--num-samples", "2000",
+                   "--mass1-min", "10", "--mass1-max", "90", "--mass2-min",
+                   "10", "--mass2-max", "90", "--grid-steps", "9",
+                   "--snr-min", "8", "--snr-max", "30", *DATA_SPINS,
+                   "--save-psd", "--shuffle"]
+DATA_16K = ["--mode", "random", "--num-samples", "256", "--sampling-rate",
+            "16384", "--mass1-min", "20", "--mass1-max", "50", "--mass2-min",
+            "20", "--mass2-max", "50", "--spin1-min", "-0.5", "--spin1-max",
+            "0.5", "--spin2-min", "-0.5", "--spin2-max", "0.5", "--snr-min",
+            "8", "--snr-max", "30", "--save-psd"]
+DATA_TOPUP = ["--mode", "random", "--num-samples", "256", "--mass1-min", "10",
+              "--mass1-max", "20", "--mass2-min", "10", "--mass2-max", "20",
+              "--snr-min", "8", "--snr-max", "30", *DATA_SPINS, "--save-psd",
+              "--shuffle", "--seed", "124"]
+DATA_TRAIN_EPOCHS = 2
+STREAM_CONFIG = "pn128 stream"
+DATA_TRAIN_MODEL = ["--base_ch", "128", "--time_dim", "128", "--depth", "3"]
+DATA_STREAM_CHUNK = 256
+DATA_WELCH_ROWS = 64
+DATA_CHUNK_ROWS = 8            # the card-against-CPU chunk, longest bucket
+SNR_RTOL = 1e-3
+# Welch against scipy (float64) on the bins at or above f_lower: rtol 2e-3
+# (the JAX package's bar) plus 1e-6 of the row's largest bin, because a
+# float32 rfft's rounding reaches about 1e-7 of its largest bin (2.3e-7
+# measured on the CPU) and the aLIGO PSD spans 1e6 from its minimum to its
+# maximum in band
+WELCH_RTOL = 2e-3
+WELCH_ATOL_REL = 1e-6
+
+
+def corpus_gates(torch, path, name):
+    """The repo's own checks of a gw-gen corpus: every row's matched-filter
+    SNR in float64 numpy from the stored signal and model PSD (f >=
+    f_lower) within ``SNR_RTOL`` of its snr column; the noise whitened by
+    the model PSD has std sqrt(fs / 2) times sqrt(in-band share) (median
+    within 2%, every row within 10%); finite rows of the stated lengths."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data.pipeline import (
+        whiten_weight_np,
+    )
+
+    with hdf5io.open_corpus(path, "", "") as f:
+        fs = float(f.attrs["sampling_rate"])
+        f_lower = float(f["psd_f_lower"][0])
+        snr_col = np.asarray(f["snr"][:], np.float64)
+        lengths = np.asarray(f["lengths"][:])
+        snr_err, std_ratio = [], []
+        for i in range(len(lengths)):
+            h = np.asarray(f["signal"][i], np.float64)
+            noise = np.asarray(f["noise"][i], np.float64)
+            P = np.asarray(f["psd_model"][i], np.float64)
+            n = len(h)
+            check(n == lengths[i] and len(P) == n // 2 + 1
+                  and np.isfinite(h).all() and np.isfinite(noise).all(),
+                  f"{name} row {i}: shape or values")
+            freqs = np.fft.rfftfreq(n, 1.0 / fs)
+            valid = (freqs >= f_lower) & (P > 0)
+            hf = np.fft.rfft(h) / fs
+            snr = np.sqrt(4.0 * fs / n * np.sum(
+                np.abs(hf[valid]) ** 2 / P[valid]))
+            snr_err.append(abs(snr / snr_col[i] - 1.0))
+            w = np.fft.irfft(np.fft.rfft(noise) * whiten_weight_np(P), n=n)
+            share = valid.sum() / len(P)
+            std_ratio.append(float(np.std(w) / np.sqrt(fs / 2.0 * share)))
+    std_ratio = np.asarray(std_ratio)
+    check(max(snr_err) <= SNR_RTOL,
+          f"{name}: matched-filter SNR off by {max(snr_err):.2e}")
+    check(abs(np.median(std_ratio) - 1.0) <= 0.02
+          and np.all(np.abs(std_ratio - 1.0) <= 0.10),
+          f"{name}: whitened noise std ratio {std_ratio.min():.3f} to "
+          f"{std_ratio.max():.3f}")
+    return {"rows": int(len(lengths)), "snr_max_rel_err": float(max(snr_err)),
+            "whitened_noise_std_over_sqrt_fs_2": {
+                "median": float(np.median(std_ratio)),
+                "min": float(std_ratio.min()), "max": float(std_ratio.max())},
+            "lengths": {str(k): int(v) for k, v in zip(
+                *np.unique(lengths, return_counts=True))}}
+
+
+def welch_gate(torch, path):
+    """The Welch PSDs the card computed for gw-gen against
+    ``scipy.signal.welch`` in float64 on the first ``DATA_WELCH_ROWS`` rows,
+    on the bins at or above f_lower."""
+    from scipy.signal import welch as scipy_welch
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+
+    worst = 0.0
+    with hdf5io.open_corpus(path, "", "") as f:
+        fs = float(f.attrs["sampling_rate"])
+        nperseg = int(f.attrs["psd_welch_nperseg"])
+        f_lower = float(f["psd_f_lower"][0])
+        for i in range(DATA_WELCH_ROWS):
+            y = np.asarray(f["noisy"][i], np.float64)
+            fw, Pw = scipy_welch(y, fs=fs, nperseg=min(nperseg, len(y)))
+            got_f = np.asarray(f["psd_welch_freqs"][i])
+            got = np.asarray(f["psd_welch"][i])
+            check(np.allclose(got_f, fw, rtol=1e-6), f"Welch grid, row {i}")
+            band = fw >= f_lower
+            bound = WELCH_RTOL * Pw[band] + WELCH_ATOL_REL * Pw.max()
+            err = np.abs(got[band] - Pw[band])
+            check(np.all(err <= bound), f"Welch row {i}: {np.max(err / bound)}"
+                  " of the bound")
+            worst = max(worst, float(np.max(np.abs(got[band] / Pw[band] - 1))))
+    return {"rows": DATA_WELCH_ROWS, "max_rel_err_in_band": worst,
+            "rtol": WELCH_RTOL, "atol_of_row_max": WELCH_ATOL_REL}
+
+
+def chunk_card_vs_cpu(torch, argv, bucket):
+    """``DATA_CHUNK_ROWS`` specs of one bucket of ``argv``'s corpus (the
+    longest, or the one with the most samples) synthesised by ``generate``
+    on the card and on the CPU from the same normal draws (made on the CPU,
+    then moved); the largest difference of each output over its peak."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import gen
+
+    args = gen.build_parser().parse_args(argv + ["--output-path", "x.npz"])
+    args.f_taper_frac = 0.85
+    specs = gen.build_specs(args, np.random.default_rng(args.seed))
+    specs = specs[:args.num_samples]
+    buckets = gen.bucket_specs(specs, args)
+    n = (max(buckets) if bucket == "longest"
+         else max(buckets, key=lambda k: len(buckets[k])))
+    sub = [specs[i] for i in buckets[n][:DATA_CHUNK_ROWS]]
+    normals = gen._normals
+
+    def cpu_draws(seed, device):
+        g = torch.Generator().manual_seed(seed)
+        return lambda rows, nf: tuple(
+            torch.randn(rows, nf, generator=g).to(device) for _ in range(2))
+
+    gen._normals = cpu_draws
+    try:
+        t0 = time.perf_counter()
+        card = gen.generate(sub, args, "cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = gen.generate(sub, args, "cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        gen._normals = normals
+    errs = {k: max(float(np.abs(card[i][k] - cpu[i][k]).max()
+                         / np.abs(cpu[i][k]).max()) for i in cpu)
+            for k in ("signal", "noise", "psd")}
+    return {"bucket": bucket, "n": n, "rows": len(sub),
+            "max_err_of_peak": errs,
+            "within_bars": errs["signal"] <= 3e-3 and errs["noise"] <= 1e-5
+            and errs["psd"] <= 1e-5, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_data(torch, tmp):
+    """The data side on the card, through the CLIs in-process: gw-gen of
+    the README quickstart corpus (grid, 2000 samples, 10-90 Msun, spins
+    +-0.8, fs 4096, every PSD saved, a ragged .npz), a 16 kHz corpus, a
+    low-mass top-up; gw-merge of the first and the top-up; gw-train
+    --streaming on the merged corpus at pn128 width (bf16, batch 16,
+    chunks of 256, model whitening, 2 epochs, K1 counted); gw-infer on its
+    index 0.  Gates: each corpus's SNR and whitened noise, the card's Welch
+    against scipy, one chunk of the longest bucket card against CPU, the
+    streaming batches bit-equal to the dense loader's (shuffle off).
+    Returns the launches of the training and infer runs, and the merged
+    corpus's bucket lengths."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import gen
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import infer as infer_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import merge
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import train as train_cli
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline as dpipe
+
+    paths = {k: os.path.join(tmp, f"{k}.npz")
+             for k in ("quickstart", "fs16k", "topup", "merged")}
+    corpora = {}
+    for name, argv in (("quickstart", DATA_QUICKSTART), ("fs16k", DATA_16K),
+                       ("topup", DATA_TOPUP)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = gen.main(argv + ["--output-path", paths[name]])
+        wall = time.perf_counter() - t0
+        rec = {"phase": "data_gen", "corpus": name, "argv": " ".join(argv),
+               "samples": summary["n"], "buckets": summary["buckets"],
+               "seconds": summary["seconds"], "wall_s": wall,
+               "samples_per_s": summary["n"] / wall,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "file_mb": os.path.getsize(paths[name]) / 1e6}
+        rec["gates"] = corpus_gates(torch, paths[name], name)
+        corpora[name] = rec
+        emit(rec)
+    emit({"phase": "data_welch", "corpus": "quickstart",
+          **welch_gate(torch, paths["quickstart"])})
+    # the gate: a chunk of the quickstart's most common bucket; the longest
+    # buckets (65536 samples) are reported against the same bars
+    for name, argv, bucket in (("quickstart", DATA_QUICKSTART, "largest"),
+                               ("quickstart", DATA_QUICKSTART, "longest"),
+                               ("fs16k", DATA_16K, "longest")):
+        rec = chunk_card_vs_cpu(torch, argv, bucket)
+        emit({"phase": "data_chunk_card_vs_cpu", "corpus": name, **rec})
+        if bucket == "largest":
+            check(rec["within_bars"], f"card against CPU: {rec}")
+
+    t0 = time.perf_counter()
+    merge.main(["--output-path", paths["merged"], paths["quickstart"],
+                paths["topup"]])
+    merge_s = time.perf_counter() - t0
+    n_merged = hdf5io.num_samples(paths["merged"])
+    check(n_merged == corpora["quickstart"]["samples"]
+          + corpora["topup"]["samples"], f"gw-merge: {n_merged} rows")
+    with hdf5io.open_corpus(paths["merged"], "", "") as f:
+        check(f["noisy"].ragged and "config_args" in f.attrs
+              and "merged_from" in f.attrs, "the merged twin")
+    emit({"phase": "data_merge", "rows": n_merged, "seconds": merge_s,
+          "file_mb": os.path.getsize(paths["merged"]) / 1e6})
+
+    # streaming against dense, shuffle off: bit-equal batches
+    kw = dict(whiten=True, whiten_mode="model")
+    stream = dpipe.StreamingDataset(paths["merged"], chunk=DATA_STREAM_CHUNK,
+                                    **kw)
+    t0 = time.perf_counter()
+    dense = dpipe.prepare_dataset(paths["merged"], **kw)
+    dense_s = time.perf_counter() - t0
+    check(stream.bucket_lengths == dense.bucket_lengths,
+          "streaming and dense buckets")
+    n_b = 0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)         # not drawn from: no shuffle
+    for a, b in zip(dpipe.iterate_batches(stream, TRAIN_BATCH, rng,
+                                          shuffle=False),
+                    dpipe.iterate_batches(dense, TRAIN_BATCH, rng,
+                                          shuffle=False)):
+        check(all(np.array_equal(a[k], b[k]) for k in b),
+              f"streaming batch {n_b} differs from the dense loader's")
+        n_b += 1
+    stream_s = time.perf_counter() - t0
+    n_batches = stream.num_batches(TRAIN_BATCH)
+    check(n_b == n_batches == dpipe.num_batches(dense, TRAIN_BATCH),
+          f"batch counts: {n_b}, {n_batches}")
+    stream_buckets = stream.bucket_lengths
+    emit({"phase": "data_stream_vs_dense", "batches": n_b, "bit_equal": True,
+          "buckets": stream.bucket_lengths, "dense_prepare_s": dense_s,
+          "stream_epoch_s": stream_s,
+          "peak_live_samples": stream.peak_live_samples})
+    del dense, stream
+
+    # gw-train --streaming at pn128 width; the coins the run will draw
+    tt = _train_module()
+    d = os.path.join(tmp, "stream_train")
+    log = os.path.join(tmp, "stream_train.jsonl")
+    argv = ["--data", paths["merged"], "--streaming", "--stream-chunk",
+            str(DATA_STREAM_CHUNK), *DATA_TRAIN_MODEL,
+            "--batch-size", str(TRAIN_BATCH), "--whiten", "1",
+            "--whiten_mode", "model", "--pred_type", "v", "--t_min_frac", "0",
+            "--warmup_steps", "4", "--epochs", str(DATA_TRAIN_EPOCHS),
+            "--model_dir", d, "--log-jsonl", log, "--device", "cuda"]
+    steps = n_batches * DATA_TRAIN_EPOCHS
+    key = tt.split_key(tt.key_from_seed(42))[0]
+    heads = 0
+    for _ in range(steps):
+        key, k = tt.split_key(key)
+        heads += tt._uniform(k) < 0.5
+    torch.cuda.reset_peak_memory_stats()
+    out, train_l, train_s = run_counted(
+        torch, lambda: train_cli.main(argv),
+        {"conv_gn_silu": 7 * (steps + heads), "flash_attention": 0},
+        "pn128 streaming train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with open(log) as fh:
+        ends = [r for r in map(json.loads, fh) if r["phase"] == "epoch_end"]
+    hist = [h["avg_per_sample"] for h in out["history"]]
+    check(len(ends) == DATA_TRAIN_EPOCHS and all(np.isfinite(hist))
+          and ends[0]["h2d_bytes"] > 0 and ends[1]["h2d_bytes"] == 0,
+          f"gw-train --streaming: {ends}")
+    emit({"phase": "data_train_stream", "config": "pn128 bf16",
+          "rows": n_merged, "batch": TRAIN_BATCH, "epochs": DATA_TRAIN_EPOCHS,
+          "steps": steps, "selfcond_steps": int(heads), "seconds": train_s,
+          "launches": train_l, "avg_per_sample": hist,
+          "samples_per_sec": [e["samples_per_sec"] for e in ends],
+          "h2d_bytes": [e["h2d_bytes"] for e in ends],
+          "peak_live_samples": ends[-1]["peak_live_samples"],
+          "peak_mem_gb": peak})
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
+        build_t_schedule,
+    )
+
+    outdir = os.path.join(tmp, "stream_infer")
+    forwards = len(build_t_schedule(1000, INFER_STEPS, None))
+    _, infer_l, infer_s = run_counted(
+        torch, lambda: infer_cli.main([
+            "--input-h5", paths["merged"], "--index", "0", "--model",
+            out["checkpoint"], "--outdir", outdir, "--steps",
+            str(INFER_STEPS), "--device", "cuda"]),
+        {"conv_gn_silu": 7 * forwards, "flash_attention": 0},
+        "pn128 streaming infer cli")
+    recon = [f for f in os.listdir(outdir) if f.startswith("recon_ddim")]
+    rec_arr = np.load(os.path.join(outdir, recon[0]))
+    check(len(recon) == 1 and rec_arr.shape[0]
+          == hdf5io.load_measurement(paths["merged"], 0)[0].shape[0]
+          and bool(np.isfinite(rec_arr).all()), "gw-infer on the merged twin")
+    emit({"phase": "data_infer", "index": 0, "L": int(rec_arr.shape[0]),
+          "seconds": infer_s, "launches": infer_l})
+    return ({"pn128 streaming train": train_l,
+             "pn128 streaming infer cli": infer_l}, stream_buckets)
+
+
 class LaunchShapes:
     """While installed (``with``), the input shapes each kernel is launched
     at: it wraps each kernel module's launch body (``_launch``, which the
@@ -3075,11 +3402,13 @@ def kernels_line(k1, k2, launches, by_run, coverage):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
     of each main path at its serving batch, K2 at attn16k's serving shape
     (both also at the infer batch of 8 rows and the training batch of 16,
-    K2 at the grid's batch, K1 at the bench's shapes; both at every shape
-    the evals and distill runs launched, by run); launches summed over the
-    main-path runs (serving, infer, infer CLI, the artifact's replay,
-    attn16k training, pn128 gw-train, the sweeps, the grids, gw-distill and
-    the grid of its student, the bench and ``entry()``)."""
+    K2 at the grid's batch, K1 at the bench's shapes and at the streaming
+    train's 16 rows at each bucket length; both at every shape the evals
+    and distill runs launched, by run); launches summed over the main-path
+    runs (serving, infer, infer CLI, the artifact's replay, attn16k
+    training, pn128 gw-train, the sweeps, the grids, gw-distill and the
+    grid of its student, the bench and ``entry()``, the parallel runs, the
+    streaming gw-train and its gw-infer)."""
     def bf16_at(config, rows):
         return [r for r in k1 if r["config"] == config
                 and r["dtype"] == "bfloat16" and r["rows"] == rows]
@@ -3120,6 +3449,9 @@ def kernels_line(k1, k2, launches, by_run, coverage):
          "two_pass_floor_ms": k1_total["two_pass_floor_ms"],
          "by_path": k1_paths, "by_infer_path": k1_infer,
          "by_train_path_and_bench": k1_extra,
+         "by_stream_bucket": {r["config"].split(" L")[-1]: k1_sum(
+             [q for q in k1 if q["config"] == r["config"]])
+             for r in k1 if r["config"].startswith(STREAM_CONFIG)},
          "by_eval_run": by_run["conv_gn_silu"],
          "launched_shapes": coverage["conv_gn_silu"],
          "shapes": "the 7 ConvBlocks of one forward of each main path, bf16: "
@@ -3258,6 +3590,14 @@ def main():
              launches["attn16k tiled infer cli"]) = phase_parallel_tiles(
                 torch, tmp, shapes)
             phase_parallel_ranks(torch, tmp, prep, shapes)
+        with tempfile.TemporaryDirectory() as tmp:
+            data_launches, data_buckets = phase_data(torch, tmp)
+            launches.update(data_launches)
+    # K1 at the streaming train's forward shapes: 16 rows at each bucket
+    for L in data_buckets:
+        shapes_L = convblock_shapes(UNet1D(**FLAGSHIP, device="cuda"), L)
+        k1 += phase_kernel(torch, f"{STREAM_CONFIG} L{L}", shapes_L,
+                           ((torch.bfloat16, TRAIN_BATCH),))
     by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2)
 
     emit(kernels_line(k1, k2, launches, by_run, coverage))

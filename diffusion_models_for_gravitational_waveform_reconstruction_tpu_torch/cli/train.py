@@ -9,8 +9,9 @@ package's ``cli/train.py``: the same flags and defaults, and
 ``cpu``.  ``--num_workers`` and ``--amp`` are accepted and change nothing
 (bf16 activations are the default; ``--no-bf16`` turns them off).
 ``--data synth:N`` synthesises N samples on the device; any other ``--data``
-is an HDF5 corpus, which needs h5py, or its ``.npz`` twin.  ``--streaming``
-and ``--tp`` > 1 are not ported and raise.
+is an HDF5 corpus, which needs h5py, or its ``.npz`` twin (either form).
+``--streaming`` reads it a chunk of ``--stream-chunk`` samples at a time;
+``--tp`` > 1 is not ported and raises.
 
 Data parallelism runs one process per GPU:
 
@@ -86,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_lr_scale", type=float, default=0.1)
     p.add_argument("--whiten", type=int, default=0)
     p.add_argument("--streaming", action="store_true",
-                   help="Lazy chunked HDF5 loading (not ported: raises).")
+                   help="Lazy chunked loading of the HDF5 corpus or its "
+                        ".npz twin (corpora larger than host memory).")
     p.add_argument("--no-device-data", action="store_true",
                    help="Keep the dataset on the host and copy each batch "
                         "to the device.")

@@ -385,6 +385,347 @@ def _batch_order(ds, batch_size: int, rng: np.random.Generator,
     return order
 
 
+class StreamingDataset:
+    """A corpus larger than host memory, loaded and whitened a chunk at a
+    time: an HDF5 file (needs h5py) or its ``.npz`` twin, of either form,
+    read by row ranges.
+
+    - One init scan reads ``lengths`` (or the rows' lengths) and the scalar
+      metadata, and assigns every sample to a static power-of-two bucket;
+      each bucket's indices stay sorted, so a chunk reads near rows.
+    - Iteration prepares one chunk of ``chunk`` samples at a time through
+      the dense path's :func:`_prep_sample` (bit-equal samples), keeping an
+      LRU of ``cache_chunks`` prepared chunks; ``peak_live_samples`` records
+      the most samples it held at once.
+    - Shuffling is two-level (the chunk order, then within each chunk), with
+      the numpy ``rng`` draws of the JAX package's ``StreamingDataset``; a
+      bucket's short tail is wrap-filled from its first chunk.
+
+    It has the part of :class:`PreparedDataset`'s interface the trainer uses
+    (``bucket_lengths``, ``meta_scale``, ``n``, ``fs``, ``c_meta``,
+    ``whiten_mode_resolved``, ``num_batches``, ``iter_batches``), and
+    :meth:`iter_batches_device` keeps chunks resident on the device."""
+
+    def __init__(
+        self,
+        h5_path: str,
+        *,
+        whiten: bool = False,
+        whiten_mode: str = "auto",
+        sigma_mode: str = "std",
+        sigma_fixed: float = 1.0,
+        include_metadata: bool = True,
+        mass_scale: Optional[float] = None,
+        bucket_lengths: Optional[List[int]] = None,
+        allow_no_signal: bool = False,
+        max_samples: Optional[int] = None,
+        chunk: int = 512,
+        cache_chunks: int = 2,
+    ):
+        hdf5io._needs_h5py_for(h5_path, "an .npz corpus")
+        self.path = hdf5io.resolve_h5_path(h5_path)
+        self.whiten = whiten
+        self.sigma_mode = sigma_mode
+        self.sigma_fixed = sigma_fixed
+        self.include_metadata = include_metadata
+        self.chunk = int(chunk)
+        self.cache_chunks = int(cache_chunks)
+        self.meta_scale = hdf5io.compute_meta_scale(self.path)
+        self.M = float(mass_scale if mass_scale is not None
+                       else self.meta_scale.get("M", 80.0))
+        self.c_meta = 4 if include_metadata else 0
+        self._cache: Dict[tuple, Dict[str, np.ndarray]] = {}
+        self._cache_order: list = []
+        self.peak_live_samples = 0
+        self.bytes_read = 0          # array bytes read from an .npz twin
+        self.h2d_bytes_epoch = 0
+        self._dev_chunks: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self._dev_bytes = 0
+
+        with self._open() as f:
+            if "noisy" not in f:
+                raise KeyError("HDF5 must have 'noisy' dataset")
+            n_total = f["noisy"].shape[0]
+            if "signal" not in f and not allow_no_signal:
+                raise KeyError("missing 'signal' dataset (allow_no_signal=False)")
+            self._has_signal = "signal" in f
+            self.fs = hdf5io.read_sampling_rate(f)
+            if "lengths" in f:
+                lengths = np.asarray(f["lengths"][:], np.int64)
+            elif isinstance(f, hdf5io._NpzCorpus):
+                lengths = f.row_lengths("noisy")
+            else:
+                # one row at a time: slicing the whole variable-length
+                # dataset would load the corpus
+                noisy_ds = f["noisy"]
+                lengths = np.fromiter(
+                    (len(noisy_ds[i]) for i in range(n_total)),
+                    dtype=np.int64, count=n_total)
+            self._psd_key = "psd_model" if "psd_model" in f else (
+                "psd" if "psd" in f else None)
+            self._psd_grid = None
+            if self._psd_key is None and all(
+                    k in f for k in ("psd_len", "psd_df", "psd_f_lower")):
+                self._psd_grid = tuple(np.asarray(f[k][:], np.float64)
+                                       for k in ("psd_len", "psd_df",
+                                                 "psd_f_lower"))
+            has_model = self._psd_key is not None or self._psd_grid is not None
+            self._has_welch = "psd_welch" in f and "psd_welch_freqs" in f
+            self.whiten_mode = _resolve_whiten_mode(whiten_mode, has_model,
+                                                    self._has_welch)
+            self.whiten_mode_resolved = _check_whiten_domain(
+                self.whiten_mode, has_model, self._has_welch, whiten,
+                self.path)
+            self._meta_cols = {k: (np.asarray(f[k][:], np.float64)
+                                   if k in f else None)
+                               for k in ("mass1", "mass2", "spin1z", "spin2z")}
+
+        self.n = int(n_total if max_samples is None
+                     else min(n_total, int(max_samples)))
+        lengths = lengths[:self.n]
+        if bucket_lengths is not None:
+            bl_sorted = sorted(bucket_lengths)
+            Lb_of = np.empty(self.n, np.int64)
+            for i, L in enumerate(lengths):
+                fits = [b for b in bl_sorted if b >= L]
+                if not fits:
+                    raise ValueError(
+                        f"sample length {L} exceeds all bucket lengths")
+                Lb_of[i] = fits[0]
+        else:
+            Lb_of = np.array([next_pow2(int(L)) for L in lengths], np.int64)
+        self._bucket_idx: Dict[int, np.ndarray] = {
+            int(Lb): np.nonzero(Lb_of == Lb)[0] for Lb in np.unique(Lb_of)}
+
+    def _open(self):
+        return hdf5io.open_corpus(self.path, "streaming an HDF5 corpus",
+                                  "an .npz corpus")
+
+    @property
+    def bucket_lengths(self) -> List[int]:
+        return sorted(self._bucket_idx.keys())
+
+    def num_batches(self, batch_size: int, drop_remainder: bool = False) -> int:
+        total = 0
+        for Lb in self.bucket_lengths:
+            N = len(self._bucket_idx[Lb])
+            total += (N // batch_size if drop_remainder
+                      else -(-N // batch_size))
+        return total
+
+    def _load_chunk(self, Lb: int, ci: int) -> Dict[str, np.ndarray]:
+        """Chunk ``ci`` of bucket ``Lb``, prepared (whitened, sigma, meta,
+        left-padded) and kept in the LRU."""
+        key = (Lb, ci)
+        if key in self._cache:
+            return self._cache[key]
+        idx = self._bucket_idx[Lb][ci * self.chunk:(ci + 1) * self.chunk]
+        cols: Dict[str, list] = {"clean": [], "noisy": [], "mask": [],
+                                 "sigma": [], "meta": [], "index": []}
+        with self._open() as f:
+            noisy_ds = f["noisy"]
+            sig_ds = f["signal"] if self._has_signal else None
+            psd_ds = f[self._psd_key] if self._psd_key else None
+            pw_ds = f["psd_welch"] if self._has_welch else None
+            pwf_ds = f["psd_welch_freqs"] if self._has_welch else None
+            for i in idx:
+                y = np.asarray(noisy_ds[i], np.float32)
+                x = (np.asarray(sig_ds[i], np.float32) if sig_ds is not None
+                     else np.zeros_like(y))
+                if psd_ds is not None:
+                    P_model = np.asarray(psd_ds[i], np.float64)
+                elif self._psd_grid is not None:
+                    pl, pdf, pfl = self._psd_grid
+                    P_model = hdf5io.derive_model_psd_np(pl[i], pdf[i], pfl[i])
+                else:
+                    P_model = None
+                y, x, sigma = _prep_sample(
+                    y, x, self.fs, whiten=self.whiten,
+                    whiten_mode=self.whiten_mode_resolved,
+                    sigma_mode=self.sigma_mode, sigma_fixed=self.sigma_fixed,
+                    psd_model=P_model,
+                    psd_welch=(np.asarray(pw_ds[i], np.float64)
+                               if pw_ds is not None else None),
+                    psd_welch_freqs=(np.asarray(pwf_ds[i], np.float64)
+                                     if pwf_ds is not None else None))
+                if self.include_metadata:
+                    def _get(name, i=i):
+                        col = self._meta_cols.get(name)
+                        return float(col[i]) if col is not None else 0.0
+
+                    meta = np.array([_get("mass1") / max(self.M, 1e-9),
+                                     _get("mass2") / max(self.M, 1e-9),
+                                     _get("spin1z"), _get("spin2z")],
+                                    np.float32)
+                else:
+                    meta = np.zeros(0, np.float32)
+                L = len(y)
+                pad = Lb - L
+                cols["clean"].append(np.pad(x.astype(np.float32), (pad, 0)))
+                cols["noisy"].append(np.pad(y.astype(np.float32), (pad, 0)))
+                cols["mask"].append(np.pad(np.ones(L, np.float32), (pad, 0)))
+                cols["sigma"].append(sigma)
+                cols["meta"].append(meta)
+                cols["index"].append(int(i))
+            self.bytes_read += getattr(f, "bytes_read", 0)
+
+        out = {
+            "clean": np.stack(cols["clean"])[:, None, :],
+            "noisy": np.stack(cols["noisy"])[:, None, :],
+            "mask": np.stack(cols["mask"])[:, None, :],
+            "sigma": np.asarray(cols["sigma"], np.float32),
+            "meta": (np.stack(cols["meta"]) if self.include_metadata
+                     else np.zeros((len(idx), 0), np.float32)),
+            "index": np.asarray(cols["index"], np.int64),
+        }
+        self._cache[key] = out
+        self._cache_order.append(key)
+        while len(self._cache_order) > self.cache_chunks:
+            self._cache.pop(self._cache_order.pop(0), None)
+        live = sum(v["sigma"].shape[0] for v in self._cache.values())
+        self.peak_live_samples = max(self.peak_live_samples, live)
+        return out
+
+    def _plans(self, rng: np.random.Generator, shuffle: bool) -> List[tuple]:
+        """(bucket length, chunk order) per bucket, in the epoch's order."""
+        plans = []
+        for Lb in self.bucket_lengths:
+            n_chunks = -(-len(self._bucket_idx[Lb]) // self.chunk)
+            plans.append((Lb, rng.permutation(n_chunks) if shuffle
+                          else np.arange(n_chunks)))
+        if shuffle:
+            rng.shuffle(plans)
+        return plans
+
+    def iter_batches(
+        self,
+        batch_size: int,
+        rng: np.random.Generator,
+        shuffle: bool = True,
+        drop_remainder: bool = False,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Static-shape numpy batches, two-level shuffled, bounded memory."""
+        for Lb, chunk_order in self._plans(rng, shuffle):
+            pool: Optional[Dict[str, np.ndarray]] = None
+            for ci in chunk_order:
+                c = self._load_chunk(Lb, int(ci))
+                if shuffle:
+                    perm = rng.permutation(c["sigma"].shape[0])
+                    c = {k: v[perm] for k, v in c.items()}
+                pool = (c if pool is None else
+                        {k: np.concatenate([pool[k], c[k]]) for k in c})
+                while pool["sigma"].shape[0] >= batch_size:
+                    yield {k: v[:batch_size] for k, v in pool.items()}
+                    pool = {k: v[batch_size:] for k, v in pool.items()}
+            n_left = pool["sigma"].shape[0] if pool is not None else 0
+            if n_left and not drop_remainder:
+                first = self._load_chunk(Lb, int(chunk_order[0]))
+                reps = -(-(batch_size - n_left) // first["sigma"].shape[0])
+                yield {k: np.concatenate(
+                    [pool[k]] + [first[k]] * reps)[:batch_size]
+                    for k in pool}
+
+    def iter_batches_device(
+        self,
+        batch_size: int,
+        rng: np.random.Generator,
+        shuffle: bool = True,
+        drop_remainder: bool = False,
+        budget_bytes: int = 4 << 30,
+        device=None,
+    ) -> Iterator[Dict[str, torch.Tensor]]:
+        """The batches of :meth:`iter_batches` (the same ``rng`` draws, the
+        same rows; no 'index'), gathered on ``device`` (default: the GPU)
+        from chunks resident there.
+
+        Each chunk is prepared on the host (the LRU still bounds host
+        memory), copied to the device once and kept there while the
+        resident chunks fit ``budget_bytes``, so epochs after the first
+        copy nothing; chunks over the budget are copied again every epoch.
+        ``h2d_bytes_epoch`` is the bytes the latest epoch copied."""
+        from ..utils.device import resolve_device
+
+        dev = resolve_device(device)
+        self.h2d_bytes_epoch = 0
+
+        def get_chunk(Lb, ci):
+            key = (Lb, ci)
+            if key in self._dev_chunks:
+                return self._dev_chunks[key]
+            host = self._load_chunk(Lb, ci)
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                   for k, v in host.items() if k != "index"}
+            nbytes = sum(v.nbytes for k, v in host.items() if k != "index")
+            self.h2d_bytes_epoch += nbytes
+            if self._dev_bytes + nbytes <= budget_bytes:
+                self._dev_chunks[key] = out
+                self._dev_bytes += nbytes
+            return out
+
+        for Lb, chunk_order in self._plans(rng, shuffle):
+            pool = None
+            for ci in chunk_order:
+                c = get_chunk(Lb, int(ci))
+                if shuffle:
+                    perm = rng.permutation(int(c["sigma"].shape[0]))
+                    sel = torch.from_numpy(perm).to(dev)
+                    c = {k: v.index_select(0, sel) for k, v in c.items()}
+                pool = (c if pool is None else
+                        {k: torch.cat([pool[k], c[k]]) for k in c})
+                while pool["sigma"].shape[0] >= batch_size:
+                    yield {k: v[:batch_size] for k, v in pool.items()}
+                    pool = {k: v[batch_size:] for k, v in pool.items()}
+            n_left = int(pool["sigma"].shape[0]) if pool is not None else 0
+            if n_left and not drop_remainder:
+                first = get_chunk(Lb, int(chunk_order[0]))
+                reps = -(-(batch_size - n_left) // int(first["sigma"].shape[0]))
+                yield {k: torch.cat([pool[k]] + [first[k]] * reps)[:batch_size]
+                       for k in pool}
+
+
+def prefetch_to_device(batch_iter, size: int = 2, device=None):
+    """Numpy batches (less 'index') as tensors on ``device`` (default: the
+    GPU), ``size`` batches in flight.  On the GPU each batch is pinned and
+    copied without blocking on a side stream, so the copy of batch i + 1
+    overlaps the step on batch i; the compute stream waits for the copy of
+    the batch it receives."""
+    import collections
+
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def put(batch):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items() if k != "index"}
+        if side is None:
+            return host, None
+        with torch.cuda.stream(side):
+            out = {k: v.pin_memory().to(dev, non_blocking=True)
+                   for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    def take(item):
+        out, done = item
+        if done is not None:
+            cur = torch.cuda.current_stream(dev)
+            cur.wait_event(done)
+            for v in out.values():
+                v.record_stream(cur)
+        return out
+
+    queue = collections.deque()
+    for batch in batch_iter:
+        queue.append(put(batch))
+        if len(queue) > size:
+            yield take(queue.popleft())
+    while queue:
+        yield take(queue.popleft())
+
+
 def iterate_batches(
     ds,
     batch_size: int,
@@ -393,7 +734,12 @@ def iterate_batches(
     drop_remainder: bool = False,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Static-shape numpy batches across buckets for one epoch, in the order
-    and with the ``rng`` draws of the JAX package's ``iterate_batches``."""
+    and with the ``rng`` draws of the JAX package's ``iterate_batches``; a
+    :class:`StreamingDataset` yields its own."""
+    if hasattr(ds, "iter_batches"):
+        yield from ds.iter_batches(batch_size, rng, shuffle=shuffle,
+                                   drop_remainder=drop_remainder)
+        return
     for Lb, sel in _batch_order(ds, batch_size, rng, shuffle, drop_remainder):
         b = ds.buckets[Lb]
         yield {k: v[sel] for k, v in b.items()}
@@ -402,7 +748,9 @@ def iterate_batches(
 def upload_buckets(ds, device, budget_bytes: int = 10 << 30):
     """Every bucket's arrays (all but 'index') as tensors on ``device``, once:
     {L: {key: tensor}}; None when the dataset's arrays exceed
-    ``budget_bytes``."""
+    ``budget_bytes`` or it is a :class:`StreamingDataset`."""
+    if not hasattr(ds, "buckets"):
+        return None
     total = sum(v.nbytes for b in ds.buckets.values() for v in b.values()
                 if isinstance(v, np.ndarray))
     if total > budget_bytes:

@@ -65,7 +65,8 @@ def chirp_mass(m1, m2):
 
 def isco_frequency(m1, m2):
     """Schwarzschild ISCO GW frequency for total mass M (Hz)."""
-    return 1.0 / (6.0 ** 1.5 * math.pi * (m1 + m2) * MSUN_S)
+    M_s = (m1 + m2) * MSUN_S
+    return 1.0 / (6.0 ** 1.5 * math.pi * M_s)
 
 
 def tau_of_f(mc_s, f):

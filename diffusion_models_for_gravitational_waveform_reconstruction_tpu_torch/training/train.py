@@ -47,9 +47,14 @@ device with its key and draws the coin on the host from the same key.  A checkpo
 either package resumes in the other, but the two packages' random streams
 differ, so a resumed run does not repeat the other package's draws.
 
-Not here: ``--streaming`` (needs ``StreamingDataset``) and tensor
-parallelism (``--tp`` > 1): each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.  One process that sees several GPUs with data
+``--streaming`` reads the corpus a chunk at a time
+(``data/pipeline.py::StreamingDataset``, HDF5 or either form of the
+``.npz`` twin): with the dataset on the device (the default) its chunks
+stay resident there, else each batch is copied through
+``prefetch_to_device``.
+
+Not here: tensor parallelism (``--tp`` > 1) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.  One process that sees several GPUs with data
 parallelism on raises too, naming ``torchrun``: JAX's single controller
 takes every visible device, torch runs one process per GPU.
 """
@@ -142,7 +147,7 @@ class TrainConfig:
     whiten_mode: str = "auto"
     sigma_mode: str = "std"
     sigma_fixed: float = 1.0
-    streaming: bool = False             # not ported: raises
+    streaming: bool = False             # chunked lazy loading
     stream_chunk: int = 512
     max_len: int = 0                    # 0 = off; else LEFT-truncate samples
     device_data: bool = True            # dataset resident on the device
@@ -776,10 +781,6 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         pmesh.check_mesh(mesh)
     if int(cfg.tp) > 1:
         raise NotImplementedError(pmesh.TP_TODO)
-    if cfg.streaming:
-        raise NotImplementedError(
-            "--streaming needs StreamingDataset, not ported yet: ROADMAP.md "
-            "P8 (training), its last part")
     pmesh.multihost_init(device)
     dev = resolve_device(device)
     n_world = pmesh.world_size()
@@ -821,6 +822,16 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
             dataset = dpipe.synthetic_dataset(
                 n_synth, seed=cfg.seed, whiten=cfg.whiten,
                 sigma_mode=cfg.sigma_mode, device=dev)
+        elif cfg.streaming:
+            if cfg.max_len:
+                raise ValueError(
+                    "--max-len is only supported by the non-streaming loader")
+            meta_scale = compute_meta_scale(cfg.data)
+            dataset = dpipe.StreamingDataset(
+                cfg.data, whiten=cfg.whiten, whiten_mode=cfg.whiten_mode,
+                sigma_mode=cfg.sigma_mode, sigma_fixed=cfg.sigma_fixed,
+                include_metadata=True, mass_scale=meta_scale.get("M", 80.0),
+                chunk=cfg.stream_chunk)
         else:
             meta_scale = compute_meta_scale(cfg.data)
             dataset = dpipe.prepare_dataset(
@@ -882,7 +893,7 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
               f"full-range sampling from noise requires t_min_frac=0")
 
     dev_buckets = None
-    if cfg.device_data:
+    if cfg.device_data and not cfg.streaming:
         dev_buckets = dpipe.upload_buckets(dataset, dev)
         if dev_buckets is not None:
             mb = sum(v.numel() * v.element_size() for b in dev_buckets.values()
@@ -905,11 +916,15 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         if dev_buckets is not None:
             batches = dpipe.device_resident_batches(
                 dataset, cfg.batch_size, rng, dev_buckets)
+        elif (cfg.streaming and cfg.device_data
+              and hasattr(dataset, "iter_batches_device")):
+            # chunks resident on the device: no copy after the first epoch
+            batches = dataset.iter_batches_device(cfg.batch_size, rng,
+                                                  device=dev)
         else:
-            batches = ({k: torch.from_numpy(v).to(dev, non_blocking=True)
-                        for k, v in b.items() if k != "index"}
-                       for b in dpipe.iterate_batches(dataset, cfg.batch_size,
-                                                      rng))
+            batches = dpipe.prefetch_to_device(
+                dpipe.iterate_batches(dataset, cfg.batch_size, rng),
+                size=2, device=dev)
         pending = []   # metrics stay on the device until the epoch's end
         for i, jb in enumerate(batches):
             if (cfg.profile_dir and writer
@@ -1007,7 +1022,11 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
                     "samples_per_sec": samples_per_s,
                     "samples_per_sec_per_chip": samples_per_s / n_data,
                     "mfu_est": mfu_est,
-                    "elapsed_s": time.time() - t_run0})
+                    "elapsed_s": time.time() - t_run0,
+                    **{k: getattr(dataset, a) for k, a in (
+                        ("h2d_bytes", "h2d_bytes_epoch"),
+                        ("peak_live_samples", "peak_live_samples"))
+                       if hasattr(dataset, a)}})
         history.append({"epoch": epoch, "avg_per_sample": avg})
 
         if (cfg.save_every_epochs and epoch % cfg.save_every_epochs == 0

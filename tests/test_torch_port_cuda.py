@@ -8,7 +8,9 @@ and backpropagating (each op's backward against its plain backward, on
 every route), a few train steps on the card, ``eval_indices`` and
 ``gw-grid`` on the card, a distillation step's gradients, the tiled
 forward's kernel path against its plain path, a data-parallel train step
-on two gloo ranks sharing the card, and a one-rank NCCL group.
+on two gloo ranks sharing the card, a one-rank NCCL group, and the data
+side (Welch PSDs and a gw-gen chunk against the CPU, chunks of a ragged
+``.npz`` twin resident on the card).
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -924,3 +926,87 @@ def test_nccl_one_rank_group(cuda):
         assert torch.equal(flats[0], flats[1])
     finally:
         dist.destroy_process_group()
+
+
+def test_welch_psd_on_the_card_matches_cpu(cuda):
+    """``welch_psd`` of scaled strain on the card against the CPU: within
+    1e-5 of each row's largest bin (float32 FFTs in another order)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.whiten import (
+        welch_psd,
+    )
+
+    y = torch.randn(8, 16384, generator=torch.Generator().manual_seed(3))
+    for detrend in ("constant", "none"):
+        f_c, P_c = welch_psd(y, 4096.0, nperseg=4096, detrend=detrend)
+        f_g, P_g = welch_psd(y.to(cuda), 4096.0, nperseg=4096,
+                             detrend=detrend)
+        assert P_g.is_cuda and torch.equal(f_g.cpu(), f_c)
+        err = (P_g.cpu() - P_c).abs().amax(-1) / P_c.amax(-1)
+        assert float(err.max()) <= 1e-5
+
+
+def test_generate_chunk_on_the_card_matches_cpu(cuda, monkeypatch):
+    """One gw-gen chunk synthesised on the card and on the CPU from the
+    same injected normal draws: signal within 3e-3 of its peak (float32
+    phase rounding, as against JAX), noise and PSD within 1e-5."""
+    import argparse
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import gen
+
+    rng = np.random.default_rng(2)
+    specs = [dict(m1=float(a), m2=float(b), s1=float(c), s2=-0.2,
+                  snr=float(d)) for a, b, c, d in zip(
+        rng.uniform(22, 30, 6), rng.uniform(12, 20, 6),
+        rng.uniform(-0.8, 0.8, 6), rng.uniform(8, 30, 6))]
+    args = argparse.Namespace(sampling_rate=4096, f_lower=20.0, distance=410.0,
+                              approximant="pn", ringdown="qnm",
+                              f_taper_frac=0.85, chunk=4, seed=1,
+                              device="cuda")
+
+    def normals(seed, device):
+        """Draws made on the CPU, then moved: the same on both runs."""
+        g = torch.Generator().manual_seed(seed)
+        return lambda rows, nf: tuple(
+            torch.randn(rows, nf, generator=g).to(device) for _ in range(2))
+
+    monkeypatch.setattr(gen, "_normals", normals)
+    on_cpu = gen.generate(specs, args, "cpu")
+    on_card = gen.generate(specs, args, "cuda")
+    for i, want in on_cpu.items():
+        got = on_card[i]
+        assert got["n"] == want["n"]
+        peak = np.abs(want["signal"]).max()
+        assert np.abs(got["signal"] - want["signal"]).max() <= 3e-3 * peak
+        for k in ("noise", "psd"):
+            assert (np.abs(got[k] - want[k]).max()
+                    <= 1e-5 * np.abs(want[k]).max()), k
+
+
+def test_streaming_chunks_resident_on_the_card(cuda, tmp_path):
+    """A ragged twin streamed through ``iter_batches_device`` on the card:
+    the host streaming batches bit for bit, no copy in the second epoch;
+    ``prefetch_to_device`` through the side stream gives the same."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline as dpipe
+
+    rng = np.random.default_rng(4)
+    lengths = [300, 700, 512, 1000, 260, 900, 640]
+    sig = [rng.normal(size=L).astype(np.float32) for L in lengths]
+    path = str(tmp_path / "r.npz")
+    hdf5io.write_dataset(path, sig, sig, [2 * s for s in sig],
+                         [np.arange(L) / 1024.0 for L in lengths],
+                         {"mass1": [30.0] * 7, "mass2": [20.0] * 7}, 1024.0)
+    kw = dict(whiten=True, chunk=2, cache_chunks=1)
+    want = list(dpipe.StreamingDataset(path, **kw).iter_batches(
+        2, np.random.default_rng(3)))
+    ds = dpipe.StreamingDataset(path, **kw)
+    got = list(ds.iter_batches_device(2, np.random.default_rng(3)))
+    assert ds.h2d_bytes_epoch > 0
+    pre = list(dpipe.prefetch_to_device(iter(want), device=cuda))
+    for g, p, w in zip(got, pre, want):
+        for k in ("clean", "noisy", "mask", "sigma", "meta"):
+            assert g[k].is_cuda and p[k].is_cuda
+            np.testing.assert_array_equal(g[k].cpu().numpy(), w[k])
+            np.testing.assert_array_equal(p[k].cpu().numpy(), w[k])
+    list(ds.iter_batches_device(2, np.random.default_rng(4)))
+    assert ds.h2d_bytes_epoch == 0

@@ -325,11 +325,10 @@ def test_train_end_to_end(tmp_path):
 
 def test_train_refuses_what_is_not_ported(tmp_path):
     ds = _tiny_dataset(4)
-    for kw, match in ((dict(streaming=True), "StreamingDataset"),
-                      (dict(tp=2), r"P10\.1 \(tensor parallelism\)")):
-        with pytest.raises(NotImplementedError, match=match):
-            tt.train(tt.TrainConfig(**dict(BASE, model_dir=str(tmp_path),
-                                           **kw)), dataset=ds, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"P10\.1 \(tensor parallelism\)"):
+        tt.train(tt.TrainConfig(**dict(BASE, model_dir=str(tmp_path), tp=2)),
+                 dataset=ds, device="cpu")
     with pytest.raises(TypeError, match="make_mesh"):
         tt.train(tt.TrainConfig(**dict(BASE, model_dir=str(tmp_path))),
                  dataset=ds, mesh=object(), device="cpu")
