@@ -26,7 +26,10 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              in f32, and at a ragged L and other head widths.
              Each with its route, TFLOP/s, time, the plain version's, a
              PyTorch yardstick's (``F.conv1d -> F.group_norm -> F.silu``;
-             ``F.scaled_dot_product_attention``) and the roofline bound.
+             ``F.scaled_dot_product_attention``), the roofline bound
+             (``utils/roofline.py``) and the error within the port's
+             kernel bars (``tools.bench_kernels.TOL``), each record built
+             by ``tools.bench_kernels.conv_row`` / ``attention_row``.
              K1's records also carry the two-pass floor (the bound plus y's
              f32 write and read) and one call's device time split into
              pack / conv / stats / apply (``torch.profiler``).
@@ -147,23 +150,42 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              column, the noise whitened by the model PSD at sqrt(fs / 2);
              the card's Welch PSDs against ``scipy.signal.welch`` on 64
              rows; a chunk synthesised on the card against the CPU from the
-             same draws (the gate on the quickstart's most common bucket,
-             the 65536-sample buckets reported); gw-merge of the quickstart
+             same draws (the quickstart's most common bucket and both
+             corpora's 65536-sample buckets, each gated); gw-merge of the quickstart
              and the top-up; the streaming batches bit-equal to the dense
              loader's with shuffle off; gw-train --streaming on the merged
              corpus at pn128 width (bf16, batch 16, chunks of 256, model
              whitening, 2 epochs: samples/s, the bytes copied to the card a
              epoch, ``peak_live_samples``, K1's launches); gw-infer on its
              index 0.
-16. launched_shapes - every shape each kernel was launched at from phase
+16. tools  - the port's twins of the repo's Python tools:
+             ``tools.bench_population`` at its defaults (BASELINE.json
+             config 5: B 256, L 4096, 100 DDIM steps, cfg 1.5, base_ch 64,
+             bf16: K1 at 512 rows x 4096 a forward; its JSON line, K1's
+             launches, one population profiled, peak memory) and a small
+             f32 population (B 4, L 512, 3 steps) against the CPU plain
+             path; every ``tools.bench_kernels`` section at the root tool's
+             shapes (K1 f32 and bf16; DecoderConvBlock against upsample ->
+             concat -> K1; K2 f32 and bf16; the attention U-Net kernel path
+             against plain path, K2 at (64, 4, 512, 64), held in f32
+             within the model bar; the HBM stream), each kernel row within
+             the port's kernel bars; the glitch and spin
+             harnesses on the evals phase's pn128 checkpoint and corpus (cut
+             to 10 steps and 2 seeds; the glitch-SNR-0 level against a
+             direct ``reconstruct_batch`` on the same draws, the spin gap 0
+             on the corpus's zero spins); ``tools.pn_fidelity`` on the card
+             and on the CPU (the mismatch table within 1e-6); and
+             ``tools.merge_h5`` over the data phase's two corpora,
+             byte-equal to gw-merge's file.
+17. launched_shapes - every shape each kernel was launched at from phase
              4 on (recorded by wrapping the ops' launch bodies; the
              op_overhead phase and the attention model's monolithic
              forward of phase 14, whose K2 shape has no plain version that
              fits the card, are not recorded) that phase 3 did not check, held against its plain
              version in the same way; the coverage, and K1's time summed
              over the blocks of each forward shape (rows and length) of
-             each evals, distill, parallel and data run.
-17. kernels - one ``{"kernels": [...]}`` line, then the last line
+             each evals, distill, parallel, data and tools run.
+18. kernels - one ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
@@ -182,10 +204,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-# published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 
 SERVING_STEPS = 10       # the recipe's 50 steps, cut to bound the run's time
 SERVING_REQUESTS = 4
@@ -218,13 +236,6 @@ K1_EXTRA = [("attn16k train", ATTN16K, 32768, TRAIN_BATCH),
             ("pn128 train cli", FLAGSHIP, CLI_TRAIN_L, TRAIN_BATCH)]
 # K2's rows on the attn16k grid: 18 samples x 2 seeds x CFG
 ATTN16K_GRID_ROWS = 18 * 2 * 2
-# kernel vs plain version: f32 differs only in summation order; bf16 may
-# flip an output by one bf16 ulp (2^-7 relative)
-K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-3)}
-# K2 vs plain version: f32 differs in summation order and in exp2 of
-# log2-scaled scores; in bf16 both round P (the kernel before normalising,
-# the plain version after) and the output, a few ulps of 2^-8 apart
-K2_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -6, 2e-3)}
 # (dtype, B, H, L, D): attn16k's bottleneck in bf16 (the serving shape, the
 # serving batch at a ragged L, and the infer batch of 8 rows) and f32, a ragged L, each head-width
 # template (D 32, 64, 128, 256; D 128 at a ragged L too) and an odd D, whose
@@ -261,17 +272,12 @@ def check(ok, what):
 
 def cuda_ms(torch, fn, reps):
     """Mean device time of ``fn`` in ms over ``reps`` calls after a warm-up,
-    from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from CUDA events (``tools.bench_kernels.time_ms``)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        time_ms,
+    )
+
+    return time_ms(fn, torch.device("cuda"), reps)
 
 
 def convblock_shapes(model, L):
@@ -367,18 +373,24 @@ def k1_split_ms(torch, fn, reps=3):
 
 
 def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
-    import torch.nn.functional as F
-
+    """K1 at each (name, L, Cin, Cout) for each (dtype, rows): the row of
+    ``tools.bench_kernels.conv_row`` (kernel, plain and cuDNN times, the
+    bound, the error within the port's bars) plus the split by pass and the
+    floor of a two-pass kernel (its f32 y written and read once more)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        conv_row,
+    )
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
-        conv_route,
         fused_conv_gn_silu,
-        fused_conv_gn_silu_reference,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.roofline import (
+        bound_ms,
     )
 
+    kind = torch.cuda.get_device_name(0)
     results = []
     for dtype, rows in dtypes_rows:
         dname = str(dtype).split(".")[1]
-        rtol, atol = K1_TOL[dname]
         for name, L, Cin, Cout in shapes:
             G = groups
             g = torch.Generator(device="cuda").manual_seed(L + Cin + Cout)
@@ -387,111 +399,50 @@ def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
             b, s, bb = (0.1 * torch.randn(Cout, generator=g, device="cuda")
                         for _ in range(3))
             s = s + 1.0
-            out = fused_conv_gn_silu(x, W, b, s, bb, G)
-            want = fused_conv_gn_silu_reference(x, W, b, s, bb, G)
-            torch.cuda.synchronize()
-            diff = (out.float() - want.float()).abs()
-            max_err = float(diff.max())
-            bad = int((diff > atol + rtol * want.float().abs()).sum())
-            xc = x.transpose(1, 2).contiguous()
-            Wc = W.permute(2, 1, 0).to(dtype).contiguous()
-            bl, sl, bbl = b.to(dtype), s.to(dtype), bb.to(dtype)
-            del out, want, diff
-
-            def library():
-                return F.silu(F.group_norm(F.conv1d(xc, Wc, bl, padding=1),
-                                           G, sl, bbl, 1e-5))
-
-            k_ms = cuda_ms(torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G), 5)
-            p_ms = cuda_ms(torch, lambda: fused_conv_gn_silu_reference(
-                x, W, b, s, bb, G), 3)
-            l_ms = cuda_ms(torch, library, 5)
+            row = conv_row(x, W, b, s, bb, G, reps=5, plain_reps=3)
             split = k1_split_ms(
                 torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G))
-            esize = x.element_size()
-            nbytes = (x.numel() * esize + W.numel() * 4 + 3 * Cout * 4
-                      + rows * L * Cout * esize)
             y_bytes = 8 * rows * L * Cout      # y written and read in f32
-            flops = 2.0 * rows * L * 3 * Cin * Cout
-            t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
             rec = {"phase": "kernel", "kernel": "conv_gn_silu",
-                   "config": config, "block": name, "route": conv_route(x),
-                   "rows": rows, "L": L, "Cin": Cin, "Cout": Cout,
-                   "groups": G, "dtype": dname, "max_abs_err": max_err, "rtol": rtol,
-                   "atol": atol, "n_outside_tol": bad, "kernel_ms": k_ms,
-                   "plain_ms": p_ms, "library_ms": l_ms,
-                   "bound_ms": 1e3 * max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                   "two_pass_floor_ms": 1e3 * max(
-                       (nbytes + y_bytes) / PEAK_BYTES, t_ops),
-                   "tflops": flops / (k_ms * 1e9), "split_ms": split,
-                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+                   "config": config, "block": name, "rows": rows, "L": L,
+                   "Cin": Cin, "Cout": Cout, "groups": G, **row,
+                   "two_pass_floor_ms": bound_ms(
+                       row["gflop"] * 1e9, row["mbytes"] * 1e6 + y_bytes,
+                       kind, dname)[0],
+                   "split_ms": split}
             emit(rec)
             results.append(rec)
-            check(bad == 0, f"conv_gn_silu {config} {name} {dname} "
-                            f"rows={rows}: {bad} "
-                            f"outputs outside rtol={rtol} atol={atol}")
-            del x, W, xc, Wc
+            check(row["within_tol"],
+                  f"conv_gn_silu {config} {name} {dname} rows={rows}: "
+                  f"{row['n_outside_tol']} outputs outside "
+                  f"rtol={row['rtol']} atol={row['atol']}")
+            del x, W
             torch.cuda.empty_cache()
     return results
 
 
-def plain_attention(torch, q, k, v):
-    """The plain version over chunks of B, so that its f32 scores stay near
-    2 GB (at (32, 4, 4096, 64) they would take 8.6 GB at once)."""
-    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
-        flash_attention_reference,
-    )
-
-    B, H, L, _ = q.shape
-    step = max(1, (1 << 31) // (H * L * L * 4))
-    return torch.cat([flash_attention_reference(q[i:i + step], k[i:i + step],
-                                                v[i:i + step])
-                      for i in range(0, B, step)])
-
-
 def phase_kernel_attention(torch, shapes=K2_SHAPES):
-    import torch.nn.functional as F
-
-    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
-        attention_route,
-        flash_attention,
+    """K2 at each (dtype, B, H, L, D): the row of
+    ``tools.bench_kernels.attention_row``."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        attention_row,
     )
 
     results = []
     for dname, B, H, L, D in shapes:
         dtype = getattr(torch, dname)
-        rtol, atol = K2_TOL[dname]
         g = torch.Generator(device="cuda").manual_seed(B * L + D)
         q, k, v = (torch.randn(B, H, L, D, generator=g, device="cuda")
                    .to(dtype) for _ in range(3))
-        out = flash_attention(q, k, v)
-        want = plain_attention(torch, q, k, v)
-        torch.cuda.synchronize()
-        diff = (out.float() - want.float()).abs()
-        max_err = float(diff.max())
-        bad = int((diff > atol + rtol * want.float().abs()).sum())
-        del out, want, diff
-        k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), 20)
-        p_ms = cuda_ms(torch, lambda: plain_attention(torch, q, k, v), 2)
-        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
-                       20)
-        nbytes = 4 * q.numel() * q.element_size()      # q, k, v read; o written
-        flops = 4.0 * B * H * L * L * D                # Q K^T and P V
-        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
+        row = attention_row(q, k, v, reps=20, plain_reps=2)
         rec = {"phase": "kernel", "kernel": "flash_attention", "B": B, "H": H,
-               "L": L, "D": D, "dtype": dname,
-               "route": attention_route(q, k, v), "max_abs_err": max_err,
-               "rtol": rtol, "atol": atol, "n_outside_tol": bad,
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes > t_ops else "operations",
-               "tflops": flops / (k_ms * 1e9), "gflop": flops / 1e9,
-               "mbytes": nbytes / 1e6}
+               "L": L, "D": D, **row}
         emit(rec)
         results.append(rec)
-        check(bad == 0, f"flash_attention {dname} {(B, H, L, D)}: {bad} "
-                        f"outputs outside rtol={rtol} atol={atol}")
+        check(row["within_tol"],
+              f"flash_attention {dname} {(B, H, L, D)}: "
+              f"{row['n_outside_tol']} outputs outside rtol={row['rtol']} "
+              f"atol={row['atol']}")
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -514,8 +465,6 @@ def phase_model(torch, config, rows, L):
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import randomize_
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
-        flash_attention_reference,
-        fused_conv_gn_silu_reference,
         launch_counts,
         reset_launch_counts,
     )
@@ -530,13 +479,8 @@ def phase_model(torch, config, rows, L):
         got = model(x, t)
         launches = check_launches(launch_counts, expected_launches(model, 1),
                                   f"model phase {config}")
-        kernels = unet.fused_conv_gn_silu, unet.flash_attention
-        unet.fused_conv_gn_silu = fused_conv_gn_silu_reference
-        unet.flash_attention = flash_attention_reference
-        try:
+        with unet.plain_kernels():
             want = model(x, t)
-        finally:
-            unet.fused_conv_gn_silu, unet.flash_attention = kernels
     rel = float((got - want).abs().max() / want.abs().max())
     emit({"phase": "model", "config": f"{config} f32", "rows": rows, "L": L,
           "launches": launches, "max_rel_err": rel, "tol": MODEL_TOL,
@@ -1208,8 +1152,6 @@ def phase_train_grads(torch, ds, tmp):
     parameters) and in bf16 by the loss within GRAD_LOSS_TOL_BF16."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
-        flash_attention_reference,
-        fused_conv_gn_silu_reference,
         launch_counts,
         reset_launch_counts,
     )
@@ -1231,17 +1173,11 @@ def phase_train_grads(torch, ds, tmp):
             cfg, 4, 10, 5, "cuda")
         randomize_(model, 31)      # the init leaves the final conv at zero
         step = tt.make_train_step(model, schedule, cfg, opt, lr)
-        kernels = unet.fused_conv_gn_silu, unet.flash_attention
-        if plain:
-            unet.fused_conv_gn_silu = fused_conv_gn_silu_reference
-            unet.flash_attention = flash_attention_reference
-        try:
+        with unet.plain_kernels() if plain else contextlib.nullcontext():
             reset_launch_counts()
             m = step(state, batch, 77, 0, 0.0, 1.0)
             torch.cuda.synchronize()
             counts = launch_counts()
-        finally:
-            unet.fused_conv_gn_silu, unet.flash_attention = kernels
         return float(m["loss"]), state.params.grad.clone(), counts
 
     rec = {"phase": "train_grads", "config": "attn16k", "rows": GRAD_ROWS,
@@ -1471,7 +1407,6 @@ def phase_export(torch, config, tmp):
     and K2's kernel names, latency against the live function, then
     ``validate_export``, ``tools/bench_serving``, ``gw-serve`` in batch
     mode and over HTTP.  Returns the launches of one replay."""
-    import contextlib
     import http.client
     import io
     import threading
@@ -2024,6 +1959,13 @@ def phase_evals(torch, tmp):
     check(got == grid_launches("pn128", summ["knobs"]["steps"],
                                summ["start_t_resolved"]),
           f"gw-grid pn128 launches {got}")
+    # --from-sweep replays what the gate shipped: the top combo, or the
+    # default knobs from t 999 where the gate rejected it
+    shipped_cfg = (res[0]["combo"]["cfg_scale"] if val["emit_top"]
+                   else sweep.default_combo().cfg_scale)
+    check(summ["knobs"]["cfg_scale"] == shipped_cfg
+          and (val["emit_top"] or summ["start_t_resolved"] == 999),
+          f"gw-grid --from-sweep replays the gate's choice: {summ['knobs']}")
     launches["pn128 grid"] = got
     records["pn128"] = dict(seconds=secs, summary=summ,
                             scan_caps=out["scan_caps"],
@@ -2125,7 +2067,7 @@ def phase_evals(torch, tmp):
     emit({"phase": "evals_profile", "config": "attn16k grid bf16",
           "profiled_runs": 1, "trace": str(trace.relative_to(TRACES.parent)),
           **breakdown})
-    return launches, corpora["pn128"]
+    return launches, corpora["pn128"], ckpts["pn128"]
 
 
 DISTILL_GROUPS = ("teacher_forward", "student_forward", "backward",
@@ -2173,8 +2115,6 @@ def phase_distill_grads(torch, corpus):
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
-        flash_attention_reference,
-        fused_conv_gn_silu_reference,
         launch_counts,
         reset_launch_counts,
     )
@@ -2209,17 +2149,11 @@ def phase_distill_grads(torch, corpus):
                               step=torch.zeros((), dtype=torch.int32,
                                                device="cuda"))
         step = td.make_distill_step(student, schedule, cfg, opt, ladder, "v")
-        kernels = unet.fused_conv_gn_silu, unet.flash_attention
-        if plain:
-            unet.fused_conv_gn_silu = fused_conv_gn_silu_reference
-            unet.flash_attention = flash_attention_reference
-        try:
+        with unet.plain_kernels() if plain else contextlib.nullcontext():
             reset_launch_counts()
             m = step(state, teacher, batch, 5)
             torch.cuda.synchronize()
             counts = launch_counts()
-        finally:
-            unet.fused_conv_gn_silu, unet.flash_attention = kernels
         return float(m["loss"]), flat.grad.clone(), counts
 
     lk, gk, ck = one_step(False)
@@ -3118,7 +3052,8 @@ def phase_data(torch, tmp):
     --streaming on the merged corpus at pn128 width (bf16, batch 16,
     chunks of 256, model whitening, 2 epochs, K1 counted); gw-infer on its
     index 0.  Gates: each corpus's SNR and whitened noise, the card's Welch
-    against scipy, one chunk of the longest bucket card against CPU, the
+    against scipy, chunks of the most common and the longest buckets card
+    against CPU, the
     streaming batches bit-equal to the dense loader's (shuffle off).
     Returns the launches of the training and infer runs, and the merged
     corpus's bucket lengths."""
@@ -3150,15 +3085,14 @@ def phase_data(torch, tmp):
         emit(rec)
     emit({"phase": "data_welch", "corpus": "quickstart",
           **welch_gate(torch, paths["quickstart"])})
-    # the gate: a chunk of the quickstart's most common bucket; the longest
-    # buckets (65536 samples) are reported against the same bars
+    # the gates: a chunk of the quickstart's most common bucket and of each
+    # corpus's longest (65536 samples), all against the same bars
     for name, argv, bucket in (("quickstart", DATA_QUICKSTART, "largest"),
                                ("quickstart", DATA_QUICKSTART, "longest"),
                                ("fs16k", DATA_16K, "longest")):
         rec = chunk_card_vs_cpu(torch, argv, bucket)
         emit({"phase": "data_chunk_card_vs_cpu", "corpus": name, **rec})
-        if bucket == "largest":
-            check(rec["within_bars"], f"card against CPU: {rec}")
+        check(rec["within_bars"], f"card against CPU: {rec}")
 
     t0 = time.perf_counter()
     merge.main(["--output-path", paths["merged"], paths["quickstart"],
@@ -3261,7 +3195,228 @@ def phase_data(torch, tmp):
     emit({"phase": "data_infer", "index": 0, "L": int(rec_arr.shape[0]),
           "seconds": infer_s, "launches": infer_l})
     return ({"pn128 streaming train": train_l,
-             "pn128 streaming infer cli": infer_l}, stream_buckets)
+             "pn128 streaming infer cli": infer_l}, stream_buckets, paths)
+
+
+# the tools phase: the port's twins of the repo's Python tools, on the
+# evals phase's pn128 checkpoint and corpus and the data phase's corpora
+TOOLS_STEPS = 10          # the harnesses' 50 sampler steps, cut
+TOOLS_SEEDS = 2           # their 4 seeds, cut
+TOOLS_SMALL = dict(B=4, L=512, steps=3)   # bench_population card vs CPU
+
+
+def _glitch_level0_direct(torch, corpus, ckpt, indices):
+    """The glitch harness's level 0 computed directly: the samples prepared
+    as the tool prepares them (no glitch), one ``reconstruct_batch`` with
+    a generator seeded as the tool's seam seeds it, scored by
+    ``score_last_window``; the per-sample corr."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.evals import metrics as M
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.inference import (
+        dewhiten_back,
+        load_model,
+        prepare_measurement,
+        reconstruct_batch,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import (
+        SamplerConfig,
+    )
+
+    model, schedule, ck = load_model(ckpt, device="cuda")
+    preps = [prepare_measurement(
+        np.asarray(y, np.float64), clean, fs, P, welch, meta, cond_in_ch=5,
+        M_SCALE=ck["meta_scale"]["M"], Q_SCALE=ck["meta_scale"]["q"],
+        whiten=True, whiten_mode=ck["whiten_mode_resolved"],
+        sigma_mode=ck["sigma_mode"], sigma_fixed=1.0, ckpt_path=ckpt)
+        for (y, clean, fs, P, welch, meta)
+        in hdf5io.load_measurements(corpus, indices)]
+    cfg = SamplerConfig(steps=TOOLS_STEPS, start_t=999, ladder="lambda",
+                        pred_type=ck["pred_type"], use_selfcond=True)
+    xw = reconstruct_batch(
+        model, schedule, np.concatenate([p["cond_stack"] for p in preps]),
+        np.array([p["sigma"] for p in preps], np.float32), cfg,
+        torch.Generator(device="cuda").manual_seed(0),
+        clean_norms=np.concatenate([p["clean_norm"] for p in preps]),
+        avg_seeds=TOOLS_SEEDS, device="cuda")
+    return [M.score_last_window(dewhiten_back(np.asarray(xw[j], np.float64),
+                                              p), p["clean_raw"],
+                                p["fs"])["corr_last"]
+            for j, p in enumerate(preps)]
+
+
+def phase_tools(torch, tmp, corpus, ckpt, data_paths):
+    """The port's tools on the card: ``bench_population`` at its defaults
+    (B 256, L 4096, 100 steps, cfg 1.5: K1 at 512 rows a forward; timed,
+    counted, one population profiled, peak memory) and a small f32
+    population card against CPU; every ``bench_kernels`` section, each row
+    within the port's bars; the glitch and spin harnesses on the pn128
+    checkpoint and corpus (cut to 10 steps and 2 seeds), the glitch-SNR-0
+    level against a direct ``reconstruct_batch`` on the same draws;
+    ``pn_fidelity`` on the card and on the CPU; ``merge_h5`` byte-equal to
+    gw-merge.  Returns the launches of the counted runs."""
+    import filecmp
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import (
+        FixedNoise,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools import (
+        bench_kernels,
+        bench_population,
+        glitch_robustness,
+        merge_h5,
+        pn_fidelity,
+        spin_sensitivity,
+    )
+
+    launches = {}
+    # bench_population at its defaults: a warm-up and 3 timed populations
+    bp = bench_population
+    pops = 1 + bp.REPS
+    forwards = ladder_len(100, None)
+    torch.cuda.reset_peak_memory_stats()
+    rec, got, secs = run_counted(
+        torch, bp.run, {"conv_gn_silu": 7 * forwards * pops,
+                        "flash_attention": 0}, "bench_population")
+    launches["bench_population"] = got
+    print(json.dumps(rec), flush=True)              # the tool's own line
+    check(rec["samples_per_sec"] > 0 and rec["batch"] == 256
+          and rec["L"] == 4096 and rec["steps"] == 100,
+          f"bench_population {rec}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    from torch.profiler import ProfilerActivity, profile
+
+    model, schedule, cond = bp.setup(256, 4096, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bp.population(model, schedule, cond, 100, gen).cpu()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = TRACES / "bench_population_trace.json"
+    TRACES.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    del model, cond
+    emit({"phase": "tools_bench_population", "record": rec,
+          "seconds_counted": secs, "populations": pops,
+          "rows_per_forward": 2 * rec["batch"], "forwards": forwards,
+          "launches": got, "peak_mem_gb": peak})
+    emit({"phase": "tools_bench_population_profile", "profiled_populations": 1,
+          "trace": str(trace.relative_to(TRACES.parent)),
+          **device_breakdown(trace, wall_us)})
+
+    # a small f32 population: the card against the CPU plain path, the same
+    # weights, conditioning and x_T
+    s = TOOLS_SMALL
+    g = torch.Generator().manual_seed(3)
+    cond = torch.randn(s["B"], 5, s["L"], generator=g)
+    z = torch.randn(s["B"], 1, s["L"], generator=g)
+    outs, small_l = {}, {}
+    for dev in ("cuda", "cpu"):
+        m, sch, _ = bp.setup(s["B"], s["L"], dev, dtype=torch.float32)
+        outs[dev], small_l[dev], _ = run_counted(
+            torch, lambda: bp.population(m, sch, cond.to(dev), s["steps"],
+                                         FixedNoise(z)).cpu(),
+            {"conv_gn_silu": 7 * ladder_len(s["steps"], None)
+             if dev == "cuda" else 0, "flash_attention": 0},
+            f"bench_population small {dev}")
+    rel = float((outs["cuda"] - outs["cpu"]).abs().max()
+                / outs["cpu"].abs().max())
+    emit({"phase": "tools_bench_population_small_vs_cpu", **s,
+          "max_rel_err": rel, "tol": MODEL_TOL,
+          "card_launches": small_l["cuda"]})
+    check(rel <= MODEL_TOL, f"bench_population small card vs CPU {rel}")
+
+    # every bench_kernels section at the root tool's shapes
+    rows = {}
+    for name, fn in bench_kernels.SECTIONS.items():
+        rows[name], got, secs = run_counted(
+            torch, lambda: fn("cuda"), None, f"bench_kernels {name}")
+        launches[f"bench_kernels {name}"] = got
+        for r in rows[name]:
+            emit({"phase": "tools_bench_kernels", "section": name, **r})
+            if "within_tol" in r:
+                check(r["within_tol"], f"bench_kernels {name}: {r}")
+    unet_row = rows["unet"][-1]
+    check(unet_row["max_rel_err_vs_plain_f32"] <= MODEL_TOL,
+          f"bench_kernels unet f32 kernel path vs plain path: {unet_row}")
+    check(all(r["route"] == ("wgmma" if r["dtype"] == "bfloat16" else "fma")
+              for r in rows["attn"]), "bench_kernels attention routes")
+
+    # the glitch and spin harnesses
+    cuts = ["--steps", str(TOOLS_STEPS), "--avg-seeds", str(TOOLS_SEEDS),
+            "--device", "cuda"]
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import hdf5io
+
+    n_rows = hdf5io.num_samples(corpus)
+    fwd = ladder_len(TOOLS_STEPS, 999, "lambda")
+    glitch, got, secs = run_counted(
+        torch, lambda: glitch_robustness.main(
+            ["--input-h5", corpus, "--model", ckpt] + cuts),
+        {"conv_gn_silu": 7 * fwd * 4, "flash_attention": 0},
+        "glitch_robustness")
+    launches["glitch_robustness"] = got
+    indices = [r["index"] for r in glitch["levels"][0]["per_sample"]]
+    direct = _glitch_level0_direct(torch, corpus, ckpt, indices)
+    level0 = [r["corr"] for r in glitch["levels"][0]["per_sample"]]
+    diff0 = float(np.max(np.abs(np.asarray(level0) - np.asarray(direct))))
+    emit({"phase": "tools_glitch_robustness", "cuts": {
+              "steps": "50 -> 10", "avg_seeds": "4 -> 2"},
+          "seconds": secs, "launches": got, "rows_per_forward":
+              2 * TOOLS_SEEDS * len(indices),
+          "level0_vs_direct_max_abs": diff0,
+          "levels": [{k: lv[k] for k in ("glitch_snr", "corr_mean",
+                                         "res_flatness_mean",
+                                         "res_clean_corr_mean")}
+                     for lv in glitch["levels"]],
+          "corr_drop_at_max": glitch["corr_drop_at_max"]})
+    check(glitch["n"] == min(12, n_rows) and diff0 <= 1e-6
+          and all(np.isfinite(lv["corr_mean"]) for lv in glitch["levels"]),
+          f"glitch_robustness level 0 against reconstruct_batch: {diff0}")
+    spin, got, secs = run_counted(
+        torch, lambda: spin_sensitivity.main(
+            ["--input-h5", corpus, "--model", ckpt] + cuts),
+        {"conv_gn_silu": 7 * fwd * 2, "flash_attention": 0},
+        "spin_sensitivity")
+    launches["spin_sensitivity"] = got
+    emit({"phase": "tools_spin_sensitivity", "cuts": {
+              "steps": "50 -> 10", "avg_seeds": "4 -> 2"},
+          "seconds": secs, "launches": got,
+          **{k: spin[k] for k in ("corr_true", "corr_spin0", "gap", "n")}})
+    # the corpus's spins are 0, so zeroing them changes nothing: with the
+    # noise restarted for each run the two runs are the same
+    check(spin["n"] == min(16, n_rows) and spin["gap"] == 0.0,
+          f"spin_sensitivity on a spinless corpus: gap {spin['gap']}")
+
+    # pn_fidelity on the card and on the CPU
+    fid = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fid[dev] = pn_fidelity.main(["--out", os.path.join(
+            tmp, f"pn_fidelity_{dev}.json"), "--device", dev])
+        fid[dev]["seconds"] = time.perf_counter() - t0
+    table = [{"m1": a["m1"], "m2": a["m2"], "chi": a["chi"], "n": a["n"],
+              "mismatch_card": a["mismatch"], "mismatch_cpu": b["mismatch"],
+              "core_card": a["core_mismatch"], "core_cpu": b["core_mismatch"]}
+             for a, b in zip(fid["cuda"]["rows"], fid["cpu"]["rows"])]
+    worst = max(abs(r["mismatch_card"] - r["mismatch_cpu"]) for r in table)
+    emit({"phase": "tools_pn_fidelity", "rows": table,
+          "card_vs_cpu_max_abs": worst,
+          "mismatch_max": {d: fid[d]["mismatch_max"] for d in fid},
+          "mismatch_median": {d: fid[d]["mismatch_median"] for d in fid},
+          "seconds": {d: fid[d]["seconds"] for d in fid}})
+    check(worst <= 1e-6, f"pn_fidelity card against CPU: {worst}")
+
+    # merge_h5 over the data phase's two corpora, against gw-merge's file
+    shim = os.path.join(tmp, "merged_shim.npz")
+    t0 = time.perf_counter()
+    merge_h5.main(shim, [data_paths["quickstart"], data_paths["topup"]])
+    merge_s = time.perf_counter() - t0
+    same = filecmp.cmp(shim, data_paths["merged"], shallow=False)
+    emit({"phase": "tools_merge_h5", "seconds": merge_s, "byte_equal": same,
+          "mb": os.path.getsize(shim) / 1e6})
+    check(same, "merge_h5's file differs from gw-merge's")
+    return launches
 
 
 class LaunchShapes:
@@ -3332,7 +3487,8 @@ def k1_sum(recs):
     """K1 records summed over their blocks (one forward when the records
     are its 7 ConvBlocks); ``device_ms`` from the profiled pass split."""
     out = {key: sum(r[key] for r in recs) for key in (
-        "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+        "two_pass_floor_ms")}
     splits = [r["split_ms"] for r in recs]
     out["device_ms"] = (sum(sum(sp.values()) for sp in splits)
                         if all(isinstance(sp, dict) for sp in splits)
@@ -3403,12 +3559,15 @@ def kernels_line(k1, k2, launches, by_run, coverage):
     of each main path at its serving batch, K2 at attn16k's serving shape
     (both also at the infer batch of 8 rows and the training batch of 16,
     K2 at the grid's batch, K1 at the bench's shapes and at the streaming
-    train's 16 rows at each bucket length; both at every shape the evals
-    and distill runs launched, by run); launches summed over the main-path
-    runs (serving, infer, infer CLI, the artifact's replay, attn16k
-    training, pn128 gw-train, the sweeps, the grids, gw-distill and the
-    grid of its student, the bench and ``entry()``, the parallel runs, the
-    streaming gw-train and its gw-infer)."""
+    train's 16 rows at each bucket length; both at every shape the evals,
+    distill and tools runs launched, by run; K1 at bench_population's 512
+    rows and K2 at bench_kernels' U-Net bottleneck named apart); launches
+    summed over the main-path runs (serving, infer, infer CLI, the
+    artifact's replay, attn16k training, pn128 gw-train, the sweeps, the
+    grids, gw-distill and the grid of its student, the bench and
+    ``entry()``, the parallel runs, the streaming gw-train and its
+    gw-infer, bench_population, the bench_kernels sections, the glitch and
+    spin harnesses)."""
     def bf16_at(config, rows):
         return [r for r in k1 if r["config"] == config
                 and r["dtype"] == "bfloat16" and r["rows"] == rows]
@@ -3453,6 +3612,7 @@ def kernels_line(k1, k2, launches, by_run, coverage):
              [q for q in k1 if q["config"] == r["config"]])
              for r in k1 if r["config"].startswith(STREAM_CONFIG)},
          "by_eval_run": by_run["conv_gn_silu"],
+         "bench_population": by_run["conv_gn_silu"].get("bench_population"),
          "launched_shapes": coverage["conv_gn_silu"],
          "shapes": "the 7 ConvBlocks of one forward of each main path, bf16: "
                    "pn128 at 64 rows, attn16k at 32 rows",
@@ -3476,6 +3636,8 @@ def kernels_line(k1, k2, launches, by_run, coverage):
              "B", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "max_abs_err")},
          "by_eval_run": by_run["flash_attention"],
+         "bench_kernels_unet": by_run["flash_attention"].get(
+             "bench_kernels unet"),
          "launched_shapes": coverage["flash_attention"],
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
          "phase": "kernel"}]}
@@ -3571,18 +3733,19 @@ def main():
             for config in PATHS:
                 launches[f"{config} export replay"] = phase_export(
                     torch, config, tmp)
-    with shapes:
+    # the evals phase's directory lives on until the tools phase
+    with shapes, tempfile.TemporaryDirectory() as tmp_evals:
         phase_autograd(torch)
-        with tempfile.TemporaryDirectory() as tmp:
-            launches["attn16k train"], ds = phase_train(torch, tmp)
-            phase_train_grads(torch, ds, tmp)
-            del ds
-            launches["pn128 train cli"], trained = phase_train_cli(torch, tmp)
-            phase_evals_small(torch, tmp)
-            evals_launches, corpus = phase_evals(torch, tmp)
-            launches.update(evals_launches)
-            phase_distill_grads(torch, corpus)
-            launches.update(phase_distill(torch, tmp, trained, corpus))
+        launches["attn16k train"], ds = phase_train(torch, tmp_evals)
+        phase_train_grads(torch, ds, tmp_evals)
+        del ds
+        launches["pn128 train cli"], trained = phase_train_cli(torch,
+                                                               tmp_evals)
+        phase_evals_small(torch, tmp_evals)
+        evals_launches, corpus, ckpt = phase_evals(torch, tmp_evals)
+        launches.update(evals_launches)
+        phase_distill_grads(torch, corpus)
+        launches.update(phase_distill(torch, tmp_evals, trained, corpus))
         launches["bench"], launches["entry"] = phase_bench(torch)
         with tempfile.TemporaryDirectory() as tmp:
             launches["attn16k train nccl"] = phase_parallel_nccl(torch, tmp)
@@ -3591,8 +3754,10 @@ def main():
                 torch, tmp, shapes)
             phase_parallel_ranks(torch, tmp, prep, shapes)
         with tempfile.TemporaryDirectory() as tmp:
-            data_launches, data_buckets = phase_data(torch, tmp)
+            data_launches, data_buckets, data_paths = phase_data(torch, tmp)
             launches.update(data_launches)
+            launches.update(phase_tools(torch, tmp, corpus, ckpt,
+                                        data_paths))
     # K1 at the streaming train's forward shapes: 16 rows at each bucket
     for L in data_buckets:
         shapes_L = convblock_shapes(UNet1D(**FLAGSHIP, device="cuda"), L)

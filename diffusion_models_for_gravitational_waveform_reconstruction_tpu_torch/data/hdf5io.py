@@ -509,7 +509,8 @@ class _NpzWriter:
     """Writes an ``.npz`` file member by member, stored (uncompressed), so
     that a row range of any member can be read without the rest; a series
     is written row by row (:meth:`add_series`), never concatenated in
-    memory.  The file appears at ``path`` when the ``with`` block ends
+    memory.  Members carry a fixed timestamp, so the same arrays make the
+    same bytes.  The file appears at ``path`` when the ``with`` block ends
     without an error."""
 
     def __init__(self, path: str):
@@ -530,8 +531,12 @@ class _NpzWriter:
         else:
             os.remove(self.tmp)
 
+    def _member(self, name: str):
+        info = zipfile.ZipInfo(name + ".npy", date_time=(1980, 1, 1, 0, 0, 0))
+        return self.zf.open(info, "w", force_zip64=True)
+
     def add(self, name: str, arr) -> None:
-        with self.zf.open(name + ".npy", "w", force_zip64=True) as fh:
+        with self._member(name) as fh:
             np.lib.format.write_array(fh, np.asanyarray(arr),
                                       allow_pickle=False)
 
@@ -539,7 +544,7 @@ class _NpzWriter:
         dtype = np.dtype(dtype)
         want = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
         done = 0
-        with self.zf.open(name + ".npy", "w", force_zip64=True) as fh:
+        with self._member(name) as fh:
             np.lib.format.write_array_header_1_0(fh, {
                 "descr": np.lib.format.dtype_to_descr(dtype),
                 "fortran_order": False, "shape": tuple(shape)})

@@ -17,6 +17,14 @@ at the f_lower crossing.
 
 Functions take tensors (per-sample parameters of any leading shape) and
 compute in their dtype; a chirp of (B,) parameters is (B, n).
+:func:`pn_chirp` computes the per-sample parameters in its inputs' dtype
+(float32 unless one is float64) and the time grid, the inversion of tau(v)
+and the phase in float64 always: over a long segment the phase reaches
+about 1e4 rad, where a float32's rounding (about 1e-3 rad) would differ
+between devices.  It inverts tau(v) with ``CHIRP_NEWTON_ITERS`` iterations,
+not the JAX package's 24, after which some samples are still unconverged,
+so that one ulp more on a log moves a 65536-sample chirp by over 1e-4 of
+its peak (under 1e-6 after 40).  The chirp it returns is float32.
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ MPC_S = 1.02927125054339e14       # 1 Mpc / c       [seconds]
 EULER_GAMMA = 0.5772156649015329
 
 _LN4 = 1.3862943611198906
+
+# Newton-bisection iterations of pn_chirp's tau(v) inversion (see above)
+CHIRP_NEWTON_ITERS = 40
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -262,7 +273,8 @@ def pn_chirp(
     f_taper_frac: float = 1.0,
 ) -> torch.Tensor:
     """Fixed-length detector-frame 3.5PN aligned-spin chirp, float32, of
-    shape ``m1.shape + (n,)``: coalescence ``t_post`` s before the segment
+    the broadcast shape of the parameters + (n,), on ``m1``'s device:
+    coalescence ``t_post`` s before the segment
     end, half-Hann turn-on at the f_lower crossing, merger-ringdown matched
     in amplitude and phase at the termination.
 
@@ -275,11 +287,15 @@ def pn_chirp(
     if not 0.5 < f_taper_frac <= 1.0:
         raise ValueError(
             f"f_taper_frac must be in (0.5, 1.0], got {f_taper_frac}")
-    m1 = torch.as_tensor(m1, dtype=torch.float32)
-    m2 = torch.as_tensor(m2, dtype=torch.float32, device=m1.device)
-    chi1 = torch.as_tensor(chi1, dtype=torch.float32, device=m1.device)
-    chi2 = torch.as_tensor(chi2, dtype=torch.float32, device=m1.device)
-    m1, m2, chi1, chi2 = torch.broadcast_tensors(m1, m2, chi1, chi2)
+    dev = torch.as_tensor(m1).device
+    params = [torch.as_tensor(a, device=dev) for a in (m1, m2, chi1, chi2)]
+    dtype = torch.float32
+    for a in params:
+        if a.is_floating_point():
+            dtype = torch.promote_types(dtype, a.dtype)
+    m1, m2, chi1, chi2 = torch.broadcast_tensors(
+        *(a.to(dtype) for a in params))
+    wide = torch.float64
     e = (..., None)
     dt = 1.0 / fs
     M_s, eta = mass_params(m1, m2)
@@ -295,13 +311,15 @@ def pn_chirp(
     tau_term = tau_of_v(v_term, M_s, eta, beta, sigma)
     f_term = v_term ** 3 / (math.pi * M_s)
 
-    t = torch.arange(n, dtype=torch.float32, device=m1.device) * dt
+    # the time grid, tau(v)'s inversion and the phase in float64
+    t = torch.arange(n, dtype=wide, device=dev) * dt
     t_c = (n - 1) * dt - t_post
     tau = t_c - t
-    tau_eff = torch.maximum(tau, tau_term[e])
+    tau_eff = torch.maximum(tau, tau_term.to(wide)[e])
 
-    Me, etae, betae, sigmae = M_s[e], eta[e], beta[e], sigma[e]
-    v = invert_tau(tau_eff, Me, etae, betae, sigmae, v_min[e], v_term[e])
+    Me, etae, betae, sigmae = (a.to(wide)[e] for a in (M_s, eta, beta, sigma))
+    v = invert_tau(tau_eff, Me, etae, betae, sigmae, v_min.to(wide)[e],
+                   v_term.to(wide)[e], iters=CHIRP_NEWTON_ITERS)
     f_t = v ** 3 / (math.pi * Me)
     phase = phi_c + phase_of_v(v, Me, etae, betae, sigmae)
     amp = (4.0 / d_s) * torch.pow(mc_s, 5.0 / 3.0)[e] * torch.pow(

@@ -369,6 +369,10 @@ def run_grid(args, model, schedule, ck, preps, noise: DrawNoise,
     top = results[0]
     top["validation"] = _emit_best_cmd(args, model, schedule, ck, top,
                                        grid_steps, noise, device)
+    # written again with the gate's verdict, as random mode does, so that
+    # ``gw-grid --from-sweep`` replays the knobs the gate shipped (the JAX
+    # package writes this file only before the gate)
+    _dump(args.outdir, "grid_results.json", results)
     return top
 
 

@@ -23,6 +23,7 @@ flax names and layouts (see ``utils/weights.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -30,9 +31,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import (conv3_same, flash_attention, fused_conv_gn_silu,
-                           group_norm)
+from ..ops.kernels import (conv3_same, flash_attention,
+                           flash_attention_reference, fused_conv_gn_silu,
+                           fused_conv_gn_silu_reference, group_norm)
 from ..utils.device import resolve_device
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block every module of this file runs through the
+    kernels' plain versions, on any device (forward and backward): the
+    plain path that the kernel path is held against on the card."""
+    global fused_conv_gn_silu, flash_attention
+    kernels = fused_conv_gn_silu, flash_attention
+    fused_conv_gn_silu = fused_conv_gn_silu_reference
+    flash_attention = flash_attention_reference
+    try:
+        yield
+    finally:
+        fused_conv_gn_silu, flash_attention = kernels
 
 
 def _lecun_normal_(p: torch.Tensor, fan_in: int) -> None:
@@ -117,6 +134,51 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_conv_gn_silu(x, self.conv.kernel, self.conv.bias,
                                   self.norm.scale, self.norm.bias, self.groups)
+
+
+class DecoderConvBlock(nn.Module):
+    """A decoder stage, ``conv3(concat(nearest_up2(h), skip)) -> GroupNorm
+    -> SiLU``, without the upsampled or concatenated tensor (JAX
+    ``DecoderConvBlock``): the conv splits over the concat's two parts, and
+    the nearest x2 upsample folds into the h part as two k=2 convs at half
+    length, interleaved (out[2j] = W0 h[j-1] + (W1 + W2) h[j], out[2j+1] =
+    (W0 + W1) h[j] + W2 h[j+1]).  The same math as the materialised path and
+    the same parameters as a ``ConvBlock`` of c_h + c_s inputs.
+
+    Plain PyTorch (``F.conv1d``), computed in ``dtype`` (float32 when None),
+    with GroupNorm's statistics in float32; ``UNet1D`` does not use it (its
+    decoder goes through the fused kernel, the JAX package's
+    ``use_pallas`` path, which never takes the fold)."""
+
+    def __init__(self, c_h: int, c_s: int, cout: int, dtype=None,
+                 device=None):
+        super().__init__()
+        self.c_h, self.dtype = c_h, dtype
+        self.conv = _ConvParams(c_h + c_s, cout, device)
+        self.norm = _GNParams(cout, device)
+        self.groups = _num_groups(cout)
+
+    def forward(self, h_low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """h_low (B, L / 2, c_h), skip (B, L, c_s), channels-last; returns
+        (B, L, cout) in ``dtype``."""
+        B, Lh, _ = h_low.shape
+        if skip.shape[1] != 2 * Lh:
+            raise ValueError(f"skip length {skip.shape[1]} is not twice "
+                             f"h's {Lh}")
+        dt = self.dtype or torch.float32
+        W = self.conv.kernel.to(dt)                  # (3, c_h + c_s, cout)
+        hb = h_low.to(dt).transpose(1, 2)
+        y_s = F.conv1d(skip.to(dt).transpose(1, 2),
+                       W[:, self.c_h:].permute(2, 1, 0), padding=1)
+        W_h = W[:, :self.c_h]
+        W_even = torch.stack([W_h[0], W_h[1] + W_h[2]]).permute(2, 1, 0)
+        W_odd = torch.stack([W_h[0] + W_h[1], W_h[2]]).permute(2, 1, 0)
+        y_e = F.conv1d(F.pad(hb, (1, 0)), W_even)
+        y_o = F.conv1d(F.pad(hb, (0, 1)), W_odd)
+        y_h = torch.stack([y_e, y_o], dim=-1).reshape(B, -1, 2 * Lh)
+        h = (y_h + y_s).transpose(1, 2) + self.conv.bias.to(dt)
+        return F.silu(group_norm(h, self.groups, self.norm.scale,
+                                 self.norm.bias).to(dt))
 
 
 class BottleneckAttention(nn.Module):

@@ -19,12 +19,36 @@ PEAKS = {
 }
 
 
+# peak float32 FLOP/s outside the tensor cores (the same data sheet)
+PEAKS_F32 = {"h100": 67e12}
+
+
 def peak_for(device_kind: str) -> Optional[Tuple[float, float]]:
     kind = device_kind.lower()
     for k, v in PEAKS.items():
         if k in kind:
             return v
     return None
+
+
+def bound_ms(flops: float, nbytes: float, device_kind: str,
+             dtype: str = "bfloat16") -> Optional[Tuple[float, str]]:
+    """The least time in ms the card could take for work of ``flops``
+    operations in ``dtype`` ("bfloat16" on the tensor cores, "float32"
+    outside them) that must move ``nbytes``: the larger of the two times at
+    the card's peaks, and which of "operations" or "bytes" it is.  None for
+    a card without published peaks here."""
+    peak = peak_for(device_kind)
+    if peak is None:
+        return None
+    kind = device_kind.lower()
+    if dtype == "float32":
+        flops_peak = next(v for k, v in PEAKS_F32.items() if k in kind)
+    else:
+        flops_peak = peak[0]
+    t_ops, t_bytes = flops / flops_peak, nbytes / peak[1]
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops
+                                       else "operations")
 
 
 def unet_flops_per_sample(

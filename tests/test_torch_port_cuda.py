@@ -10,7 +10,9 @@ every route), a few train steps on the card, ``eval_indices`` and
 forward's kernel path against its plain path, a data-parallel train step
 on two gloo ranks sharing the card, a one-rank NCCL group, and the data
 side (Welch PSDs and a gw-gen chunk against the CPU, chunks of a ragged
-``.npz`` twin resident on the card).
+``.npz`` twin resident on the card), and the tools' shapes (K1 at 512
+rows, K2 at (64, 4, 512, 64), a small population and a 65536-sample chirp
+against the CPU).
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is not installed:
@@ -947,8 +949,8 @@ def test_welch_psd_on_the_card_matches_cpu(cuda):
 
 def test_generate_chunk_on_the_card_matches_cpu(cuda, monkeypatch):
     """One gw-gen chunk synthesised on the card and on the CPU from the
-    same injected normal draws: signal within 3e-3 of its peak (float32
-    phase rounding, as against JAX), noise and PSD within 1e-5."""
+    same injected normal draws: signal within 3e-3 of its peak (the bar
+    against JAX; the phase is float64 on both), noise and PSD within 1e-5."""
     import argparse
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli import gen
@@ -1010,3 +1012,70 @@ def test_streaming_chunks_resident_on_the_card(cuda, tmp_path):
             np.testing.assert_array_equal(p[k].cpu().numpy(), w[k])
     list(ds.iter_batches_device(2, np.random.default_rng(4)))
     assert ds.h2d_bytes_epoch == 0
+
+
+# the tools' new shapes: K1 at bench_population's forward (B 256 x CFG =
+# 512 rows) at each of the reference-default U-Net's 7 ConvBlock shapes
+# (L, Cin, Cout), where rows x L x 3 Cin in bytes passes 2^31
+POP_BLOCKS = [(4096, 7, 64), (2048, 64, 128), (1024, 128, 256),
+              (512, 256, 256), (1024, 512, 256), (2048, 384, 128),
+              (4096, 192, 64)]
+
+
+@pytest.mark.parametrize("L,Cin,Cout", POP_BLOCKS)
+def test_kernel_at_the_population_batch(cuda, L, Cin, Cout):
+    x, W, b, s, bb = _block_inputs(cuda, 512, L, Cin, Cout, seed=L + Cin)
+    x = x.to(torch.bfloat16)
+    out = fused_conv_gn_silu(x, W, b, s, bb, 8)
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, 8)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_flash_attention_at_the_unet_bench_bottleneck(cuda):
+    # bench_kernels' attention U-Net at B 64, L 4096: K2 at (64, 4, 512, 64)
+    q, k, v = _qkv(cuda, 64, 4, 512, 64, seed=5)
+    assert attention_route(q, k, v) == "wgmma"
+    _assert_within_p_rounding(flash_attention(q, k, v), q, k, v)
+
+
+def test_bench_population_small_on_the_card_matches_cpu(cuda):
+    """The tool's population call in f32 (B 4, L 512, 3 steps) on the card
+    and on the CPU from the same weights, conditioning and x_T: within
+    1e-3 of the largest output (summation order through 7 blocks x 3
+    forwards)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import (
+        FixedNoise,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools import (
+        bench_population as bp,
+    )
+
+    g = torch.Generator().manual_seed(3)
+    cond = torch.randn(4, 5, 512, generator=g)
+    z = torch.randn(4, 1, 512, generator=g)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model, schedule, _ = bp.setup(4, 512, dev, dtype=torch.float32)
+        outs[dev] = bp.population(model, schedule, cond.to(dev), 3,
+                                  FixedNoise(z)).cpu()
+    err = (outs["cuda"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()
+    assert float(err) <= 1e-3
+
+
+def test_pn_chirp_long_on_the_card_matches_cpu(cuda):
+    """65536-sample chirps (low masses, spins, 4096 Hz): the float64 phase
+    and the converged inversion agree card against CPU within 1e-5 of the
+    peak (one ulp more on a log moves them under 1e-6:
+    ``test_torch_port_synth.py::test_pn_chirp_inversion_converges``)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pn
+
+    rng = np.random.default_rng(0)
+    params = [torch.tensor(rng.uniform(lo, hi, 6), dtype=torch.float32)
+              for lo, hi in ((10, 20), (10, 20), (-0.8, 0.8), (-0.8, 0.8))]
+    kw = dict(n=65536, fs=4096, f_taper_frac=0.85)
+    on_cpu = pn.pn_chirp(*params, **kw)
+    on_card = pn.pn_chirp(*(p.to(cuda) for p in params), **kw).cpu()
+    assert on_card.dtype == torch.float32
+    err = ((on_card - on_cpu).abs().amax(-1) / on_cpu.abs().amax(-1)).max()
+    assert float(err) <= 1e-5

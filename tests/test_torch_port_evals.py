@@ -620,6 +620,7 @@ def _run_sweeps(corpus, jax_keys, tmp_path, mode):
 def test_sweep_cli_matches_jax(corpus, jax_keys, tmp_path, mode, sweeps):
     jout, tout = _run_sweeps(corpus, jax_keys, tmp_path, mode)
     sweeps[mode] = jout
+    sweeps[f"{mode}_port"] = tout
     files = sorted(os.listdir(jout))
     assert sorted(os.listdir(tout)) == files
     assert "validation.json" in files and "best_cmd.txt" in files
@@ -627,6 +628,12 @@ def test_sweep_cli_matches_jax(corpus, jax_keys, tmp_path, mode, sweeps):
         if f.endswith(".json"):
             got, want = _load_json(os.path.join(tout, f)), _load_json(
                 os.path.join(jout, f))
+            if f == "grid_results.json":
+                # the port writes the file again after the gate, with its
+                # verdict on the top entry; JAX's holds every other field
+                assert "validation" not in want[0]
+                assert got[0].pop("validation") == _load_json(
+                    os.path.join(tout, "validation.json"))
             if f == "validation.json":
                 _close_json(got, want, REL_TOL)
             else:
@@ -646,12 +653,28 @@ def test_sweep_cli_matches_jax(corpus, jax_keys, tmp_path, mode, sweeps):
 
 def test_grid_cli_from_sweep_matches_jax(corpus, jax_keys, tmp_path, sweeps):
     if "grid" not in sweeps:
-        sweep_dir = str(tmp_path / "sweep")
-        jsweep_cli.main(_sweep_argv(corpus, corpus.h5, sweep_dir,
-                                    SWEEP_MODES["grid"]))
+        (tmp_path / "sweeps").mkdir()
+        sweep_dir, port_dir = _run_sweeps(corpus, jax_keys,
+                                          tmp_path / "sweeps", "grid")
         jax_keys.calls.clear()
+        jax_keys.used.clear()
     else:
-        sweep_dir = sweeps["grid"]
+        sweep_dir, port_dir = sweeps["grid"], sweeps["grid_port"]
+    # the port's sweep: --from-sweep replays the knobs the gate shipped in
+    # best_cmd.txt, whichever way the gate went (JAX replays the top combo)
+    val = _load_json(os.path.join(port_dir, "validation.json"))
+    cmd_only = _sweep_dir(tmp_path, "cmd_only", {"best_cmd.txt": open(
+        os.path.join(port_dir, "best_cmd.txt")).read()})
+    replayed = tgrid.parse_sweep_best(port_dir)
+    shipped = tgrid.parse_sweep_best(cmd_only)
+    assert {k: replayed[k] for k in shipped} == shipped
+    top = _load_json(os.path.join(port_dir, "grid_results.json"))[0]
+    assert top["validation"] == val
+    if val["emit_top"]:
+        assert replayed == jgrid.parse_sweep_best(sweep_dir)
+    else:
+        assert replayed["start_t"] == 999 and replayed != \
+            jgrid.parse_sweep_best(sweep_dir)
     common = ["--model", corpus.ckpt, "--from-sweep", sweep_dir,
               "--per-cell", "2", "--avg-seeds", "2", "--avg-mode", "median",
               "--amp-calib", "mf", "--start-t", "999", "--seed", "3"]
@@ -676,3 +699,35 @@ def test_grid_cli_from_sweep_matches_jax(corpus, jax_keys, tmp_path, sweeps):
     assert summ_t["n_cells"] == 4 and "uncertainty" in summ_t
     assert "by_snr" in summ_t
     _close_json(summ_t, summ_j, REL_TOL)
+
+
+def test_grid_sweep_replays_a_rejected_gate(corpus, tmp_path, monkeypatch):
+    """A grid-mode sweep whose gate rejects the top combo (the verdict
+    flipped after the gate has scored both): ``grid_results.json`` carries
+    it, so ``parse_sweep_best`` (``gw-grid --from-sweep``) replays the
+    default knobs that ``best_cmd.txt`` ships.  JAX's file, written only
+    before the gate, would replay the top combo."""
+    score = tsweep.validate_top
+
+    def rejected(*a, **kw):
+        return dict(score(*a, **kw), emit_top=False)
+
+    monkeypatch.setattr(tsweep, "validate_top", rejected)
+    out = str(tmp_path / "sweep")
+    tsweep_cli.main(_sweep_argv(corpus, corpus.npz, out, SWEEP_MODES["grid"])
+                    + ["--device", "cpu"])
+    results = _load_json(os.path.join(out, "grid_results.json"))
+    assert results[0]["validation"] == _load_json(
+        os.path.join(out, "validation.json"))
+    assert results[0]["validation"]["emit_top"] is False
+    replayed = tgrid.parse_sweep_best(out)
+    default = tsweep.default_combo().to_dict()
+    assert {k: replayed[k] for k in default} == default
+    assert replayed["start_t"] == 999
+    with open(os.path.join(out, "best_cmd.txt")) as fh:
+        assert "--start-t 999" in fh.read()
+    del results[0]["validation"]
+    assert jgrid.parse_sweep_best(_sweep_dir(
+        tmp_path, "before_gate",
+        {"grid_results.json": results}))["start_snr"] == results[0][
+            "combo"]["start_snr"]

@@ -14,11 +14,14 @@ against the JAX package's, on the CPU.
   equal to the HDF5 merge, the checks and the domain warning.
 
 Tolerances: specs, buckets, scalar columns, lengths, attributes and the
-Welch grid are equal.  The chirps are float32 in both packages, whose
-phases round differently through the Newton inversion: each signal row
+Welch grid are equal.  The chirps are float32 in both packages, but the
+port inverts tau(v) to convergence and computes the phase in float64, JAX
+in float32 with fewer iterations: each signal row
 within 3e-3 of its peak (the bar of ``tests/test_torch_port_synth.py``),
 and so the noisy rows.  Noise, the model PSD and the Welch PSDs within
-1e-5 of each row's peak (float32 FFTs rounded in another order).  The
+1e-5 of each row's peak (float32 FFTs rounded in another order; the Welch
+PSDs measured 7.6e-6 at most), and each Welch PSD within 1e-5 of JAX's
+Welch PSD of the same noisy row.  The
 merger time is the |signal| peak's sample, the same sample unless two
 samples near the peak are closer than the signal tolerance.
 """
@@ -217,6 +220,25 @@ def _h5(path):
     return data, attrs
 
 
+def _jax_welch(noisy):
+    """JAX's gw-gen Welch PSD of one noisy row (strain x STRAIN_SCALE in
+    float32 through ``ops.whiten.welch_psd``, undone in float64)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu.data.synth import (
+        STRAIN_SCALE,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu.ops.whiten import (
+        welch_psd,
+    )
+
+    args = jgen.build_parser().parse_args(GEN_ARGS + ["--output-path", "x"])
+    arr = (np.asarray(noisy, np.float64)[None] * STRAIN_SCALE).astype(
+        np.float32)
+    _, P = welch_psd(jnp.asarray(arr), FS,
+                     nperseg=min(args.psd_nperseg, arr.shape[1]),
+                     noverlap=args.psd_noverlap)
+    return np.asarray(P, np.float64)[0] / STRAIN_SCALE ** 2
+
+
 def test_gen_cli_files_match_jax(corpora):
     got, got_attrs = _h5(corpora["port.h5"])
     want, want_attrs = _h5(corpora["jax.h5"])
@@ -236,6 +258,8 @@ def test_gen_cli_files_match_jax(corpora):
             <= PEAK_TOL * sig_peak
         for k in ("noise", "psd", "psd_model", "psd_welch"):
             assert _peak_err(got[k][i], want[k][i]) <= NOISE_TOL, (k, i)
+        assert _peak_err(got["psd_welch"][i],
+                         _jax_welch(got["noisy"][i])) <= NOISE_TOL, i
         np.testing.assert_array_equal(got["psd_welch_freqs"][i],
                                       want["psd_welch_freqs"][i])
         shift = got["t_merger"][i] - want["t_merger"][i]

@@ -598,5 +598,45 @@ def test_train_with_mesh_matches_unsharded(pool, tmp_path):
             assert float((g[name] - w[name]).abs().max()) <= PARAM_ATOL, name
 
 
+def _stream_train_on_rank(mesh, cfg_kw, model_dirs):
+    cfg = tt.TrainConfig(**dict(cfg_kw, model_dir=model_dirs[mesh.rank]))
+    out = tt.train(cfg, mesh=mesh, device="cpu")
+    return out["history"], out["checkpoint"]
+
+
+def test_streaming_train_with_mesh_matches_unsharded(pool, tmp_path):
+    """``train(mesh=, streaming=True)`` on two ranks, each streaming the
+    ragged ``.npz`` twin a chunk at a time: per-epoch losses within 1e-4 of
+    one process's, the same global step, and the final weights within the
+    step test's bar (``PARAM_ATOL``)."""
+    from test_torch_port_streaming import _corpus
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import (
+        hdf5io as tio,
+    )
+
+    args, kw = _corpus([300, 700, 512, 1000, 260, 900, 640, 333, 1024], 0)
+    path = str(tmp_path / "ragged.npz")
+    tio.write_dataset(path, *args, **kw)
+    cfg_kw = dict(TRAIN_BASE, data=path, batch_size=4, epochs=2,
+                  streaming=True, stream_chunk=3, whiten=True,
+                  p_selfcond=0.5, data_parallel=True, save_every_epochs=1)
+    alone = tt.train(tt.TrainConfig(**dict(cfg_kw,
+                                           model_dir=str(tmp_path / "one"))),
+                     device="cpu")
+    dirs = [str(tmp_path / f"rank{r}") for r in range(N_RANKS)]
+    (h0, ck0), (h1, _) = pool.run(_stream_train_on_rank, cfg_kw, dirs)
+    assert h0 == h1 and len(h0) == 2
+    for g, w in zip(h0, alone["history"]):
+        np.testing.assert_allclose(g["avg_per_sample"], w["avg_per_sample"],
+                                   rtol=1e-4)
+    got, want = tck.load_checkpoint(ck0), tck.load_checkpoint(
+        alone["checkpoint"])
+    assert got["global_step"] == want["global_step"] > 0
+    g, w = (params_from_flax(c["model_state"]) for c in (got, want))
+    for name in w:
+        assert float((g[name] - w[name]).abs().max()) <= PARAM_ATOL, name
+
+
 def test_dryrun_multichip():
     graft_entry.dryrun_multichip(2, "cpu")

@@ -5,10 +5,13 @@ on the device and the synthetic corpus.
 
 Tolerances: the host pipeline is the same float64 numpy, so buckets,
 batches and meta scales are bit-equal.  The chirps are float32 in both
-packages, whose phases (hundreds to thousands of radians) round differently
-through the Newton inversion: within 3e-3 of the waveform's peak (measured
-7e-4); the PN helper functions within 1e-5 relative; the coloured noise,
-PSD and matched-filter sigma within 1e-5 of their peak.
+packages, but the port runs the time grid, the Newton inversion (to
+convergence: 40 iterations, JAX 24) and the phase (hundreds to thousands
+of radians) in float64 and JAX in float32: within 3e-3 of the waveform's
+peak (measured 6.8e-4, near the merger); the
+PN helper functions within 1e-5 relative; the coloured noise, PSD and
+matched-filter sigma within 1e-5 of their peak (sigma measured 2.4e-6),
+and sigma within 1e-5 of JAX's sigma of the port's own chirp.
 """
 import jax
 import jax.numpy as jnp
@@ -60,6 +63,34 @@ def test_pn_chirp_matches_jax(ringdown, taper):
     one = tpn.pn_chirp(_t(M1[0]), _t(M2[0]), _t(C1[0]), _t(C2[0]), n=2048,
                        fs=2048, ringdown=ringdown, f_taper_frac=taper)
     assert torch.equal(one, got[0])             # a scalar sample alone
+
+
+def test_pn_chirp_inversion_converges(monkeypatch):
+    """One ulp more on every float64 log moves six 65536-sample chirps (10-20
+    Msun, spins +-0.8) by under 1e-6 of their peak with the port's
+    ``CHIRP_NEWTON_ITERS``; with JAX's 24 iterations some samples are still
+    unconverged and it moves them by over 1e-4 (why the port runs 40)."""
+    rng = np.random.default_rng(0)
+    params = [_t(rng.uniform(lo, hi, 6)) for lo, hi in
+              ((10, 20), (10, 20), (-0.8, 0.8), (-0.8, 0.8))]
+    log = torch.log
+
+    def moved(iters):
+        monkeypatch.setattr(tpn, "CHIRP_NEWTON_ITERS", iters)
+        kw = dict(n=65536, fs=4096, f_taper_frac=0.85)
+        base = tpn.pn_chirp(*params, **kw)
+        monkeypatch.setattr(torch, "log", lambda x: log(x) * (1 + 2 ** -52)
+                            if x.dtype == torch.float64 else log(x))
+        try:
+            bumped = tpn.pn_chirp(*params, **kw)
+        finally:
+            monkeypatch.setattr(torch, "log", log)
+        return float(((bumped - base).abs().amax(-1)
+                      / base.abs().amax(-1)).max())
+
+    assert tpn.CHIRP_NEWTON_ITERS == 40
+    assert moved(40) <= 1e-6
+    assert moved(24) > 1e-4
 
 
 def test_pn_chirp_rejects_a_taper_out_of_range():
@@ -117,6 +148,17 @@ def test_generate_batch_matches_jax_with_its_draws():
     assert _peak_err(got["signal"].numpy(), want["signal"]) <= PEAK_TOL
     for k in ("noise", "psd", "raw_sigma"):
         assert _peak_err(got[k].numpy(), want[k]) <= 1e-5, k
+    # and raw_sigma against JAX's matched-filter sigma of the port's own
+    # chirp, which leaves out the two chirps' difference
+    c = tsynth.SynthConfig(**SYN)
+    fp, fx = tsynth.resolve_antenna(c.ra, c.dec, c.polarization)
+    h = tpn.pn_chirp(*(_t(a) for a in (M1, M2, C1, C2)), n=c.n, fs=c.fs,
+                     distance=c.distance, f_lower=c.f_lower, fplus=fp,
+                     fcross=fx, ringdown=c.ringdown,
+                     f_taper_frac=c.f_taper_frac)
+    sigma = jsynth.matched_filter_sigma(jnp.asarray(h.numpy()), want["psd"],
+                                        c.fs, c.f_lower)
+    assert _peak_err(got["raw_sigma"].numpy(), sigma) <= 1e-5
     torch.testing.assert_close(got["noisy"], got["signal"] + got["noise"])
     assert dataclass_fields(tsynth.SynthConfig) == dataclass_fields(
         jsynth.SynthConfig)
