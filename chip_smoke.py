@@ -76,7 +76,12 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              ``gw-serve`` in batch mode (6 requests, one chunk padded) and
              over HTTP on an ephemeral port (a POST, ``/contract``,
              ``/healthz``, a wrong shape answered 400 with the server
-             alive).
+             alive).  Then the pod-serving artifact (``pod_serving``):
+             pn128 exported with ``dp=2`` in f32 and bf16 (64 rows a
+             forward over the two ranks, 10 steps), replayed on two gloo
+             ranks sharing the card and held against the dp = 1 artifact
+             of the same checkpoint on the same batch and seed (f32 within
+             the model bar, bf16 reported), launches and times per rank.
 9. autograd - a grad-enabled CUDA forward launches both kernels (counted)
              and backpropagates through their registered backwards.
 10. train  - attn16k training at full width (base_ch 64, depth 3,
@@ -137,8 +142,16 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              rank 1's rows refused on both; (d) on those ranks, in f32,
              ``reconstruct_batch(mesh=)`` (16 rows) and ``tiled_apply(
              mesh=)`` over 3 tiles against their calls without a mesh;
-             then ``dryrun_multichip(2, device="cuda")``.  The ranks
-             record their launched shapes for the next phase.
+             (e) ``parallel_tp``: (b) and (d) again on a 1x2
+             tensor-parallel mesh (each rank all 16 rows, K1 on half of
+             each block's output channels with 4 groups, K2 on 2 of the 4
+             heads; weights with a non-zero ``proj``), with the
+             collectives' time from the profile, each rank's peak memory
+             and K1 / K2 launches by shape; then
+             ``dryrun_multichip(2, device="cuda")``, now a 1x2
+             tensor-parallel step and a dp = 2 pod artifact, and K1 at its
+             shard shapes.  The ranks record their launched shapes for
+             the launched_shapes phase.
 15. data   - the data side through the CLIs in-process: gw-gen of the
              README quickstart corpus as written (grid, 2000 samples, 10-90
              Msun, spins +-0.8, SNR 8-30, fs 4096, every PSD saved, PN
@@ -1619,6 +1632,165 @@ def phase_export(torch, config, tmp):
     return launches
 
 
+def _pod_rank(rank, port, payload, queue):
+    """One of two ranks sharing the card in a gloo group: the ranks export
+    the pod artifacts of ``payload["exports"]`` between them, one each, at
+    once; then each artifact of ``payload["arts"]`` loaded, replayed on the
+    global batch (counted, then timed); puts its results on ``queue`` and
+    leaves without the interpreter's teardown."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import serving
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=PAR_RANKS, rank=rank)
+    out = {"rank": rank, "export_s": {}}
+    for dname, kw in list(payload["exports"].items())[rank::PAR_RANKS]:
+        t0 = time.perf_counter()
+        out["export_dp"] = serving.export_sampler(**kw)["dp"]
+        out["export_s"][dname] = time.perf_counter() - t0
+    dist.barrier()
+    shapes = LaunchShapes()
+    with shapes:
+        LaunchShapes.label = "pod ranks"
+        for dname, art in payload["arts"].items():
+            t0 = time.perf_counter()
+            call, contract = serving.load_exported(art)
+            load_s = time.perf_counter() - t0
+            reset_launch_counts()
+            x0 = call(payload["cond"], payload["sig"], 5)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            call_s = []
+            for seed in range(6, 6 + POD_TIMED_RUNS):
+                t0 = time.perf_counter()
+                call(payload["cond"], payload["sig"], seed)
+                torch.cuda.synchronize()
+                call_s.append(time.perf_counter() - t0)
+            out[dname] = {"x0": x0.cpu().numpy(), "load_s": load_s,
+                          "launches": launches, "call_s": call_s,
+                          "batch": contract["calling_convention"]["inputs"][
+                              "cond_stack"][0],
+                          "rows_per_rank": contract["rows_per_rank"],
+                          "contract_version": contract["contract_version"]}
+    out["shapes"] = shapes.raw
+    queue.put(out)
+    queue.close()
+    queue.join_thread()
+    dist.barrier()
+    sys.stdout.flush()
+    os._exit(0)
+
+
+POD_TIMED_RUNS = 2
+
+
+def phase_pod(torch, tmp, shapes):
+    """The pod-serving artifact (``export_sampler(dp=2)``) at pn128 width,
+    the export phase's batch and knobs: 4 requests x 8 seeds x CFG = 64
+    rows a forward over both ranks, 10 steps.  Exported in f32 (a
+    checkpoint written here) and in bf16 (the infer phase's checkpoint) by
+    the two gloo ranks, one each, while this process exports the f32 dp = 1
+    reference; replayed on the ranks, which share the card (32 rows a
+    forward each), and held against the dp = 1 artifact of the same
+    checkpoint on the same batch and seed: f32 within ``MODEL_TOL``, bf16
+    reported.  Returns the launches of rank 0's bf16 replay."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import serving
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    config = "pn128"
+    L, seeds = PATHS[config]["L"], PATHS[config]["seeds"]
+    knobs = dict(steps=SERVING_STEPS, ladder="lambda", cfg_scale=1.5,
+                 avg_seeds=seeds, avg_mode="mean", amp_calib="mf")
+    ckpts = {"float32": os.path.join(tmp, "pn128_f32.msgpack"),
+             "bfloat16": os.path.join(tmp, f"{config}.msgpack")}
+    write_checkpoint(FLAGSHIP, dict(infer_args(FLAGSHIP), bf16=False),
+                     ckpts["float32"], 12)
+    # the bf16 dp = 1 artifact is the export phase's; the ranks export the
+    # two dp = 2 artifacts while this process exports the f32 dp = 1 one
+    arts = {"float32": {1: os.path.join(tmp, "pn128_f32.pt2")},
+            "bfloat16": {1: os.path.join(tmp, f"{config}.pt2")}}
+    exports = {}
+    for dname in arts:
+        arts[dname][2] = os.path.join(tmp, f"pn128_{dname}_dp2.pt2")
+        exports[dname] = dict(ckpt_path=ckpts[dname],
+                              out_path=arts[dname][2],
+                              batch=SERVING_REQUESTS, length=L,
+                              device="cuda", dp=2, **knobs)
+    cond, sig = served_inputs(SERVING_REQUESTS, L, 23)
+    export_s, want, want_launches = {}, {}, {}
+
+    def references():
+        t0 = time.perf_counter()
+        contract = serving.export_sampler(**dict(
+            exports["float32"], out_path=arts["float32"][1], dp=1))
+        export_s["float32 dp1"] = time.perf_counter() - t0
+        check(contract["dp"] == 1, f"pod reference export: {contract}")
+        for dname in arts:
+            call, _ = serving.load_exported(arts[dname][1])
+            reset_launch_counts()
+            want[dname] = call(cond, sig, 5).cpu().numpy()
+            torch.cuda.synchronize()
+            want_launches[dname] = launch_counts()
+            del call
+
+    got, ranks_s = spawn_ranks(_pod_rank, {
+        "exports": exports, "arts": {d: a[2] for d, a in arts.items()},
+        "cond": cond, "sig": sig}, shapes, meanwhile=references)
+    r0, r1 = got
+    for r in got:
+        check(r["export_dp"] == 2, f"pod export on rank {r['rank']}: dp "
+                                   f"{r['export_dp']}")
+        export_s.update({f"{d} dp2": t for d, t in r["export_s"].items()})
+    rec = {"phase": "pod_serving", "config": config, "dp": 2,
+           "ranks": PAR_RANKS, "backend": "gloo", "card_shared": True,
+           "requests": SERVING_REQUESTS, "avg_seeds": seeds,
+           "rows_per_forward_global": 2 * SERVING_REQUESTS * seeds,
+           "steps": SERVING_STEPS, "export_s": export_s,
+           "ranks_s": ranks_s,
+           "note": "two ranks share one card: the times show that the pod "
+                   "artifact runs, not how it scales"}
+    for dname in arts:
+        a, b = r0[dname], r1[dname]
+        err = float(np.abs(a["x0"] - want[dname]).max()
+                    / np.abs(want[dname]).max())
+        rec[dname] = {"max_rel_err_vs_dp1": err, "tol": (
+            MODEL_TOL if dname == "float32" else "reported"),
+            "ranks_equal": bool(np.array_equal(a["x0"], b["x0"])),
+            "rows_per_rank": a["rows_per_rank"],
+            "contract_version": a["contract_version"],
+            "load_s": [a["load_s"], b["load_s"]],
+            "call_s_median": float(np.median(a["call_s"])),
+            "call_s": [a["call_s"], b["call_s"]],
+            "launches_rank0": a["launches"],
+            "launches_dp1": want_launches[dname]}
+        check(rec[dname]["ranks_equal"] and a["x0"].shape == want[
+            dname].shape and bool(np.isfinite(a["x0"]).all())
+              and a["batch"] == SERVING_REQUESTS
+              and a["rows_per_rank"] == SERVING_REQUESTS // 2,
+              f"pod {dname}: the ranks' outputs")
+        # each rank launches what the dp=1 replay does, at half its rows
+        check(all(r[dname]["launches"] == want_launches[dname] for r in got),
+              f"pod {dname}: rank launches {a['launches']}, dp=1 "
+              f"{want_launches[dname]}")
+    emit(rec)
+    check(rec["float32"]["max_rel_err_vs_dp1"] <= MODEL_TOL,
+          f"pod f32 vs dp=1: {rec['float32']['max_rel_err_vs_dp1']}")
+    return r0["bfloat16"]["launches"]
+
+
 def phase_bench(torch):
     """The port's ``bench.py`` and ``entry()`` once each, with K1's
     launches; returns the launches of both."""
@@ -2354,6 +2526,9 @@ PAR_ROWS = 2 * PAR_TILES                 # CFG x tiles, one forward
 PAR_RANKS = 2                            # gloo ranks sharing the card
 PAR_TIMED_STEPS = 6
 PAR_PROFILED_STEPS = 3
+# the tensor-parallel ranks' bf16 steps: warm-up, timed, profiled (fewer:
+# on a shared card they check the path and the collectives, not scaling)
+TP_STEPS = (2, 3, 2)
 PAR_BATCH_MEASUREMENTS = 8               # x 2 seeds = 16 rows, 8 a rank
 PAR_MESH_TILE_L = 3 * PAR_CHUNK - 1000   # 3 tiles: one dummy on 2 ranks
 
@@ -2409,11 +2584,12 @@ def par_f32_step(torch, tmp, batch, mesh=None):
 
 
 def _par_rank(rank, port, payload, queue):
-    """One of two ranks sharing the card in a gloo group: the f32 step on
-    its rows, timed and profiled bf16 steps, a NaN in rank 1's rows, a
-    sharded ``reconstruct_batch`` and a tiled forward over the mesh; puts
-    its results on ``queue`` and leaves without the interpreter's
-    teardown."""
+    """One of two ranks sharing the card in a gloo group, on a 2x1 data
+    mesh or, with ``payload["tp"]``, a 1x2 tensor-parallel mesh: the f32
+    step on its rows, timed and profiled bf16 steps (the collectives' time,
+    the peak memory), a NaN in rank 1's rows, ``reconstruct_batch`` and a
+    tiled forward over the mesh; puts its results on ``queue`` and leaves
+    without the interpreter's teardown."""
     import torch
     import torch.distributed as dist
 
@@ -2432,12 +2608,15 @@ def _par_rank(rank, port, payload, queue):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=PAR_RANKS, rank=rank)
-    mesh = pmesh.make_mesh()
-    out = {"rank": rank, "backend": dist.get_backend(mesh.group)}
+    tp = payload.get("tp", False)
+    mesh = (pmesh.make_mesh(n_data=1, n_model=PAR_RANKS) if tp
+            else pmesh.make_mesh())
+    out = {"rank": rank, "mesh": mesh.shape, "backend": dist.get_backend(
+        mesh.model_group if tp else mesh.group)}
     tt = _train_module()
     shapes = LaunchShapes()
     with shapes, tempfile.TemporaryDirectory() as tmp:
-        LaunchShapes.label = "gloo ranks"
+        LaunchShapes.label = "tp ranks" if tp else "gloo ranks"
         out["f32_step"], out["f32_flat"], out["f32_grad"] = par_f32_step(
             torch, tmp, payload["f32_batch"], mesh)
 
@@ -2449,13 +2628,17 @@ def _par_rank(rank, port, payload, queue):
         step = tt.make_train_step(model, schedule, cfg, opt, lr, mesh)
         batch = _cuda_batch(torch, payload["bf16_batch"])
         key = tt.key_from_seed(3)
-        for _ in range(3):
+        warm, timed, profiled = (TP_STEPS if tp else
+                                 (3, PAR_TIMED_STEPS, PAR_PROFILED_STEPS))
+        for _ in range(warm):
             key, k = tt.split_key(key)
             step(state, batch, k, 0, 0.2, 0.5)
         torch.cuda.synchronize()
         step_ms, coins = [], []
         reset_launch_counts()
-        for _ in range(PAR_TIMED_STEPS):
+        shapes.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(timed):
             key, k = tt.split_key(key)
             t0 = time.perf_counter()
             step(state, batch, k, 0, 0.2, 0.5)
@@ -2463,6 +2646,8 @@ def _par_rank(rank, port, payload, queue):
             step_ms.append(1e3 * (time.perf_counter() - t0))
             coins.append(tt._uniform(k) < 0.5)
         out["timed_launches"] = launch_counts()
+        out["timed_launches_by_shape"] = shapes.launches_by_shape()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["step_ms"], out["coins"] = step_ms, coins
 
         from torch.profiler import ProfilerActivity, profile
@@ -2470,23 +2655,37 @@ def _par_rank(rank, port, payload, queue):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(PAR_PROFILED_STEPS):
+            for _ in range(profiled):
                 key, k = tt.split_key(key)
                 step(state, batch, k, 0, 0.2, 0.5)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        trace = TRACES / f"parallel_gloo_rank{rank}_trace.json"
+        trace = TRACES / (f"parallel_{'tp' if tp else 'gloo'}_rank{rank}"
+                          f"_trace.json")
         TRACES.mkdir(exist_ok=True)
         prof.export_chrome_trace(str(trace))
         events = json.loads(trace.read_text())["traceEvents"]
-        reduce_us = [float(e["dur"]) for e in events
-                     if e.get("cat") == "user_annotation"
-                     and e["name"] == "train/all_reduce"]
+        # the collectives' host ranges (gloo blocks the calling thread):
+        # the data axis's gradient mean, the model axis's gradient sum, the
+        # tensor-parallel layers' gathers and sums
+        coll = {}
+        for e in events:
+            if e.get("cat") == "user_annotation" and e["name"] in (
+                    "train/all_reduce", "train/model_all_reduce",
+                    "tp/all_gather", "tp/all_reduce"):
+                c = coll.setdefault(e["name"], {"calls": 0, "ms": 0.0})
+                c["calls"] += 1
+                c["ms"] += float(e["dur"]) / 1e3
+        for c in coll.values():
+            c["ms_per_step"] = c["ms"] / profiled
+            c["calls_per_step"] = c["calls"] / profiled
         out["profile"] = {"trace": str(trace.relative_to(TRACES.parent)),
-                          "all_reduce_ms_per_step":
-                              sum(reduce_us) / 1e3 / PAR_PROFILED_STEPS,
-                          "all_reduces": len(reduce_us),
-                          **train_split(trace, wall_us, PAR_PROFILED_STEPS)}
+                          "all_reduce_ms_per_step": coll.get(
+                              "train/all_reduce", {}).get("ms_per_step", 0.0),
+                          "all_reduces": coll.get(
+                              "train/all_reduce", {}).get("calls", 0),
+                          "collectives": coll,
+                          **train_split(trace, wall_us, profiled)}
 
         # a NaN in one of rank 1's rows: both ranks refuse the batch
         bad = dict(payload["bf16_batch"])
@@ -2739,6 +2938,45 @@ def phase_parallel_tiles(torch, tmp, shapes):
     return prep, launches, cli_launches
 
 
+def spawn_ranks(fn, payload, shapes, meanwhile=None):
+    """Run ``fn(rank, port, payload, queue)`` in ``PAR_RANKS`` spawned
+    processes, and ``meanwhile()`` here while they run; returns what each
+    put on the queue, in rank order, and the seconds they took.  A failed
+    rank raises.  The launch shapes the ranks recorded (their ``shapes``
+    entry) go into ``shapes``."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = mp.start_processes(fn, args=(_free_port(), payload, queue),
+                               nprocs=PAR_RANKS, join=False,
+                               start_method="spawn")
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    except BaseException:
+        for p in procs.processes:
+            p.terminate()
+        raise
+    got = []
+    while len(got) < PAR_RANKS:
+        try:
+            got.append(queue.get(timeout=5))
+        except queue_mod.Empty:
+            procs.join(timeout=0)        # raises if a rank failed
+    while not procs.join():
+        pass
+    got.sort(key=lambda r: r["rank"])
+    for r in got:
+        for kernel, raw in r.pop("shapes", {}).items():
+            for key, labels in raw.items():
+                shapes.raw[kernel].setdefault(key, set()).update(labels)
+    return got, time.perf_counter() - t0
+
+
 def phase_parallel_ranks(torch, tmp, prep, shapes):
     """(b) and (d): two ranks sharing the card in a gloo group (NCCL
     refuses two ranks on one device).  (b) One f32 step at global batch 16
@@ -2747,16 +2985,17 @@ def phase_parallel_ranks(torch, tmp, prep, shapes):
     rows refused on both.  (d) In f32, so that the check sees the sharding
     and not bf16 rounding: ``reconstruct_batch(mesh=)`` (8 measurements x
     2 seeds = 16 rows) and ``tiled_apply(mesh=)`` over 3 tiles against
-    their calls without a mesh; then ``dryrun_multichip(2, "cuda")``."""
-    import queue as queue_mod
-
-    import torch.multiprocessing as mp
-
+    their calls without a mesh.  (e) All of it again on a 1x2
+    tensor-parallel mesh (``parallel_tp``); then ``dryrun_multichip(2,
+    "cuda")``, a 1x2 tensor-parallel step and the dp = 2 pod artifact, and
+    K1 at its shard shapes.  Returns the launches of tensor-parallel rank
+    0's timed bf16 steps."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.schedules import (
         build_t_schedule,
     )
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import graft_entry, inference
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sampling import SamplerConfig
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel.seqtile import tiled_apply
 
@@ -2794,27 +3033,7 @@ def phase_parallel_ranks(torch, tmp, prep, shapes):
     del model
     torch.cuda.empty_cache()
 
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    t0 = time.perf_counter()
-    procs = mp.start_processes(_par_rank, args=(_free_port(), payload, queue),
-                               nprocs=PAR_RANKS, join=False,
-                               start_method="spawn")
-    got = []
-    while len(got) < PAR_RANKS:
-        try:
-            got.append(queue.get(timeout=5))
-        except queue_mod.Empty:
-            procs.join(timeout=0)        # raises if a rank failed
-    while not procs.join():
-        pass
-    got.sort(key=lambda r: r["rank"])
-    ranks_s = time.perf_counter() - t0
-    for r in got:
-        for kernel, raw in r.pop("shapes").items():
-            for key, labels in raw.items():
-                shapes.raw[kernel].setdefault(key, set()).update(labels)
-
+    got, ranks_s = spawn_ranks(_par_rank, payload, shapes)
     r0, r1 = got
     f32_rel = float(np.abs(r0["f32_flat"] - want_flat).max()
                     / np.abs(want_flat).max())
@@ -2884,10 +3103,122 @@ def phase_parallel_ranks(torch, tmp, prep, shapes):
           f"the ranks' launches {r0['batch_launches']} "
           f"{r0['tile_launches']}")
 
+    # (e) the same on a 1x2 tensor-parallel mesh: each rank holds all 16
+    # rows and its share of the split blocks' channels and heads
+    got, tp_s = spawn_ranks(_par_rank, dict(payload, tp=True), shapes)
+    phase_parallel_tp(got, tp_s, want_m, want_flat, want_grad, want_x0,
+                      want_std, want_tile, n_fwd)
+    tp_launches = got[0]["timed_launches"]
+
     t0 = time.perf_counter()
     graft_entry.dryrun_multichip(2, device="cuda")
-    emit({"phase": "parallel_dryrun", "n_devices": 2, "device": "cuda",
-          "backend": "gloo", "seconds": time.perf_counter() - t0})
+    emit({"phase": "parallel_dryrun", "n_devices": 2, "mesh": "1x2",
+          "device": "cuda", "backend": "gloo",
+          "seconds": time.perf_counter() - t0})
+    # K1 at the dryrun ranks' shard shapes (its tensor-parallel step, f32):
+    # Cout / 2 with 4 of the 8 groups, which the ranks launched unrecorded
+    dry = UNet1D(in_ch=7, base_ch=16, time_dim=16, depth=2, cond_in_ch=5,
+                 use_selfcond=True, device="cuda")
+    phase_kernel(torch, "dryrun tp", tp_shard_shapes(dry, 256, PAR_RANKS),
+                 ((torch.float32, 2),), groups=8 // PAR_RANKS)
+    return tp_launches
+
+
+def tp_shard_shapes(model, L, n_model):
+    """(name, L, Cin, Cout / n) of each ConvBlock of ``model`` that splits
+    over ``n_model`` model ranks, at input length L."""
+    split, _ = model.tensor_parallel_plan(n_model)
+    return [(name, n, cin, cout // n_model)
+            for name, n, cin, cout in convblock_shapes(model, L)
+            if name in split]
+
+
+def phase_parallel_tp(got, seconds, want_m, want_flat, want_grad, want_x0,
+                      want_std, want_tile, n_fwd):
+    """(e): the two tensor-parallel ranks' results against the
+    single-process references of (b) and (d); emits ``parallel_tp``."""
+    r0, r1 = got
+    f32_rel = float(np.abs(r0["f32_flat"] - want_flat).max()
+                    / np.abs(want_flat).max())
+    f32_grad_rel = float(np.abs(r0["f32_grad"] - want_grad).max()
+                         / np.abs(want_grad).max())
+    f32_loss_rel = abs(r0["f32_step"]["loss"] - want_m["loss"]) / abs(
+        want_m["loss"])
+    batch_rel = float(np.abs(r0["batch_x0"] - want_x0).max()
+                      / np.abs(want_x0).max())
+    std_rel = float(np.abs(r0["batch_std"] - want_std).max()
+                    / np.abs(want_std).max())
+    tile_rel = float(np.abs(r0["tile_y"] - want_tile).max()
+                     / np.abs(want_tile).max())
+    fwd = [TP_STEPS[1] + sum(r["coins"]) for r in got]
+    emit({"phase": "parallel_tp", "config": "attn16k", "mesh": r0["mesh"],
+          "ranks": PAR_RANKS, "backend": r0["backend"], "card_shared": True,
+          "note": "two ranks share one card: the times show that tensor "
+                  "parallelism runs and what its collectives cost here, "
+                  "not how it scales",
+          "seconds": seconds,
+          "f32_step": {"global_batch": TRAIN_BATCH,
+                       "rows_per_rank": TRAIN_BATCH,
+                       "loss_ranks": [r0["f32_step"]["loss"],
+                                      r1["f32_step"]["loss"]],
+                       "loss_single": want_m["loss"],
+                       "loss_rel_err": f32_loss_rel,
+                       "grad_norm_ranks": r0["f32_step"]["grad_norm"],
+                       "grad_norm_single": want_m["grad_norm"],
+                       "grad_max_rel_err": f32_grad_rel,
+                       "params_max_rel_err": f32_rel, "tol": MODEL_TOL},
+          "bf16_steps": {"step_ms_median": float(np.median(r0["step_ms"])),
+                         "step_ms_median_rank1": float(
+                             np.median(r1["step_ms"])),
+                         "step_ms": r0["step_ms"],
+                         "step_ms_rank1": r1["step_ms"],
+                         "selfcond": r0["coins"],
+                         "peak_gb": [r0["peak_gb"], r1["peak_gb"]],
+                         "launches_rank0": r0["timed_launches"],
+                         "launches_by_shape_rank0":
+                             r0["timed_launches_by_shape"],
+                         **r0["profile"]},
+          "nan_in_batch": {"ok": [r0["nan_ok"], r1["nan_ok"]],
+                           "unchanged": [r0["nan_unchanged"],
+                                         r1["nan_unchanged"]]},
+          "reconstruct_batch": {"dtype": "float32",
+                                "rows": 2 * PAR_BATCH_MEASUREMENTS,
+                                "max_rel_err": batch_rel,
+                                "seed_std_max_rel_err": std_rel,
+                                "launches_rank0": r0["batch_launches"]},
+          "tiled_mesh": {"dtype": "float32", "max_rel_err": tile_rel,
+                         "launches_rank0": r0["tile_launches"]}})
+    check(r0["mesh"] == {"data": 1, "model": PAR_RANKS}
+          and r0["backend"] == "gloo", f"the tp ranks' mesh {r0['mesh']}")
+    check(f32_rel <= MODEL_TOL and f32_grad_rel <= MODEL_TOL
+          and f32_loss_rel <= MODEL_TOL,
+          f"1x2 tensor-parallel f32 step vs single process: params "
+          f"{f32_rel}, gradient {f32_grad_rel}, loss {f32_loss_rel}")
+    check(r0["f32_step"] == r1["f32_step"]
+          and np.array_equal(r0["f32_flat"], r1["f32_flat"])
+          and np.array_equal(r0["bf16_flat"], r1["bf16_flat"]),
+          "the tp ranks' parameters stay equal")
+    check(not r0["nan_ok"] and not r1["nan_ok"] and r0["nan_unchanged"]
+          and r1["nan_unchanged"], "a NaN in the batch is refused on both "
+                                   "tp ranks")
+    check(np.array_equal(r0["batch_x0"], r1["batch_x0"])
+          and batch_rel <= MODEL_TOL and std_rel <= MODEL_TOL
+          and tile_rel <= MODEL_TOL,
+          f"reconstruct_batch / tiled_apply on a model axis vs no mesh: "
+          f"{batch_rel}, {std_rel}, {tile_rel}")
+    for r, n in zip(got, fwd):
+        check(r["timed_launches"] == {"conv_gn_silu": 7 * n,
+                                      "flash_attention": n},
+              f"tp rank {r['rank']}: timed launches {r['timed_launches']} "
+              f"for {n} forwards")
+    k1 = r0["timed_launches_by_shape"]["conv_gn_silu"]
+    check(all(key.split()[4] in ("32", "64", "128") and key.split()[5] == "4"
+              for key in k1),
+          f"tp rank 0 launched K1 at {sorted(k1)}, not at Cout / 2 with "
+          f"4 groups")
+    check(r0["batch_launches"] == {"conv_gn_silu": 7 * n_fwd,
+                                   "flash_attention": n_fwd},
+          f"the tp ranks' sampling launches {r0['batch_launches']}")
 
 
 # the data phase: the README quickstart's gw-gen corpus as written, a 16 kHz
@@ -3437,9 +3768,11 @@ class LaunchShapes:
                      for k in self.KERNELS}
         self.bodies = {k: m._launch for k, m in self.mods.items()}
         self.raw = {k: {} for k in self.KERNELS}     # shape -> labels
+        self.counts = {k: {} for k in self.KERNELS}  # shape -> launches
 
     def _wrap(self, kernel):
         body, raw = self.bodies[kernel], self.raw[kernel]
+        counts = self.counts[kernel]
         conv = kernel == "conv_gn_silu"
 
         def launch(*args):
@@ -3447,9 +3780,16 @@ class LaunchShapes:
             key = ((args[0].dtype, args[0].shape, args[1].shape, args[5])
                    if conv else (args[0].dtype, args[0].shape))
             raw.setdefault(key, set()).add(LaunchShapes.label)
+            counts[key] = counts.get(key, 0) + 1
             return body(*args)
 
         return launch
+
+    @staticmethod
+    def _norm(kernel, key):
+        dname = str(key[0]).split(".")[1]
+        return ((dname, *key[1][:2], *key[2][1:], int(key[3]))
+                if kernel == "conv_gn_silu" else (dname, *key[1]))
 
     @property
     def seen(self):
@@ -3458,11 +3798,17 @@ class LaunchShapes:
         out = {k: {} for k in self.KERNELS}
         for k, raw in self.raw.items():
             for key, labels in raw.items():
-                dname = str(key[0]).split(".")[1]
-                norm = ((dname, *key[1][:2], *key[2][1:], int(key[3]))
-                        if k == "conv_gn_silu" else (dname, *key[1]))
-                out[k].setdefault(norm, set()).update(labels)
+                out[k].setdefault(self._norm(k, key), set()).update(labels)
         return out
+
+    def launches_by_shape(self):
+        """{kernel: {"key": launches}} since the last ``reset_counts``."""
+        return {k: {" ".join(map(str, self._norm(k, key))): n
+                    for key, n in c.items()} for k, c in self.counts.items()}
+
+    def reset_counts(self):
+        for c in self.counts.values():
+            c.clear()
 
     def __enter__(self):
         for k, m in self.mods.items():
@@ -3733,6 +4079,9 @@ def main():
             for config in PATHS:
                 launches[f"{config} export replay"] = phase_export(
                     torch, config, tmp)
+            LaunchShapes.label = "other"
+            launches["pn128 pod replay rank 0"] = phase_pod(torch, tmp,
+                                                            shapes)
     # the evals phase's directory lives on until the tools phase
     with shapes, tempfile.TemporaryDirectory() as tmp_evals:
         phase_autograd(torch)
@@ -3752,7 +4101,8 @@ def main():
             (prep, launches["attn16k tiled infer"],
              launches["attn16k tiled infer cli"]) = phase_parallel_tiles(
                 torch, tmp, shapes)
-            phase_parallel_ranks(torch, tmp, prep, shapes)
+            launches["attn16k train tp rank 0"] = phase_parallel_ranks(
+                torch, tmp, prep, shapes)
         with tempfile.TemporaryDirectory() as tmp:
             data_launches, data_buckets, data_paths = phase_data(torch, tmp)
             launches.update(data_launches)

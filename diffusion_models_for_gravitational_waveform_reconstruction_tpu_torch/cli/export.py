@@ -2,13 +2,16 @@
 (a ``torch.export`` program, ``.pt2``, and its JSON sidecar).
 
 Counterpart of the JAX package's ``cli/export.py``, with the same flags
-except two: ``--device`` (default: the GPU) names the device the program is
-traced for and served on, in place of ``--platforms``, and ``--dp`` above 1
-raises (``ROADMAP.md`` P10.2).  The artifact holds the weights and the
-whole recipe (ladder, CFG, self-conditioning, seed averaging, sigma
-rescale, MF amplitude calibration); a CUDA artifact launches the port's
-kernels through their registered ops.  Sampler knobs left unset resolve from the checkpoint as in
-``gw-infer``.
+but one: ``--device`` (default: the GPU) names the device the program is
+traced for and served on, in place of ``--platforms``.  ``--dp N`` exports
+the pod-serving artifact: one program of a rank's batch / N rows that
+``gw-serve`` runs in each of N processes (``torchrun --nproc-per-node N``,
+one card each); the export itself runs in one process, and ``--validate``
+replays the program once per rank here.  The artifact holds the weights
+and the whole recipe (ladder, CFG, self-conditioning, seed averaging,
+sigma rescale, MF amplitude calibration); a CUDA artifact launches the
+port's kernels through their registered ops.  Sampler knobs left unset
+resolve from the checkpoint as in ``gw-infer``.
 
     python -m diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli.export \\
         --model ck.msgpack --output sampler.pt2 [--device cpu] [--validate]
@@ -49,7 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-ema", action="store_true",
                    help="Export raw (non-EMA) weights")
     p.add_argument("--dp", type=int, default=1,
-                   help="Cards to shard the batch over: only 1 is ported")
+                   help="Data-parallel ranks to shard the batch over "
+                        "(pod serving under torchrun; the batch must split "
+                        "evenly)")
     p.add_argument("--validate", action="store_true",
                    help="Load and replay the artifact on random inputs "
                         "after the export")

@@ -21,6 +21,15 @@ and nothing but numpy and the standard library at the boundary.
 
     python -m diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli.serve \\
         --artifact sampler.pt2 --input requests.npz --output out.npz
+
+A pod-serving artifact (``gw-export --dp N``) is served by N processes,
+one card each, as ``torchrun --nproc-per-node N -m <this module> ...``
+starts them: in batch mode every rank reads the requests and serves its
+rows, and only rank 0 writes the response; with ``--http`` rank 0 listens
+and hands each request's arrays to the other ranks, which wait for them
+in a loop until the server stops.  A replay that fails on any rank is a
+500 and the ranks go on; any other fault on rank 0 is a 500 and stops the
+server (exit 1), since the other ranks may be waiting inside the call.
 """
 import argparse
 import io
@@ -61,10 +70,12 @@ def make_server(artifact: str, host: str = "127.0.0.1", port: int = 0,
                 default_seed: int = 0, device=None) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server for an artifact: a test runs it on
     an ephemeral port in a thread and calls ``server.shutdown()``."""
-    from ..serving import load_exported, run_batched
+    from ..serving import PodFault, load_exported, run_batched
 
     call, contract = load_exported(artifact, device)
     lock = threading.Lock()     # one card: serialise executions
+    # a pod artifact: the other ranks replay every request with rank 0
+    relay = int(contract.get("dp", 1)) > 1
 
     class Handler(BaseHTTPRequestHandler):
         server_version = "gw-serve/1"
@@ -109,26 +120,76 @@ def make_server(artifact: str, host: str = "127.0.0.1", port: int = 0,
                 return
             try:
                 with lock:
-                    x0 = run_batched(call, contract, data["cond_stack"],
-                                     data["sigmas"], seed=seed)
+                    request = (data["cond_stack"], data["sigmas"], seed)
+                    if relay:
+                        _relay(request)
+                    x0 = run_batched(call, contract, *request[:2],
+                                     seed=seed)
             except (KeyError, ValueError) as e:   # a key or shape the
                                                   # contract refuses: 400
                 self._send(400, f"bad request: {e}".encode(), "text/plain")
                 return
+            except PodFault as e:    # every rank raised it: still in step
+                self._send(500, f"server error: {e}".encode(), "text/plain")
+                return
             except Exception as e:   # a device or runtime fault is the
                                      # server's: 500, for the operator
+                if relay:   # the other ranks may wait inside the call: stop
+                    self.server.fault = e
+                    threading.Thread(target=self.server.shutdown,
+                                     daemon=True).start()
                 self._send(500, f"server error: {e}".encode(), "text/plain")
                 return
             buf = io.BytesIO()
             np.savez(buf, x0_white=x0, seed=np.int32(seed))
             self._send(200, buf.getvalue(), "application/octet-stream")
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.relay, server.fault = relay, None
+    return server
+
+
+def _relay(request) -> None:
+    """Rank 0 hands ``request`` ((cond_stack, sigmas, seed), or None to
+    stop) to the other ranks of the group."""
+    import torch.distributed as dist
+
+    dist.broadcast_object_list([request], src=0)
+
+
+def follow(artifact: str, device=None) -> None:
+    """A rank above 0 of a pod artifact's group under ``--http``: replay
+    each request that rank 0 relays, until it relays None.  A request the
+    contract refuses is refused here too, before any collective, and a
+    replay that fails on any rank fails on every rank (``PodFault``)."""
+    import torch.distributed as dist
+
+    from ..serving import PodFault, load_exported, run_batched
+
+    call, contract = load_exported(artifact, device)
+    if int(contract.get("dp", 1)) == 1:
+        return                  # rank 0 serves a one-card artifact alone
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return
+        cond, sigmas, seed = box[0]
+        try:
+            run_batched(call, contract, cond, sigmas, seed=seed)
+        except (KeyError, ValueError, PodFault):
+            pass
 
 
 def main(argv=None) -> int:
+    from ..parallel import mesh as pmesh
+
     args = build_parser().parse_args(argv)
+    pmesh.multihost_init(args.device)
     if args.http is not None:
+        if pmesh.process_index() > 0:
+            follow(args.artifact, args.device)
+            return 0
         srv = make_server(args.artifact, args.host, args.http, args.seed,
                           args.device)
         host, port = srv.server_address[:2]
@@ -140,6 +201,12 @@ def main(argv=None) -> int:
             pass
         finally:
             srv.server_close()
+            if srv.relay and srv.fault is None:
+                _relay(None)
+        if srv.fault is not None:
+            # rank 0 failed outside the program: torchrun stops the rest
+            print(f"[serve] ERROR: {srv.fault}", file=sys.stderr)
+            return 1
         return 0
 
     if not args.output:
@@ -147,6 +214,7 @@ def main(argv=None) -> int:
         return 2
     from ..serving import load_exported, run_batched
 
+    pmesh.rank0_writes(args, "output")
     call, contract = load_exported(args.artifact, args.device)
     data = np.load(args.input, allow_pickle=False)
     try:
@@ -156,7 +224,8 @@ def main(argv=None) -> int:
         print(f"[serve] ERROR: {e}", file=sys.stderr)
         return 2
     np.savez(args.output, x0_white=x0, seed=np.int32(args.seed))
-    print(f"[serve] {x0.shape[0]} reconstructions -> {args.output}")
+    if pmesh.process_index() == 0:
+        print(f"[serve] {x0.shape[0]} reconstructions -> {args.output}")
     return 0
 
 

@@ -10,18 +10,23 @@ package's ``cli/train.py``: the same flags and defaults, and
 (bf16 activations are the default; ``--no-bf16`` turns them off).
 ``--data synth:N`` synthesises N samples on the device; any other ``--data``
 is an HDF5 corpus, which needs h5py, or its ``.npz`` twin (either form).
-``--streaming`` reads it a chunk of ``--stream-chunk`` samples at a time;
-``--tp`` > 1 is not ported and raises.
+``--streaming`` reads it a chunk of ``--stream-chunk`` samples at a time.
 
-Data parallelism runs one process per GPU:
+Data and tensor parallelism run one process per GPU:
 
     torchrun --nproc-per-node N -m \
-        diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli.train ...
+        diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.cli.train ... [--tp M]
 
-Each process joins the NCCL group, takes its rows of every global batch and
-averages the gradient with the others; only rank 0 writes the checkpoint
-and the logs.  One process that sees several GPUs with data parallelism on
-raises and names this command (``--no-data-parallel`` trains on one).
+Each process joins the NCCL group.  The mesh is JAX's: ``--tp`` M ranks on
+the model axis and N / M on the data axis (1 with
+``--no-data-parallel``); a data rank takes its rows of every global batch
+and averages the gradient with the others, and the ranks of one model
+group split the convs' output channels and the attention's heads that JAX
+shards.  Only rank 0 writes the checkpoint and the logs, which stay whole
+at any ``--tp``.  One process that sees several GPUs with data or tensor
+parallelism on raises and names this command (``--no-data-parallel``
+trains on one); ``--tp`` > 1 in one process prints that tensor parallelism
+is dropped and trains.
 """
 from __future__ import annotations
 
@@ -114,7 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_first", action="store_true")
     p.add_argument("--debug_first_every", type=int, default=0)
     p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel size (> 1 not ported: raises).")
+                   help="Tensor-parallel mesh axis size (the convs' output "
+                        "channels and the attention's heads split over it; "
+                        "one process per GPU under torchrun).")
     p.add_argument("--no-data-parallel", action="store_true",
                    help="No batch sharding over devices.")
     p.add_argument("--remat", action="store_true",

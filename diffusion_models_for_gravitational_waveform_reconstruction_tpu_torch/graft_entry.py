@@ -9,13 +9,13 @@ seeded random weights.  ``denoise_step(*example_args)`` returns x0_hat
 (8, 1, 4096).
 
 ``dryrun_multichip(n, device=None)``, the twin of the root file's: n
-processes joined in a gloo group (JAX forces n host devices) run one
-data-parallel training step through ``train(mesh=)``, a data-parallel
-``reconstruct_batch(mesh=)`` and a tiled forward with its tiles spread over
-the ranks, on tiny shapes.  JAX's mesh is dp x tp with tp = 2 where it
-divides n; here tp is 1 (tensor parallelism is ``ROADMAP.md`` P10.1), and
-JAX's fourth part, the pod-serving artifact, waits for
-``export_sampler(dp>1)`` (P10.2).  The ranks run on the GPUs (several ranks
+processes joined in a gloo group (JAX forces n host devices) on a dp x tp
+mesh, tp = 2 where it divides n (``dryrun 2`` is 1x2 tensor-parallel,
+``dryrun 4`` 2x2), run one training step through ``train(mesh=)`` (the
+blocks that JAX shards split over the model axis), ``reconstruct_batch``
+and a tiled forward over the data axis, and the pod-serving artifact:
+``export_sampler(dp=n)`` on rank 0, then ``load_exported`` and one call on
+every rank, on tiny shapes.  The ranks run on the GPUs (several ranks
 share a card: gloo, not NCCL, which refuses that) unless ``device="cpu"``
 asks for the CPU; without a GPU the default raises.
 
@@ -25,6 +25,7 @@ asks for the CPU; without a GPU the default raises.
 from __future__ import annotations
 
 import os
+import shutil
 import socket
 import sys
 import tempfile
@@ -85,6 +86,7 @@ def _dryrun_rank(rank: int, n: int, port: int, dev_type: str) -> None:
     from .ops.sampling import SamplerConfig
     from .parallel.mesh import make_mesh
     from .parallel.seqtile import tiled_apply
+    from .serving import export_sampler, load_exported
     from .training.train import TrainConfig, train
 
     dev = torch.device(dev_type)
@@ -93,28 +95,35 @@ def _dryrun_rank(rank: int, n: int, port: int, dev_type: str) -> None:
         torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=n, rank=rank)
-    mesh = make_mesh(n_data=n, n_model=1)
+    # dp x tp, tp = 2 where it divides n (JAX's __graft_entry__ mesh)
+    n_model = 2 if n % 2 == 0 and n >= 2 else 1
+    n_data = n // n_model
+    mesh = make_mesh(n_data=n_data, n_model=n_model)
     say = print if rank == 0 else (lambda *a: None)
-    B, L = 2 * n, 256
+    B, L = 2 * n_data, 256
     rng = np.random.default_rng(0)
     clean = rng.normal(size=(B, L)).astype(np.float32)
     noisy = clean + rng.normal(size=(B, L)).astype(np.float32)
     meta = rng.uniform(size=(B, 4)).astype(np.float32)
     ds = dataset_from_arrays(clean, noisy, fs=4096.0, meta=meta)
-    with tempfile.TemporaryDirectory() as d:
-        # one batch x one epoch: one data-parallel step through the
-        # trainer (q_sample, CFG dropout, self-conditioning, loss, the
-        # all-reduce, clip, AdamW, EMA, the gate), full-range t
-        cfg = TrainConfig(model_dir=d, epochs=1, batch_size=B, T=50,
-                          base_ch=16, time_dim=16, depth=2, bf16=False,
-                          ema=True, warmup_steps=2, clip_grad=1.0,
-                          p_uncond=0.2, p_selfcond=0.5, tp=1,
-                          t_min_frac=0.0)
-        out = train(cfg, dataset=ds, mesh=mesh, device=dev)
+    # one directory for every rank: rank 0 writes the checkpoint and the
+    # artifact there, every rank reads them
+    box = [tempfile.mkdtemp(prefix="gw-dryrun-") if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    d = box[0]
+    # one batch x one epoch: one step through the trainer (q_sample, CFG
+    # dropout, self-conditioning, loss, the model axis's sum and the data
+    # axis's mean of the gradient, clip, AdamW, EMA, the gate), full-range t
+    cfg = TrainConfig(model_dir=d, epochs=1, batch_size=B, T=50,
+                      base_ch=16, time_dim=16, depth=2, bf16=False,
+                      ema=True, warmup_steps=2, clip_grad=1.0,
+                      p_uncond=0.2, p_selfcond=0.5, tp=n_model,
+                      t_min_frac=0.0)
+    out = train(cfg, dataset=ds, mesh=mesh, device=dev)
     loss = float(out["history"][0]["avg_per_sample"])
     if not np.isfinite(loss):
         raise RuntimeError(f"non-finite loss in dryrun: {loss}")
-    say(f"[dryrun_multichip] mesh=({n}x1) trainer step ok, "
+    say(f"[dryrun_multichip] mesh=({n_data}x{n_model}) trainer step ok, "
         f"loss={loss:.4f}")
 
     # the EMA weights, as JAX samples its state's ema_params
@@ -122,7 +131,7 @@ def _dryrun_rank(rank: int, n: int, port: int, dev_type: str) -> None:
     with torch.no_grad():
         state.params.flat.copy_(state.ema_params)
     model.eval()
-    Bs = max(n, 2)
+    Bs = max(n_data, 2)
     cond = rng.normal(size=(Bs, out["cond_in_ch"], L)).astype(np.float32)
     scfg = SamplerConfig(steps=3, cfg_scale=1.5, use_selfcond=True,
                          pred_type="eps")
@@ -147,9 +156,24 @@ def _dryrun_rank(rank: int, n: int, port: int, dev_type: str) -> None:
         raise RuntimeError("tiled forward: bad output")
     say(f"[dryrun_multichip] sequence-parallel tiled forward ok "
         f"(L={Lt}, chunk=256)")
-    say("[dryrun_multichip] pod-serving artifact: not run, "
-        "export_sampler(dp>1) waits for ROADMAP.md P10.2")
+
+    # the pod-serving artifact: exported once, served by every rank
+    art = os.path.join(d, "pod.pt2")
+    if rank == 0:
+        export_sampler(out["checkpoint"], art, batch=n, length=L,
+                       device=dev, steps=3, avg_seeds=1, amp_calib="mf",
+                       use_ema=False, dp=n)
+    dist.barrier()
+    call, _ = load_exported(art, device=dev)
+    condp = rng.normal(size=(n, out["cond_in_ch"], L)).astype(np.float32)
+    x0p = call(condp, np.ones(n, np.float32), 0)
+    if not (bool(torch.isfinite(x0p).all()) and tuple(x0p.shape) == (n, L)):
+        raise RuntimeError("pod-serving artifact: bad output")
+    say(f"[dryrun_multichip] pod-serving artifact ok (dp={n}, "
+        f"batch sharded over 'data')")
     dist.barrier()          # no rank leaves while another still talks
+    if rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
     # the rank leaves without the interpreter's teardown, in which a gloo
     # process sometimes aborted ("terminate called without an active
     # exception")

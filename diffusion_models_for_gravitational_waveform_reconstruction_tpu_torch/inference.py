@@ -484,7 +484,10 @@ def reconstruct_batch(model, schedule, cond_stacks, sigmas,
     split evenly, are spread over its data axis: each rank samples its rows
     with its rows of the global noise draws, the members' weights are
     broadcast from data rank 0, and every rank gathers all rows and returns
-    the same result as the call without a mesh.
+    the same result as the call without a mesh.  A model axis splits
+    nothing here: each of its ranks samples its data index's rows with the
+    whole model (JAX replicates the parameters for sampling), so a model
+    that a tensor-parallel run trained serves as it is.
     """
     if mesh is not None:
         pmesh.check_mesh(mesh)

@@ -15,6 +15,11 @@ conditioning (counterpart of the JAX package's ``models/unet.py``).
   bottleneck (:class:`BottleneckAttention`) through
   :func:`ops.kernels.flash_attention`: the Hopper kernel on a GPU at every
   bottleneck length, its plain version on the CPU.
+- under a model axis (:meth:`UNet1D.tensor_parallel`, inside a
+  tensor-parallel train step) each ConvBlock that JAX's rule shards runs K1
+  on this rank's share of its output channels and GroupNorm groups, then
+  gathers the channels; the attention runs K2 on this rank's heads and
+  ``proj`` on their rows, then sums over the ranks.
 
 Activations flow channels-last (B, L, C) in the compute ``dtype`` (bf16 for
 the flagship), parameters stay float32 and the output is float32; the public
@@ -34,6 +39,7 @@ from torch import nn
 from ..ops.kernels import (conv3_same, flash_attention,
                            flash_attention_reference, fused_conv_gn_silu,
                            fused_conv_gn_silu_reference, group_norm)
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 
 
@@ -97,8 +103,16 @@ class Dense(nn.Module):
         _lecun_normal_(self.kernel, cin)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dot(x, self.kernel, self.bias)
+
+    def dot(self, x: torch.Tensor, kernel: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x @ kernel + bias`` in this layer's dtype, for its own weights
+        or a tensor-parallel slice of them (no bias: the caller adds it
+        once, after the ranks' sum)."""
         dt = self.dtype
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        y = x.to(dt) @ kernel.to(dt)
+        return y if bias is None else y + bias.to(dt)
 
 
 class _ConvParams(nn.Module):
@@ -123,17 +137,42 @@ class _GNParams(nn.Module):
 
 class ConvBlock(nn.Module):
     """Conv1d(k=3, SAME) -> GroupNorm(gcd(8, C), eps 1e-5) -> SiLU on a
-    contiguous (B, L, Cin) tensor, as one fused-kernel call."""
+    contiguous (B, L, Cin) tensor, as one fused-kernel call.
+
+    With ``tp`` set (a mesh, by :meth:`UNet1D.tensor_parallel`) model rank
+    m runs the kernel on output channels [m C/n, (m+1) C/n) with G/n whole
+    groups, and the ranks gather the channels."""
+
+    # the parameters whose gradient a model rank computes only in part
+    TP_PARTIAL = ("conv.kernel", "conv.bias", "norm.scale", "norm.bias")
 
     def __init__(self, cin: int, cout: int, device=None):
         super().__init__()
         self.conv = _ConvParams(cin, cout, device)
         self.norm = _GNParams(cout, device)
         self.groups = _num_groups(cout)
+        self.tp = None
+
+    def tp_splits(self, name: str, n_model: int) -> bool:
+        """Whether the block named ``name`` splits over ``n_model`` model
+        ranks: JAX shards its conv (``parallel.mesh.tp_sharded``) and the
+        GroupNorm groups do not straddle two ranks."""
+        return (pmesh.tp_sharded(f"{name}.conv.kernel",
+                                 self.conv.kernel.shape, n_model)
+                and self.groups % n_model == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_conv_gn_silu(x, self.conv.kernel, self.conv.bias,
-                                  self.norm.scale, self.norm.bias, self.groups)
+        conv, norm, tp = self.conv, self.norm, self.tp
+        if tp is None:
+            return fused_conv_gn_silu(x, conv.kernel, conv.bias, norm.scale,
+                                      norm.bias, self.groups)
+        c = conv.kernel.shape[-1] // tp.n_model
+        sl = slice(tp.model_rank * c, (tp.model_rank + 1) * c)
+        y = fused_conv_gn_silu(pmesh.copy_to_model(tp, x),
+                               conv.kernel[:, :, sl].contiguous(),
+                               conv.bias[sl], norm.scale[sl], norm.bias[sl],
+                               self.groups // tp.n_model)
+        return pmesh.gather_channels(tp, y)
 
 
 class DecoderConvBlock(nn.Module):
@@ -188,7 +227,14 @@ class BottleneckAttention(nn.Module):
     ``min(num_heads, C // 32)`` heads (one below C 32), lowered until they
     divide C; GroupNorm(gcd(8, C), eps 1e-5) in f32, cast to the activation
     type; Dense ``qkv`` (C -> 3C) split as q | k | v; attention per head;
-    zero-initialised Dense ``proj``."""
+    zero-initialised Dense ``proj``.
+
+    With ``tp`` set (a mesh, by :meth:`UNet1D.tensor_parallel`) model rank
+    m takes the q, k and v columns of heads [m H/n, (m+1) H/n), runs the
+    kernel on them and ``proj`` on their rows; the ranks sum the products
+    and ``proj``'s bias is added once, after the sum."""
+
+    TP_PARTIAL = ("qkv.kernel", "qkv.bias", "proj.kernel")
 
     def __init__(self, ch: int, num_heads: int = 4, dtype=None, device=None):
         super().__init__()
@@ -202,19 +248,42 @@ class BottleneckAttention(nn.Module):
         self.proj = Dense(ch, ch, dtype, device)
         with torch.no_grad():
             self.proj.kernel.zero_()
+        self.tp = None
+
+    def tp_splits(self, name: str, n_model: int) -> bool:
+        """Whether the attention named ``name`` splits over ``n_model``
+        model ranks: JAX shards ``qkv`` and the heads divide evenly."""
+        return (pmesh.tp_sharded(f"{name}.qkv.kernel", self.qkv.kernel.shape,
+                                 n_model)
+                and self.heads % n_model == 0)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         B, L, C = h.shape
         x = group_norm(h, self.groups, self.norm.scale,
                        self.norm.bias).to(h.dtype)
+        tp = self.tp
+        n, m = (1, 0) if tp is None else (tp.n_model, tp.model_rank)
+        heads, c = self.heads // n, C // n
 
         def split_heads(a):
-            return (a.reshape(B, L, self.heads, C // self.heads)
+            return (a.reshape(B, L, heads, c // heads)
                     .transpose(1, 2).contiguous())
 
-        q, k, v = (split_heads(a) for a in self.qkv(x).chunk(3, dim=-1))
-        out = flash_attention(q, k, v).transpose(1, 2).reshape(B, L, C)
-        return h + self.proj(out)
+        if tp is None:
+            qkv = self.qkv(x)
+        else:
+            # this rank's columns of q, of k and of v
+            sl = slice(m * c, (m + 1) * c)
+            w = self.qkv.kernel.view(C, 3, C)[:, :, sl].reshape(C, 3 * c)
+            b = self.qkv.bias.view(3, C)[:, sl].reshape(3 * c)
+            qkv = self.qkv.dot(pmesh.copy_to_model(tp, x), w, b)
+        q, k, v = (split_heads(a) for a in qkv.chunk(3, dim=-1))
+        out = flash_attention(q, k, v).transpose(1, 2).reshape(B, L, c)
+        if tp is None:
+            return h + self.proj(out)
+        part = self.proj.dot(out, self.proj.kernel[m * c:(m + 1) * c])
+        return h + (pmesh.reduce_from_model(tp, part)
+                    + self.proj.bias.to(self.proj.dtype))
 
 
 def _resize_linear(x: torch.Tensor, new_len: int) -> torch.Tensor:
@@ -312,6 +381,40 @@ class UNet1D(nn.Module):
         if cond_ch is None:
             cond_ch = max(self.in_ch - 1 - (1 if use_sc else 0), 0)
         return bool(use_sc), int(cond_ch)
+
+    def tensor_parallel_plan(self, n_model: int):
+        """``(split, whole)``: the names of the ConvBlocks and the attention
+        that run split over a model axis of ``n_model`` ranks, and of those
+        that run whole on every model rank (JAX's rule leaves their leaves
+        whole, or their groups or heads would straddle ranks)."""
+        split, whole = [], []
+        for name, mod in self.named_children():
+            if isinstance(mod, (ConvBlock, BottleneckAttention)):
+                (split if mod.tp_splits(name, n_model) else whole).append(name)
+        return split, whole
+
+    def tensor_parallel_partial(self, n_model: int):
+        """The parameters whose gradient each model rank computes only in
+        part (the sum over the model axis is the whole gradient)."""
+        split, _ = self.tensor_parallel_plan(n_model)
+        return [f"{name}.{p}" for name in split
+                for p in getattr(self, name).TP_PARTIAL]
+
+    @contextlib.contextmanager
+    def tensor_parallel(self, mesh):
+        """Inside the block the split modules of
+        :meth:`tensor_parallel_plan` run on this process's share of
+        ``mesh``'s model axis (every model rank must call the model on the
+        same inputs); outside it the model runs whole.  A mesh whose model
+        axis is 1 changes nothing."""
+        split, _ = self.tensor_parallel_plan(mesh.n_model)
+        for name in split:
+            getattr(self, name).tp = mesh
+        try:
+            yield self
+        finally:
+            for name in split:
+                getattr(self, name).tp = None
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, L); t: (B,) integer timesteps.  Returns the

@@ -171,18 +171,27 @@ def _noise_source(noise: Noise):
 
 
 class RankNoise:
-    """Rank ``rank`` of ``n``'s rows of ``noise``'s draws: each draw of b
-    rows is drawn for n*b rows (the global batch) and rows [rank*b,
-    (rank+1)*b) are kept, so a sampler that holds its rank's rows of a
-    batch sees the noise of the unsharded call."""
+    """Rank ``rank`` of ``n``'s rows of ``noise``'s draws: each draw of
+    ``blocks`` x b rows is drawn for n times as many rows (the global
+    batch) and this rank keeps rows [rank*b, (rank+1)*b) of each of the
+    ``blocks`` consecutive blocks of n*b rows, so a sampler that holds its
+    rank's rows of a batch sees the noise of the unsharded call.  A batch
+    tiled seed-major over S seeds (``build_serving_fn``) is S blocks.
+    ``rank`` is an int or a 0-d integer tensor (an input of an exported
+    program): the rows are picked by an index tensor."""
 
-    def __init__(self, noise, rank: int, n: int):
+    def __init__(self, noise, rank, n: int, blocks: int = 1):
         self.source, self.rank, self.n = _noise_source(noise), rank, n
+        self.blocks = blocks
 
     def _rows(self, draw, shape):
-        b = shape[0]
-        z = draw((self.n * b,) + tuple(shape[1:]))
-        return z[self.rank * b:(self.rank + 1) * b]
+        b = shape[0] // self.blocks
+        z = draw((self.n * shape[0],) + tuple(shape[1:]))
+        rank = torch.as_tensor(self.rank, device=z.device)
+        idx = (torch.arange(self.blocks, device=z.device)[:, None]
+               * (self.n * b) + rank * b
+               + torch.arange(b, device=z.device)[None, :]).reshape(-1)
+        return z.index_select(0, idx)
 
     def init(self, shape, dtype, device):
         return self._rows(lambda s: self.source.init(s, dtype, device), shape)

@@ -1,25 +1,33 @@
 """A (data, model) mesh over the processes of a ``torch.distributed``
-group, and the collectives the port's data-parallel paths need
+group, and the collectives of the port's data- and tensor-parallel paths
 (counterpart of the JAX package's ``parallel/mesh.py``).
 
 JAX lays arrays out over a device mesh and lets its SPMD partitioner insert
 the collectives.  Here each process drives one device (one process per GPU,
 as ``torchrun --nproc-per-node N`` starts them) and the collectives are
-explicit: a data-parallel caller takes its rows of a global batch
-(:func:`local_rows`), averages a flat tensor over the data axis
-(:func:`mean_`), gathers every rank's rows in rank order
-(:func:`gather_rows`) and broadcasts from data rank 0
-(:func:`replicate_tree`).  Without a process group a mesh has one rank and
-every collective is the identity.
+explicit.  Process ``d * n_model + m`` sits at data index d and model index
+m (JAX's ``make_mesh`` reshapes its devices so).
 
-Backends: NCCL for CUDA tensors, gloo for CPU tensors; gloo with CUDA
-tensors is the one-card check of a several-rank path (NCCL refuses two
+- Data axis: a caller takes its rows of a global batch (:func:`local_rows`),
+  averages a flat tensor over the data axis (:func:`mean_`), gathers every
+  rank's rows in rank order (:func:`gather_rows`).
+- Model axis (tensor parallelism): a layer that JAX shards over ``model``
+  runs on this rank's share of its output channels or heads, between
+  Megatron's pair of autograd functions: :func:`copy_to_model` (identity
+  forward, gradient summed over the model axis) in front,
+  :func:`gather_channels` (channels gathered forward, this rank's slice
+  backward) or :func:`reduce_from_model` (summed forward, identity
+  backward) behind, their collectives in ``torch.profiler`` ranges
+  ``tp/all_gather`` and ``tp/all_reduce``.  :func:`tp_sharded` is JAX's
+  ``_tp_spec`` rule on the port's parameter names.
+- :func:`replicate_tree` broadcasts from rank 0 of both axes.
+
+Without a process group a mesh has one rank and every collective is the
+identity.  Backends: NCCL for CUDA tensors, gloo for CPU tensors; gloo with
+CUDA tensors is the one-card check of a several-rank path (NCCL refuses two
 ranks on one device).  The helpers call the same collectives on either:
 gloo reduces, broadcasts and gathers CUDA tensors itself (PyTorch 2.11 on
 the H100 machine), so nothing is copied through the host.
-
-Not here yet: tensor parallelism (a ``model`` axis above 1: building a
-:class:`Mesh` with one raises), ``ROADMAP.md`` P10.1.
 """
 from __future__ import annotations
 
@@ -32,12 +40,9 @@ from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..utils.device import resolve_device
-
-TP_TODO = ("tensor parallelism (--tp > 1, a mesh 'model' axis above 1) is "
-           "not ported yet: ROADMAP.md P10.1 (tensor parallelism)")
-
 
 def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -71,25 +76,36 @@ def multihost_init(device=None) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_data`` x ``n_model`` processes; ``group`` is this process's data
-    axis (None without a process group) and ``rank`` its index there."""
+    """``n_data`` x ``n_model`` processes.  ``group`` is this process's data
+    axis (the ranks of its model index) and ``rank`` its index there;
+    ``model_group`` is its model axis (the ranks of its data index) and
+    ``model_rank`` its index there.  An axis of one rank has no group
+    (None): its collectives are the identity."""
 
     n_data: int
     n_model: int = 1
     group: Optional[object] = None
     rank: int = 0
+    model_group: Optional[object] = None
+    model_rank: int = 0
 
     def __post_init__(self):
-        # a data axis of several ranks without their group would keep one
-        # rank's share of every batch and average nothing
-        if self.n_model > 1:
-            raise NotImplementedError(TP_TODO)
-        if self.n_data > 1 and self.group is None:
-            raise ValueError(f"mesh {self.n_data}x1 needs a process group "
-                             f"(torchrun, or multihost_init)")
-        if not 0 <= self.rank < self.n_data:
-            raise ValueError(f"rank {self.rank} is outside the "
-                             f"{self.n_data}x1 mesh")
+        # an axis of several ranks without their group would keep one
+        # rank's share of every batch (or channel) and reduce nothing
+        for n, group, rank in ((self.n_data, self.group, self.rank),
+                               (self.n_model, self.model_group,
+                                self.model_rank)):
+            if n > 1 and group is None:
+                raise ValueError(f"mesh {self.n_data}x{self.n_model} needs a "
+                                 f"process group (torchrun, or "
+                                 f"multihost_init)")
+            if not 0 <= rank < n:
+                raise ValueError(f"rank {rank} is outside the "
+                                 f"{self.n_data}x{self.n_model} mesh")
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -100,9 +116,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """A (data, model) mesh over ``devices``, by default every process of
     the default group (one device each); ``n_data`` defaults to all of them
-    on the data axis, and a smaller one takes the first ``n_data``.  A
-    model axis above 1 raises (tensor parallelism is not ported).  Called
-    by every process of the group when there is one."""
+    over ``n_model``, and a smaller mesh takes the first ``n_data *
+    n_model`` processes.  Called by every process of the group when there
+    is one: each builds every axis's group in the same order, and a process
+    outside the mesh then raises."""
     devs = list(devices if devices is not None else range(world_size()))
     if n_data is None:
         n_data = len(devs) // n_model
@@ -117,9 +134,24 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
             f"{len(devs)} are visible")
     if not is_distributed():
         return Mesh(n_data, n_model)
-    group = (dist.group.WORLD if n_data == dist.get_world_size()
-             else dist.new_group(list(range(n_data))))
-    return Mesh(n_data, n_model, group, dist.get_rank())
+    world, me = dist.get_world_size(), dist.get_rank()
+
+    def group(ranks):
+        if ranks == list(range(world)):
+            return dist.group.WORLD
+        return dist.new_group(ranks) if len(ranks) > 1 else None
+
+    data_groups = [group([d * n_model + m for d in range(n_data)])
+                   for m in range(n_model)]
+    model_groups = [group([d * n_model + m for m in range(n_model)])
+                    for d in range(n_data)]
+    if me >= n_data * n_model:
+        raise ValueError(
+            f"process {me} of {world} is outside the {n_data}x{n_model} mesh "
+            f"(ranks 0-{n_data * n_model - 1}): start {n_data * n_model} "
+            f"processes, or a mesh that takes all {world}")
+    d, m = divmod(me, n_model)
+    return Mesh(n_data, n_model, data_groups[m], d, model_groups[d], m)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -162,17 +194,24 @@ def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 def replicate_tree(tree, mesh: Mesh):
     """Broadcast every tensor of ``tree`` (a tensor, a module's parameters
-    and buffers, or dicts / lists / tuples of them; None passes) from data
-    rank 0 to the other ranks, in place; returns ``tree``."""
-    if mesh.group is None:
-        return tree
-    src = dist.get_global_rank(mesh.group, 0)
+    and buffers, or dicts / lists / tuples of them; None passes) from rank
+    0 of the data axis, then from rank 0 of the model axis, in place, so
+    that every process of the mesh holds process 0's values; returns
+    ``tree``."""
+    for group in (mesh.group, mesh.model_group):
+        if group is not None:
+            _broadcast_tree(tree, group)
+    return tree
+
+
+def _broadcast_tree(tree, group) -> None:
+    src = dist.get_global_rank(group, 0)
 
     def walk(node):
         if node is None:
             return
         if isinstance(node, torch.Tensor):
-            dist.broadcast(node.data, src, group=mesh.group)
+            dist.broadcast(node.data, src, group=group)
         elif isinstance(node, torch.nn.Module):
             for t in list(node.parameters()) + list(node.buffers()):
                 walk(t)
@@ -186,14 +225,112 @@ def replicate_tree(tree, mesh: Mesh):
             raise TypeError(f"cannot replicate a {type(node).__name__}")
 
     walk(tree)
-    return tree
 
 
 def shard_params_tp(params, mesh: Mesh):
-    """JAX's name for laying the weights over the mesh.  A :class:`Mesh`
-    has a model axis of 1 until tensor parallelism is ported (P10.1), so
-    this is :func:`replicate_tree`, as JAX's degenerates to at tp = 1."""
+    """JAX's name for laying the weights over the mesh.  The port keeps
+    every parameter whole and equal on every process (this is
+    :func:`replicate_tree`) and splits the work instead: a layer that
+    :func:`tp_sharded` marks runs on this rank's share of its channels or
+    heads (``UNet1D.tensor_parallel``).  Whole storage costs little (the
+    attn16k model is 5.3 MB in f32), JAX keeps the optimizer state whole
+    too, and it leaves the flat parameter buffer, optax's state layout, the
+    bad-batch gate and the checkpoints as they are at tp = 1."""
     return replicate_tree(params, mesh)
+
+
+# the narrowest last axis that JAX's ``_tp_spec`` shards (its ``min_ch``
+# default, which its trainer never changes)
+TP_MIN_CH = 16
+
+
+def tp_sharded(name: str, shape: Sequence[int], n_model: int) -> bool:
+    """JAX's ``_tp_spec`` rule for the parameter ``name`` (the port's
+    dotted name, the flax path) of ``shape``: sharded over its last axis
+    when the model axis is above 1, that axis splits evenly and is at
+    least ``TP_MIN_CH`` wide, the path passes an enc / dec / mid module and
+    no norm."""
+    parts = name.split(".")
+    return (n_model > 1 and len(shape) >= 1 and shape[-1] % n_model == 0
+            and shape[-1] >= TP_MIN_CH
+            and any(p.startswith(("enc", "dec", "mid")) for p in parts)
+            and not any("norm" in p.lower() for p in parts))
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        with record_function("tp/all_reduce"):
+            dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, rank):
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        with record_function("tp/all_gather"):
+            dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None, None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        with record_function("tp/all_reduce"):
+            dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every model rank) as the input of a model-split
+    layer: the identity forward; backward, the gradient summed over the
+    model axis (each rank's layer saw only its part of x's uses)."""
+    if mesh.model_group is None:
+        return x
+    return _CopyToModel.apply(x, mesh.model_group)
+
+
+def gather_channels(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every model rank's ``x`` (its share of the channels, the last axis)
+    concatenated in rank order, on every model rank; backward, this rank's
+    slice of the gradient."""
+    if mesh.model_group is None:
+        return x
+    return _GatherChannels.apply(x, mesh.model_group, mesh.n_model,
+                                 mesh.model_rank)
+
+
+def reduce_from_model(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every model rank's ``x`` (its partial result), on every
+    model rank; backward, the identity."""
+    if mesh.model_group is None:
+        return x
+    return _ReduceFromModel.apply(x, mesh.model_group)
+
+
+def sum_model_(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x`` over the model axis in place; returns ``x``."""
+    if mesh.model_group is not None:
+        dist.all_reduce(x, group=mesh.model_group)
+    return x
 
 
 def barrier() -> None:

@@ -9,7 +9,9 @@ is tile i of sample b), their halos are cropped and the interiors joined:
                    ->  crop halos, concatenate           ->  (B, 1, L)
 
 With a mesh the tile rows are spread over the data axis: each rank runs
-its tiles and every rank gathers the outputs.
+its tiles and every rank gathers the outputs.  A model axis splits nothing
+here: each of its ranks runs its data index's tiles through the whole
+model.
 
 Every U-Net op is local (k=3 convs, pool 2, nearest upsample, linear cond
 resizes) with a finite receptive field, so with ``halo`` >=

@@ -16,6 +16,16 @@ JAX artifact's contract.  The program holds the port's registered ops (the
 kernels and the seeded noise), so loading it needs this package imported,
 and it is traced for one device type: a CUDA artifact launches the kernels,
 a CPU artifact runs their plain versions.  :func:`load_exported` replays it.
+
+``export_sampler(dp=N)`` is the pod-serving artifact.  ``torch.export`` has
+no SPMD partitioner, so where JAX exports one program sharded over a
+``data`` mesh the port exports one program of a rank's share, batch / N
+rows, that takes the rank's data index as a fourth input and draws every
+noise for the global batch, keeping its own rows (``RankNoise``).
+:func:`load_exported` runs it in each process of an N-rank group
+(``torchrun --nproc-per-node N``, one card each): every rank passes its
+rows and its index and gathers the others' rows, so the call serves the
+global batch as JAX's does.
 """
 from __future__ import annotations
 
@@ -29,15 +39,18 @@ import torch
 from torch import nn
 
 from .inference import apply_distilled_defaults, load_model, resolve_start_t
+from .parallel import mesh as pmesh
 from .ops.kernels.conv_gn_silu import conv_gn_silu_op
 from .ops.kernels.flash_attention import flash_attention_op
-from .ops.sampling import (SAMPLERS, SamplerConfig, SeededNoise,
+from .ops.sampling import (SAMPLERS, RankNoise, SamplerConfig, SeededNoise,
                            aggregate_seeds, seeded_normal,
                            sample_with_refinement)
 from .utils.device import resolve_device
 
 # the calling-convention generation of the sidecar (the JAX package's)
 CONTRACT_VERSION = 1
+# a pod-serving artifact's: its program takes a rank's rows and the rank
+CONTRACT_VERSION_DP = 2
 ARTIFACT_FORMAT = "torch.export"
 
 
@@ -74,9 +87,9 @@ def resolve_serving_config(ck: dict, schedule, *, sampler: str = "ddim",
 
 def build_serving_fn(schedule, cfg: SamplerConfig, *, sampler: str = "ddim",
                      avg_seeds: int = 1, avg_mode: str = "mean",
-                     amp_calib: str = "none", device=None):
-    """``fn(model, cond_stack, sigmas, seed, noise=None) -> x0_white (B, L)``
-    on ``device`` (default: the GPU).
+                     amp_calib: str = "none", device=None, dp: int = 1):
+    """``fn(model, cond_stack, sigmas, seed, noise=None, rank=None) ->
+    x0_white (B, L)`` on ``device`` (default: the GPU).
 
     The batch is tiled seed-major (row s*B + b is seed s of measurement b),
     sampled in one batch of S*B rows with the draws of
@@ -84,6 +97,11 @@ def build_serving_fn(schedule, cfg: SamplerConfig, *, sampler: str = "ddim",
     given), aggregated over seeds, rescaled by sigma and, with
     ``amp_calib="mf"``, by the least-squares matched-filter amplitude
     clipped to [0.25, 4].  ``seed`` is an int or a 0-d int32 CPU tensor.
+
+    With ``dp`` > 1 the B rows are data rank ``rank``'s (an int or a 0-d
+    integer tensor) of a global batch of dp*B: each draw is made for the
+    global batch and the rank keeps its rows of every seed's block, so the
+    ranks' outputs, concatenated in rank order, are the global call's.
     """
     dev = resolve_device(device)
     sample_fn = SAMPLERS[sampler]
@@ -93,11 +111,13 @@ def build_serving_fn(schedule, cfg: SamplerConfig, *, sampler: str = "ddim",
     schedule = type(schedule)(*(np.asarray(a) for a in schedule))
 
     @torch.no_grad()
-    def fn(model, cond_stack, sigmas, seed, noise=None):
+    def fn(model, cond_stack, sigmas, seed, noise=None, rank=None):
         cond = torch.as_tensor(cond_stack, dtype=torch.float32, device=dev)
         B = cond.shape[0]
         if noise is None:
             noise = SeededNoise(seed)
+        if dp > 1:
+            noise = RankNoise(noise, rank, dp, blocks=S)
         cond_t = cond.repeat(S, 1, 1) if S > 1 else cond
         x0 = sample_with_refinement(sample_fn, model, schedule, cond_t, cfg,
                                     noise)
@@ -179,6 +199,14 @@ class _ServedSampler(nn.Module):
         return self.fn(self.model, cond_stack, sigmas, seed)
 
 
+class _ServedShard(_ServedSampler):
+    """A pod-serving artifact's program: a rank's rows of the batch and
+    the rank, ``forward(cond_stack, sigmas, seed, rank)``."""
+
+    def forward(self, cond_stack, sigmas, seed, rank):
+        return self.fn(self.model, cond_stack, sigmas, seed, rank=rank)
+
+
 def _op_counts(ep) -> dict:
     """How many nodes of each of the port's registered ops the exported
     program's graphs hold (no-grad regions are graphs of their own)."""
@@ -213,29 +241,37 @@ def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
     weights inside the program.  Trace where you serve: a CUDA export holds
     the kernels' ops (checked here: K1, and K2 for an attention
     checkpoint), a CPU export their plain versions.  Knobs resolve as in
-    :func:`resolve_serving_config`.  ``dp > 1`` (one artifact sharded over
-    several cards) is not ported yet: ``torch.export`` has no SPMD, so it
-    needs a contract of its own (``ROADMAP.md`` P10.2)."""
-    if int(dp) > 1:
-        raise NotImplementedError(
-            f"export_sampler(dp={dp}): an artifact sharded over several "
-            f"cards is not ported yet: ROADMAP.md P10.2 (a sharded serving "
-            f"artifact)")
+    :func:`resolve_serving_config`.
+
+    ``dp > 1`` exports the pod-serving artifact: one program of batch / dp
+    rows that takes the rank's data index (``seed () int32, rank () int64``
+    on the CPU) and keeps its rows of the global batch's draws; the sidecar
+    keeps the global calling convention, ``"dp": dp``, and adds
+    ``rows_per_rank`` and its own contract version
+    (``CONTRACT_VERSION_DP``).  :func:`load_exported` serves it over a
+    dp-rank process group."""
+    dp = max(1, int(dp))
+    if batch % dp != 0:
+        raise ValueError(f"batch {batch} not divisible by dp {dp}")
+    rows = batch // dp
     dev = resolve_device(device)
     model, schedule, ck = load_model(ckpt_path, use_ema=use_ema, device=dev)
     cfg, sampler = resolve_serving_config(
         ck, schedule, sampler=sampler, steps=steps, ladder=ladder,
         cfg_scale=cfg_scale, start_t=start_t, eta=eta)
     fn = build_serving_fn(schedule, cfg, sampler=sampler, avg_seeds=avg_seeds,
-                          avg_mode=avg_mode, amp_calib=amp_calib, device=dev)
+                          avg_mode=avg_mode, amp_calib=amp_calib, device=dev,
+                          dp=dp)
     cond_in_ch = int(ck.get("cond_in_ch", 1))
-    served = _ServedSampler(model, fn).eval()
+    served = (_ServedSampler if dp == 1 else _ServedShard)(model, fn).eval()
     for p in served.parameters():
         p.requires_grad_(False)
-    example = (torch.zeros((batch, cond_in_ch, length), dtype=torch.float32,
+    example = (torch.zeros((rows, cond_in_ch, length), dtype=torch.float32,
                            device=dev),
-               torch.ones((batch,), dtype=torch.float32, device=dev),
+               torch.ones((rows,), dtype=torch.float32, device=dev),
                torch.zeros((), dtype=torch.int32))
+    if dp > 1:
+        example += (torch.zeros((), dtype=torch.int64),)
     ep = torch.export.export(served, example, strict=False)
     counts = _op_counts(ep)
     if dev.type == "cuda":
@@ -249,10 +285,10 @@ def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
     torch.export.save(ep, out_path)
 
     contract = {
-        "contract_version": CONTRACT_VERSION,
+        "contract_version": CONTRACT_VERSION if dp == 1 else CONTRACT_VERSION_DP,
         "calling_convention": calling_convention(batch, cond_in_ch, length),
         "platforms": [dev.type],
-        "dp": 1,
+        "dp": dp,
         "checkpoint": os.path.abspath(ckpt_path),
         "ema_weights": bool(use_ema),
         "knobs": {
@@ -287,31 +323,30 @@ def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
                     "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch "
                     "registered: load with its serving.load_exported"),
     }
+    if dp > 1:
+        contract["rows_per_rank"] = rows
     with open(out_path + ".json", "w") as fh:
         json.dump(contract, fh, indent=2)
     return contract
 
 
-def load_exported(path: str, device=None):
-    """Load an :func:`export_sampler` artifact on ``device`` (default: the
-    GPU); returns ``(call, contract)``.  ``call(cond_stack, sigmas, seed)``
-    takes numpy arrays or tensors of the sidecar's shapes and an int seed
-    and returns ``x0_white (B, L)``, a float32 tensor on the device.
-
-    Refuses an artifact without its sidecar, of another contract version,
-    of another format (a JAX StableHLO artifact) or traced for another
-    device type."""
+def _program(path: str, device=None):
+    """``(replay, contract)``: the artifact's program loaded on ``device``
+    (default: the GPU) after the sidecar's checks, as ``replay(cond_stack,
+    sigmas, seed, *rank)`` on host or device inputs, and its sidecar."""
     sidecar = path + ".json"
     if not os.path.exists(sidecar):
         raise FileNotFoundError(f"missing sidecar {sidecar}")
     with open(sidecar) as fh:
         contract = json.load(fh)
+    dp = int(contract.get("dp", 1))
+    want = CONTRACT_VERSION if dp == 1 else CONTRACT_VERSION_DP
     got = int(contract.get("contract_version", -1))
-    if got != CONTRACT_VERSION:
+    if got != want:
         raise ValueError(
             f"serving artifact {path} has contract_version {got}; this host "
-            f"speaks {CONTRACT_VERSION} — re-export the artifact or upgrade "
-            f"the host")
+            f"speaks {want}" + (f" for dp={dp}" if dp > 1 else "")
+            + " — re-export the artifact or upgrade the host")
     if contract.get("format") != ARTIFACT_FORMAT:
         raise ValueError(
             f"serving artifact {path} is not a {ARTIFACT_FORMAT} program "
@@ -325,10 +360,62 @@ def load_exported(path: str, device=None):
             f"{dev.type}: re-export it on the device that serves it")
     module = torch.export.load(path).module()
 
-    def call(cond_stack, sigmas, seed):
+    def replay(cond_stack, sigmas, seed, *rank):
         cond = torch.as_tensor(cond_stack, dtype=torch.float32).to(dev)
         sig = torch.as_tensor(sigmas, dtype=torch.float32).to(dev)
-        return module(cond, sig, torch.tensor(int(seed), dtype=torch.int32))
+        return module(cond, sig, torch.tensor(int(seed), dtype=torch.int32),
+                      *rank)
+
+    return replay, contract
+
+
+class PodFault(RuntimeError):
+    """A rank's replay of a pod-serving artifact failed.  Every rank raises
+    it from the same call, so the process group stays in step."""
+
+
+def load_exported(path: str, device=None):
+    """Load an :func:`export_sampler` artifact on ``device`` (default: the
+    GPU); returns ``(call, contract)``.  ``call(cond_stack, sigmas, seed)``
+    takes numpy arrays or tensors of the sidecar's shapes and an int seed
+    and returns ``x0_white (B, L)``, a float32 tensor on the device.
+
+    Refuses an artifact without its sidecar, of another contract version,
+    of another format (a JAX StableHLO artifact) or traced for another
+    device type.
+
+    A pod-serving artifact (``dp`` > 1) needs a process group of dp
+    processes, each of which loads it (without one it raises, naming
+    ``torchrun``): every rank's ``call`` takes the global batch, runs the
+    program on its rows and returns every rank's rows; if the program
+    fails on any rank, every rank's ``call`` raises :class:`PodFault`."""
+    replay, contract = _program(path, device)
+    dp = int(contract.get("dp", 1))
+    if dp == 1:
+        return replay, contract
+    if pmesh.world_size() != dp:
+        raise RuntimeError(
+            f"pod artifact {path} was exported for dp={dp} ranks; this "
+            f"process group has {pmesh.world_size()}: serve it under "
+            f"`torchrun --nproc-per-node {dp}` (one process per card)")
+    mesh = pmesh.make_mesh(n_data=dp)
+    rank = torch.tensor(mesh.rank, dtype=torch.int64)
+    dev = resolve_device(device)
+
+    def call(cond_stack, sigmas, seed):
+        cond = torch.as_tensor(cond_stack, dtype=torch.float32)
+        sig = torch.as_tensor(sigmas, dtype=torch.float32)
+        try:
+            out, fault = replay(pmesh.local_rows(mesh, cond),
+                                pmesh.local_rows(mesh, sig), seed, rank), None
+        except Exception as e:          # raised on every rank, below
+            out, fault = None, e
+        # the ranks agree before the gather, so a fault on one rank does
+        # not leave the others waiting in it
+        failed = torch.tensor([float(fault is not None)], device=dev)
+        if float(pmesh.mean_(mesh, failed)) > 0:
+            raise PodFault(f"a rank's replay of {path} failed") from fault
+        return pmesh.gather_rows(mesh, out)
 
     return call, contract
 
@@ -336,14 +423,20 @@ def load_exported(path: str, device=None):
 def validate_export(path: str, seed: int = 0, device=None) -> float:
     """Replay the artifact on random inputs of its sidecar's shapes and
     return max|output|; raises on a shape violation or a non-finite
-    output.  A cheap check after an export."""
-    call, contract = load_exported(path, device)
+    output.  A cheap check after an export.  A pod-serving artifact is
+    replayed here once per rank index, in this process, and the rows
+    joined: no process group is needed."""
+    replay, contract = _program(path, device)
     cc = contract["calling_convention"]
     B, C, L, _ = cc["inputs"]["cond_stack"]
     rng = np.random.default_rng(seed)
     cond = rng.normal(size=(B, C, L)).astype(np.float32)
     sig = np.ones((B,), np.float32)
-    out = call(cond, sig, seed).cpu().numpy()
+    dp = int(contract.get("dp", 1))
+    b = B // dp
+    out = torch.cat([replay(cond[r * b:(r + 1) * b], sig[r * b:(r + 1) * b],
+                            seed, *((torch.tensor(r),) if dp > 1 else ()))
+                     for r in range(dp)]).cpu().numpy()
     expect = tuple(cc["output"]["x0_white"][:2])
     if out.shape != expect:
         raise ValueError(f"artifact output shape {out.shape} != {expect}")

@@ -40,6 +40,15 @@ How it runs on the card:
   probes, debug dumps and profiles; every rank reads ``--resume``.  Each
   rank keeps the whole corpus resident and gathers the global batch, then
   slices it.
+- Tensor parallelism (``--tp`` > 1, a mesh with a model axis): the ranks
+  of one model group hold the same rows and the same draws (drawn per
+  data index); inside the step the U-Net runs the blocks that JAX shards
+  on each rank's share of channels or heads
+  (``UNet1D.tensor_parallel``).  After the backward each gradient that a
+  rank computed only in part is summed over the model axis, then the
+  whole gradient is averaged over the data axis as above.  Weights,
+  optimizer state and checkpoints stay whole on every rank
+  (``parallel.mesh.shard_params_tp``).
 
 Random streams: a 64-bit key (``rng_key`` in checkpoints, uint32[2] as the
 JAX package writes it) is split per step; the step seeds a generator on the
@@ -53,10 +62,9 @@ differ, so a resumed run does not repeat the other package's draws.
 stay resident there, else each batch is copied through
 ``prefetch_to_device``.
 
-Not here: tensor parallelism (``--tp`` > 1) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.  One process that sees several GPUs with data
-parallelism on raises too, naming ``torchrun``: JAX's single controller
-takes every visible device, torch runs one process per GPU.
+One process that sees several GPUs with data or tensor parallelism on
+raises, naming ``torchrun``: JAX's single controller takes every visible
+device, torch runs one process per GPU.
 """
 from __future__ import annotations
 
@@ -155,7 +163,7 @@ class TrainConfig:
     # compute
     bf16: bool = True                   # bf16 activations, f32 parameters
     data_parallel: bool = True
-    tp: int = 1                         # > 1 not ported: raises
+    tp: int = 1                         # model-axis size (tensor parallelism)
     remat: bool = False                 # recompute the forward in backward
 
     # logging / probes
@@ -252,6 +260,15 @@ class FlatParams:
         return {name: buf[o:o + math.prod(shape)].view(shape)
                 for name, shape, o in zip(self.names, self.shapes,
                                           self.offsets)}
+
+    def mask(self, names) -> torch.Tensor:
+        """1 on the elements of the parameters ``names``, 0 elsewhere, in
+        ``flat``'s layout."""
+        m = torch.zeros_like(self.flat)
+        views = self.views(m)
+        for name in names:
+            views[name].fill_(1.0)
+        return m
 
     def load_(self, buf: torch.Tensor, state_dict) -> None:
         """Copy a ``state_dict`` (names as the model's) into ``buf``."""
@@ -421,16 +438,20 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
     int from :func:`split_key`.  Updates ``state`` in place and returns
     device scalars (loss, grad_norm, lr, ok, t_min, t_mean, t_max) and
     ``bsz_eff`` (B*K), all of the global batch.  With ``mesh`` this rank
-    trains on its rows of the batch and of every draw, and the loss and the
-    gradient are averaged over the data axis (B must split evenly).  The
-    self-conditioning forward, the forward, the backward, the all-reduce and
-    the optimizer (with the EMA and the gate) run in ``torch.profiler``
-    ranges named ``train/...``."""
+    trains on its data index's rows of the batch and of every draw, and the
+    loss and the gradient are averaged over the data axis (B must split
+    evenly).  With a model axis the forwards and the backward run
+    tensor-parallel and the gradients that each model rank computed in part
+    are first summed over that axis.  The self-conditioning forward, the
+    forward, the backward, the two reductions and the optimizer (with the
+    EMA and the gate) run in ``torch.profiler`` ranges named
+    ``train/...``."""
     K = max(1, int(cfg.t_multi))
     dev = next(model.parameters()).device
     sched = _on_device(schedule, dev)
     gen = torch.Generator(device=dev)
     mesh = mesh or pmesh.Mesh(1)
+    keep = None     # the model reduction's mask, made at the first step
 
     def rows(x):
         return pmesh.local_rows(mesh, x)
@@ -443,6 +464,12 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], key: int,
              t_min: int, p_uncond_eff: float, p_selfcond_eff: float):
+        with model.tensor_parallel(mesh):
+            return step_body(state, batch, key, t_min, p_uncond_eff,
+                           p_selfcond_eff)
+
+    def step_body(state, batch, key, t_min, p_uncond_eff, p_selfcond_eff):
+        nonlocal keep
         gen.manual_seed(key)
         clean_raw = rows(batch["clean"]).float()
         noisy_raw = rows(batch["noisy"]).float()
@@ -517,6 +544,17 @@ def make_train_step(model: UNet1D, schedule: DiffusionSchedule,
             flatp.grad.zero_()
             loss.backward()
         loss = loss.detach()
+        if mesh.model_group is not None:
+            with record_function("train/model_all_reduce"):
+                if keep is None:
+                    # the partial gradients from every model rank, the
+                    # whole ones (equal on every model rank) from rank 0
+                    part = flatp.mask(model.tensor_parallel_partial(
+                        mesh.n_model))
+                    keep = torch.where(part > 0, 1.0,
+                                       float(mesh.model_rank == 0))
+                flatp.grad.mul_(keep)
+                pmesh.sum_model_(mesh, flatp.grad)
         if mesh.group is not None:
             with record_function("train/all_reduce"):
                 pmesh.mean_(mesh, flatp.grad)
@@ -768,40 +806,64 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
     device; anything else is an HDF5 corpus, which needs h5py, or its
     ``.npz`` twin).
 
-    ``mesh`` (``parallel.mesh.make_mesh``) trains data-parallel over its
-    data axis.  Without one, a process group of several ranks (``torchrun``;
-    joined here by ``multihost_init``) with ``cfg.data_parallel`` makes the
-    mesh of all ranks, unless the batch does not split evenly over them:
-    then every rank trains unsharded.  Only rank 0 writes files."""
+    ``mesh`` (``parallel.mesh.make_mesh``) trains over its axes: rows over
+    the data axis, the blocks that JAX shards over the model axis.  Without
+    one, a process group of several ranks (``torchrun``; joined here by
+    ``multihost_init``) with ``cfg.data_parallel`` or ``cfg.tp`` > 1 makes
+    the mesh as JAX makes it over its devices: ``cfg.tp`` ranks on the
+    model axis, the rest (or 1 with data parallelism off) on the data
+    axis, unless the batch does not split evenly over the data axis: then
+    every rank trains unsharded.  Only rank 0 writes files."""
     from ..data import pipeline as dpipe
     from ..data.hdf5io import compute_meta_scale
     from ..utils.roofline import peak_for, unet_flops_per_sample
 
     if mesh is not None:
         pmesh.check_mesh(mesh)
-    if int(cfg.tp) > 1:
-        raise NotImplementedError(pmesh.TP_TODO)
     pmesh.multihost_init(device)
     dev = resolve_device(device)
     n_world = pmesh.world_size()
-    if mesh is None and cfg.data_parallel and n_world > 1:
-        if cfg.batch_size % n_world == 0:
-            mesh = pmesh.make_mesh(n_data=n_world)
-        else:
-            print(f"[train] batch_size={cfg.batch_size} not divisible by "
-                  f"{n_world} data-parallel devices; running without "
-                  f"sharding")
+    tp = int(cfg.tp)
     if (mesh is None and n_world == 1 and dev.type == "cuda"
-            and cfg.data_parallel and torch.cuda.device_count() > 1):
+            and (cfg.data_parallel or tp > 1)
+            and torch.cuda.device_count() > 1):
         n_gpu = torch.cuda.device_count()
         raise NotImplementedError(
-            f"{n_gpu} GPUs are visible to one process with data parallelism "
-            f"on: the port runs one process per GPU. Launch with `torchrun "
-            f"--nproc-per-node {n_gpu} -m "
+            f"{n_gpu} GPUs are visible to one process with data or tensor "
+            f"parallelism on: the port runs one process per GPU. Launch with "
+            f"`torchrun --nproc-per-node {n_gpu} -m "
             f"diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
             f".cli.train ...`, expose one GPU (CUDA_VISIBLE_DEVICES) or pass "
-            f"--no-data-parallel")
-    n_data = mesh.n_data if mesh is not None else 1
+            f"--no-data-parallel" + (" and --tp 1" if tp > 1 else ""))
+    # JAX's mesh rule and its three messages, with the world size in place
+    # of the device count
+    if mesh is None and (cfg.data_parallel or tp > 1) and n_world > 1:
+        n_model = max(1, tp)
+        n_data = max(1, n_world // n_model) if cfg.data_parallel else 1
+        if n_model > n_world:
+            raise ValueError(
+                f"--tp {cfg.tp} requested but only {n_world} "
+                f"devices are visible")
+        if n_data * n_model != n_world:
+            # JAX leaves spare devices idle; a spare process would leave
+            # the others waiting for it at their first collective
+            raise ValueError(
+                f"{n_world} processes do not fill the {n_data}x{n_model} "
+                f"mesh (--tp {cfg.tp}): process {pmesh.process_index()} "
+                f"would be outside it; start {n_data * n_model} processes")
+        if cfg.batch_size % n_data == 0:
+            mesh = pmesh.make_mesh(n_data=n_data, n_model=n_model)
+        else:
+            dropped = (f" (and the requested --tp {cfg.tp} tensor "
+                       f"parallelism)" if n_model > 1 else "")
+            print(f"[train] batch_size={cfg.batch_size} not divisible by "
+                  f"{n_data} data-parallel devices; running without "
+                  f"sharding{dropped}")
+    elif mesh is None and tp > 1:
+        print(f"[train] --tp {cfg.tp} requested but only "
+              f"{n_world} device(s) visible; tensor parallelism "
+              f"dropped")
+    n_chips = mesh.n_data * mesh.n_model if mesh is not None else 1
     writer = pmesh.process_index() == 0
 
     t_run0 = time.time()
@@ -883,9 +945,17 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         print(f"[train] resumed from {cfg.resume} at epoch {start_epoch} "
               f"(global step {step_restored})")
     if mesh is not None:
-        # the optimizer state and the step are replicated with the weights
-        pmesh.replicate_tree([state.params.flat, state.ema_params,
-                              *state.opt_state, state.step], mesh)
+        # the weights stay whole on every rank (shard_params_tp); the
+        # optimizer state and the step are replicated with them
+        pmesh.shard_params_tp([state.params.flat, state.ema_params], mesh)
+        pmesh.replicate_tree([*state.opt_state, state.step], mesh)
+        tp_on = mesh.n_model > 1
+        print(f"[train] mesh {mesh.shape}"
+              + (" (tensor-parallel conv channels)" if tp_on else ""))
+        if tp_on:
+            split, whole = model.tensor_parallel_plan(mesh.n_model)
+            print(f"[train] split over the model axis: {', '.join(split)}; "
+                  f"whole on every model rank: {', '.join(whole) or 'none'}")
 
     if cfg.t_min_frac > 0:
         print(f"[train] WARNING: t_min_frac={cfg.t_min_frac} — timesteps "
@@ -1008,19 +1078,19 @@ def train(cfg: TrainConfig, dataset=None, mesh=None,
         dt_epoch = max(1e-9, time.time() - t_epoch0)
         steps_per_s = n_batches / dt_epoch
         samples_per_s = steps_per_s * cfg.batch_size
-        mfu_est = (train_flops_per_sample * samples_per_s / n_data / peak[0]
+        mfu_est = (train_flops_per_sample * samples_per_s / n_chips / peak[0]
                    if peak else None)
         print(f"[train] epoch {epoch}: avg/sample={avg:.6f} mean/batch={mean_b:.6f} "
               f"median/batch={med_b:.6f} skipped={skipped} "
               f"({steps_per_s:.2f} steps/s, {samples_per_s:.1f} samples/s, "
-              f"{samples_per_s / n_data:.1f} samples/s/chip"
+              f"{samples_per_s / n_chips:.1f} samples/s/chip"
               + (f", MFU~{mfu_est:.3f}" if mfu_est is not None else "") + ")")
         logger.log({"phase": "epoch_end", "epoch": epoch, "avg_per_sample": avg,
                     "mean_per_batch": mean_b, "median_per_batch": med_b,
                     "skipped_batches": skipped,
                     "steps_per_sec": steps_per_s,
                     "samples_per_sec": samples_per_s,
-                    "samples_per_sec_per_chip": samples_per_s / n_data,
+                    "samples_per_sec_per_chip": samples_per_s / n_chips,
                     "mfu_est": mfu_est,
                     "elapsed_s": time.time() - t_run0,
                     **{k: getattr(dataset, a) for k, a in (

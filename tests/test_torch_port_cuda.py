@@ -802,11 +802,11 @@ def test_tiled_apply_kernel_path_matches_plain_path(cuda, monkeypatch):
     assert err.item() <= 1e-4   # f32: summation order through five blocks
 
 
-def _dp_train_parts(device):
+def _dp_train_parts(device, base_ch=16):
     tt = importlib.import_module(
         "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
         ".training.train")
-    cfg = tt.TrainConfig(batch_size=8, base_ch=16, time_dim=32, depth=2,
+    cfg = tt.TrainConfig(batch_size=8, base_ch=base_ch, time_dim=32, depth=2,
                          use_attention=True, pred_type="v", bf16=False,
                          t_min_frac=0.0, warmup_steps=2)
     model, schedule, opt, lr, state, _ = tt.build_model_and_state(
@@ -831,9 +831,11 @@ def _dp_batch(device):
     return {k: v.to(device) for k, v in b.items()}
 
 
-def _dp_rank(rank, port, queue):
+def _dp_rank(rank, port, queue, tp=False):
     """A rank of the two-rank gloo group on the card: two f32 steps on its
-    rows of the global batch (the second with a NaN in rank 1's rows)."""
+    rows of the global batch (the second with a NaN in rank 1's rows); with
+    ``tp`` on a 1x2 tensor-parallel mesh at base_ch 32 (every block and
+    the two-head attention split), all rows on both ranks."""
     import torch.distributed as dist
 
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.parallel import mesh as pmesh
@@ -844,9 +846,10 @@ def _dp_rank(rank, port, queue):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=2, rank=rank)
     cuda = torch.device("cuda", 0)
-    tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(cuda)
-    step = tt.make_train_step(model, schedule, cfg, opt, lr,
-                              pmesh.make_mesh())
+    tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(
+        cuda, 32 if tp else 16)
+    mesh = pmesh.make_mesh(n_data=1, n_model=2) if tp else pmesh.make_mesh()
+    step = tt.make_train_step(model, schedule, cfg, opt, lr, mesh)
     batch = _dp_batch(cuda)
     m = step(state, batch, 11, 0, 0.0, 1.0)
     bad = dict(batch, clean=batch["clean"].clone())
@@ -864,19 +867,21 @@ def _dp_rank(rank, port, queue):
     os._exit(0)      # no interpreter teardown after gloo
 
 
-def test_data_parallel_step_on_two_gloo_ranks(cuda):
+@pytest.mark.parametrize("tp", [False, True], ids=["data", "tensor"])
+def test_data_parallel_step_on_two_gloo_ranks(cuda, tp):
     """Two ranks sharing the card (gloo: NCCL takes one rank a device), 4
-    rows each of a global batch of 8 with injected t and eps: the loss,
-    the gradient norm and the parameters of the single-process step within
-    1e-4 (f32, summation order), equal on both ranks; a NaN in rank 1's
-    rows is refused on both."""
+    rows each of a global batch of 8 with injected t and eps (or, tensor
+    parallel, all 8 rows and half of each split block's channels and of
+    the attention's heads): the loss, the gradient norm and the parameters
+    of the single-process step within 1e-4 (f32, summation order), equal
+    on both ranks; a NaN in rank 1's rows is refused on both."""
     import torch.multiprocessing as mp
 
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     q = mp.get_context("spawn").Queue()
-    procs = mp.start_processes(_dp_rank, args=(port, q), nprocs=2,
+    procs = mp.start_processes(_dp_rank, args=(port, q, tp), nprocs=2,
                                join=False, start_method="spawn")
     got = []
     while len(got) < 2:
@@ -887,7 +892,8 @@ def test_data_parallel_step_on_two_gloo_ranks(cuda):
     while not procs.join():
         pass
     r0, r1 = sorted(got, key=lambda r: r["rank"])
-    tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(cuda)
+    tt, cfg, model, schedule, opt, lr, state = _dp_train_parts(
+        cuda, 32 if tp else 16)
     m = tt.make_train_step(model, schedule, cfg, opt, lr)(
         state, _dp_batch(cuda), 11, 0, 0.0, 1.0)
     want = state.params.flat.cpu().numpy()
@@ -1079,3 +1085,30 @@ def test_pn_chirp_long_on_the_card_matches_cpu(cuda):
     assert on_card.dtype == torch.float32
     err = ((on_card - on_cpu).abs().amax(-1) / on_cpu.abs().amax(-1)).max()
     assert float(err) <= 1e-5
+
+
+# K1 at a rank's share of attn16k's ConvBlocks under tensor parallelism
+# (tp 2: Cout / 2 with 4 of the 8 groups), (L, Cin, Cout / 2): enc0 on
+# mma.sync (Cin 7), the rest on wgmma; dec2's 32 output channels fill half
+# of wgmma's 64-channel N tile
+TP_BLOCKS = [(32768, 7, 32), (16384, 64, 64), (8192, 128, 128),
+             (4096, 256, 128), (8192, 512, 128), (16384, 384, 64),
+             (32768, 192, 32)]
+
+
+@pytest.mark.parametrize("L,Cin,Cout", TP_BLOCKS)
+def test_kernel_at_the_tensor_parallel_shards(cuda, L, Cin, Cout):
+    x, W, b, s, bb = _block_inputs(cuda, 2, L, Cin, Cout, seed=L + Cout)
+    x = x.to(torch.bfloat16)
+    assert conv_route(x) == ("wgmma" if Cin % 8 == 0 else "mma_sync")
+    out = fused_conv_gn_silu(x, W, b, s, bb, 4)
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, 4)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_flash_attention_at_the_tensor_parallel_heads(cuda):
+    # attn16k's bottleneck with its 4 heads split over 2 ranks
+    q, k, v = _qkv(cuda, 2, 2, 4096, 64, seed=9)
+    assert attention_route(q, k, v) == "wgmma"
+    _assert_within_p_rounding(flash_attention(q, k, v), q, k, v)

@@ -193,9 +193,15 @@ def test_cuda_artifact_is_not_served_elsewhere(port_artifact, tmp_path,
 
 
 def test_export_dp_raises(ckpt, tmp_path):
-    with pytest.raises(NotImplementedError, match="P10"):
-        tsrv.export_sampler(ckpt, str(tmp_path / "dp.pt2"), batch=B,
+    """A batch that does not split over the dp ranks raises JAX's error,
+    before anything is written."""
+    with pytest.raises(ValueError) as want:
+        jsrv.export_sampler(ckpt, str(tmp_path / "dp.shlo"), batch=3,
+                            length=L, platforms=["cpu"], dp=2, **KNOBS)
+    with pytest.raises(ValueError) as got:
+        tsrv.export_sampler(ckpt, str(tmp_path / "dp.pt2"), batch=3,
                             length=L, device="cpu", dp=2, **KNOBS)
+    assert str(got.value) == str(want.value) == "batch 3 not divisible by dp 2"
     assert not (tmp_path / "dp.pt2").exists()
 
 
@@ -212,9 +218,9 @@ def test_export_cli_validates(ckpt, tmp_path, capsys):
     with open(out + ".json") as fh:
         assert json.load(fh)["calling_convention"]["inputs"]["cond_stack"] \
             == [B, C, L, "float32"]
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(ValueError, match="batch 3 not divisible by dp 2"):
         texport.main(["--model", ckpt, "--output", out, "--device", "cpu",
-                      "--dp", "2"])
+                      "--batch-size", "3", "--dp", "2"])
 
 
 def test_serve_batch_mode_against_jax(port_artifact, jax_artifact, tmp_path):

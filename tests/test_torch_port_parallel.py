@@ -200,6 +200,11 @@ def _uneven_batch_on_rank(mesh):
     return None
 
 
+def _model_axis_on_rank(mesh):
+    m = tmesh.make_mesh(n_data=1, n_model=2)
+    return m.shape, m.rank, m.model_rank
+
+
 def test_mesh_arguments_are_checked(pool):
     model, ts, cond, sig, cfg = _small_sampler_args()
     with pytest.raises(TypeError, match="make_mesh"):
@@ -216,10 +221,14 @@ def test_mesh_arguments_are_checked(pool):
         tmesh.Mesh(2)
     with pytest.raises(ValueError, match="outside"):
         tmesh.Mesh(1, rank=1)
+    # so does a model axis of several ranks; on the ranks' group a 1x2
+    # mesh puts process m at model index m
     for tp in (lambda: tmesh.make_mesh(n_data=1, n_model=2, devices=[0, 1]),
                lambda: tmesh.Mesh(1, 2)):
-        with pytest.raises(NotImplementedError, match=r"P10\.1"):
+        with pytest.raises(ValueError, match="needs a process group"):
             tp()
+    for r, shape in enumerate(pool.run(_model_axis_on_rank)):
+        assert shape == ({"data": 1, "model": 2}, 0, r)
 
 
 # ---------------------------------------------------------------------------
