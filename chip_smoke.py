@@ -33,6 +33,19 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              K1's records also carry the two-pass floor (the bound plus y's
              f32 write and read) and one call's device time split into
              pack / conv / stats / apply (``torch.profiler``).
+3b. kernel_backward - K1B and K2B, the backward kernels, against their
+             plain backwards on the inputs in f32 at every training path's
+             shapes in bf16 (attn16k's 7 ConvBlocks at 16 rows and its
+             attention (16, 4, 4096, 64); a tensor-parallel rank's shares
+             of them, K2B at 2 heads; pn128's gw-train at L 8192; the
+             distillation student at 16 rows, L 4096; after the data
+             phase, the streaming train's other bucket lengths) and in f32
+             at one shape each: one launch a call, two calls bit-equal,
+             every gradient within ``tools.bench_kernels.GRAD_TOL``; the
+             kernel's, the plain backward's and the library backward's
+             times (autograd of ``F.conv1d -> F.group_norm -> F.silu``;
+             SDPA's backward) and the bound (``conv_backward_row`` /
+             ``attention_backward_row``).
 4. model   - each flagship U-Net in f32 with seeded random weights: the
              kernel path (its launches counted) against the same module
              through the plain versions.
@@ -61,9 +74,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              ``--input-npy``.  Launches counted in both runs; a small f32
              configuration of ``reconstruct`` is checked against the CPU
              plain path.
-7. op_overhead - host time of one launch of each kernel: its launch body
-             alone, its registered op called directly, and the public
-             wrapper; what the registration adds.
+7. op_overhead - host time of one launch of each kernel, K1B and K2B
+             too: its launch body alone, its registered op called
+             directly, and the public wrapper; what the registration adds.
 8. export  - per flagship, the serving artifact: ``export_sampler`` on the
              card from the infer phase's checkpoint (serving batch and
              knobs; export time, ``.pt2`` size, the ops in its graph),
@@ -83,15 +96,18 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              of the same checkpoint on the same batch and seed (f32 within
              the model bar, bf16 reported), launches and times per rank.
 9. autograd - a grad-enabled CUDA forward launches both kernels (counted)
-             and backpropagates through their registered backwards.
+             and backpropagates through the backward kernels K1B and K2B
+             (counted).
 10. train  - attn16k training at full width (base_ch 64, depth 3,
              attention, v-prediction, bf16) through ``train(cfg,
              dataset=...)`` on 64 segments of L 32768 synthesised on the
              card, batch 16: a counted run with self-conditioning on every
-             step (K1 14 and K2 2 launches a step), a timed run with the
-             recipe's knobs (the trainer's samples/s and MFU, ms per step,
-             peak memory) and one profiled window split into K1 / K2
-             forward, each op's plain backward, the rest of the backward,
+             step (K1 14, K2 2, K1B 7 and K2B 1 launches a step), a timed
+             run with the recipe's knobs (the trainer's samples/s and MFU,
+             ms per step, peak memory) and one profiled window split into
+             K1 / K2 forward, K1B / K2B (each op's backward range, which
+             must hold only the kernel's own kernels: no aten kernel, no
+             plain backward), the rest of the backward,
              the rest of the forward, the optimizer with EMA and gate, and
              idle; then one step's gradients at full width on 4 rows with
              injected t and eps, kernel path against plain path (f32
@@ -190,8 +206,8 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              and on the CPU (the mismatch table within 1e-6); and
              ``tools.merge_h5`` over the data phase's two corpora,
              byte-equal to gw-merge's file.
-17. launched_shapes - every shape each kernel was launched at from phase
-             4 on (recorded by wrapping the ops' launch bodies; the
+17. launched_shapes - every shape each kernel (K1B and K2B too) was
+             launched at from phase 4 on (recorded by wrapping the ops' launch bodies; the
              op_overhead phase and the attention model's monolithic
              forward of phase 14, whose K2 shape has no plain version that
              fits the card, are not recorded) that phase 3 did not check, held against its plain
@@ -461,15 +477,140 @@ def phase_kernel_attention(torch, shapes=K2_SHAPES):
     return results
 
 
-def expected_launches(model, forwards):
+def backward_conv_rows(torch, config, blocks, dtype, rows, reps=5):
+    """K1B at each (name, L, Cin, Cout, groups) of ``blocks`` for ``rows``
+    rows of ``dtype``: the record of ``tools.bench_kernels.
+    conv_backward_row`` (one launch a call, two calls bit-equal, every
+    gradient within ``GRAD_TOL`` of the plain backward on the inputs in
+    f32; with ``reps``, the kernel's, the plain backward's and cuDNN's
+    backward times and the bound)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        conv_backward_row,
+    )
+
+    results = []
+    for name, L, Cin, Cout, G in blocks:
+        g = torch.Generator(device="cuda").manual_seed(L + Cin + Cout)
+        x = torch.randn(rows, L, Cin, generator=g, device="cuda").to(dtype)
+        W = torch.randn(3, Cin, Cout, generator=g, device="cuda") / (3 * Cin) ** 0.5
+        b, s, bb = (0.1 * torch.randn(Cout, generator=g, device="cuda")
+                    for _ in range(3))
+        dout = torch.randn(rows, L, Cout, generator=g, device="cuda").to(dtype)
+        row = conv_backward_row(dout, x, W, b, s + 1.0, bb, G, reps=reps,
+                                plain_reps=1)
+        rec = {"phase": "kernel_backward", "kernel": "conv_gn_silu_backward",
+               "config": config, "block": name, "rows": rows, "L": L,
+               "Cin": Cin, "Cout": Cout, "groups": G, **row}
+        emit(rec)
+        results.append(rec)
+        check(row["within_tol"],
+              f"conv_gn_silu_backward {config} {name} {row['dtype']} "
+              f"rows={rows}: {row}")
+        del x, dout
+        torch.cuda.empty_cache()
+    return results
+
+
+def backward_attention_rows(torch, config, shapes, reps=5):
+    """K2B at each (dtype, B, H, L, D) of ``shapes`` with a dout transposed
+    as the U-Net hands it back: the record of ``tools.bench_kernels.
+    attention_backward_row``."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        attention_backward_row,
+    )
+
+    results = []
+    for dname, B, H, L, D in shapes:
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device="cuda").manual_seed(B * L + D + 1)
+        q, k, v = (torch.randn(B, H, L, D, generator=g, device="cuda")
+                   .to(dtype) for _ in range(3))
+        dout = torch.randn(B, L, H, D, generator=g, device="cuda").to(
+            dtype).transpose(1, 2)
+        row = attention_backward_row(dout, q, k, v, reps=reps, plain_reps=1)
+        rec = {"phase": "kernel_backward",
+               "kernel": "flash_attention_backward", "config": config,
+               "B": B, "H": H, "L": L, "D": D, **row}
+        emit(rec)
+        results.append(rec)
+        check(row["within_tol"],
+              f"flash_attention_backward {config} {(B, H, L, D)}: {row}")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_blocks(model_kw, L, n_model=1):
+    """(name, L, Cin, Cout, groups) of the ConvBlocks a training step at
+    input length L runs K1B on: every block, or with ``n_model`` model
+    ranks a rank's shares of the split ones (Cout / n, groups / n)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import (
+        UNet1D,
+        _num_groups,
+    )
+
+    model = UNet1D(**model_kw, device="cuda")
+    if n_model > 1:
+        return [(name, n, cin, cout, _num_groups(cout * n_model) // n_model)
+                for name, n, cin, cout in tp_shard_shapes(model, L, n_model)]
+    return [(name, n, cin, cout, _num_groups(cout))
+            for name, n, cin, cout in convblock_shapes(model, L)]
+
+
+def phase_kernel_backward(torch):
+    """K1B and K2B against their plain backwards on the card at every
+    training path's shapes, bf16: attn16k's training batch (7 ConvBlocks,
+    K2B at (16, 4, 4096, 64)), a tensor-parallel rank's shares of it (K2B
+    at 2 heads), pn128's gw-train at L 8192 and the distillation student
+    (16 rows, L 4096); in f32 at one shape each (attn16k's mid block and
+    its attention at the f32 gradient check's rows).  The streaming
+    train's other bucket lengths come after the data phase.  Returns K1B's
+    and K2B's records."""
+    bf = torch.bfloat16
+    kb1, kb2 = [], []
+    for config, model_kw, L, rows, n_model in (
+            ("attn16k train", ATTN16K, 32768, TRAIN_BATCH, 1),
+            ("attn16k train tp share", ATTN16K, 32768, TRAIN_BATCH, 2),
+            ("pn128 train cli", FLAGSHIP, CLI_TRAIN_L, TRAIN_BATCH, 1),
+            ("pn128 distill student", FLAGSHIP, 4096, DISTILL_BATCH, 1)):
+        kb1 += backward_conv_rows(torch, config,
+                                  train_blocks(model_kw, L, n_model), bf,
+                                  rows)
+    mid = [b for b in train_blocks(ATTN16K, 32768) if b[0] == "mid"]
+    kb1 += backward_conv_rows(torch, "attn16k f32", mid, torch.float32,
+                              GRAD_ROWS)
+    kb2 += backward_attention_rows(torch, "attn16k train",
+                                   [("bfloat16", TRAIN_BATCH, 4, 4096, 64)])
+    kb2 += backward_attention_rows(torch, "attn16k train tp share",
+                                   [("bfloat16", TRAIN_BATCH, 2, 4096, 64)])
+    kb2 += backward_attention_rows(torch, "attn16k f32",
+                                   [("float32", GRAD_ROWS, 4, 4096, 64)])
+    return kb1, kb2
+
+
+def expected_launches(model, forwards, backwards=0):
     """K1 once per ConvBlock per forward, K2 once per forward with
-    attention."""
-    return {"conv_gn_silu": (2 * model.depth + 1) * forwards,
-            "flash_attention": forwards if model.use_attention else 0}
+    attention; K1B and K2B likewise per backward."""
+    blocks = 2 * model.depth + 1
+    return {"conv_gn_silu": blocks * forwards,
+            "flash_attention": forwards if model.use_attention else 0,
+            "conv_gn_silu_backward": blocks * backwards,
+            "flash_attention_backward": (backwards if model.use_attention
+                                         else 0)}
+
+
+KERNEL_NAMES = ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
+                "flash_attention_backward")
+
+
+def all_counts(want):
+    """``want`` with every kernel it does not name at 0 launches: serving,
+    export and replay runs must launch no backward kernel."""
+    return {**dict.fromkeys(KERNEL_NAMES, 0), **want}
 
 
 def check_launches(launch_counts, want, what):
-    got = launch_counts()
+    got, want = launch_counts(), all_counts(want)
     check(got == want, f"{what}: launches {got} != {want}")
     return got
 
@@ -948,18 +1089,28 @@ def phase_infer(torch, config, tmp):
     return launches, cli_launches
 
 
-TRAIN_GROUPS = ("k1_forward", "k2_forward", "k1_plain_backward",
-                "k2_plain_backward", "rest_of_backward", "rest_of_forward",
-                "optimizer_ema_gate", "other")
+TRAIN_GROUPS = ("k1_forward", "k2_forward", "k1_backward", "k2_backward",
+                "rest_of_backward", "rest_of_forward", "optimizer_ema_gate",
+                "other")
+# the kernels K1B and K2B launch: K1B repeats K1's conv and statistics
+# passes (and its weight pack) and adds its own; K2B's are all its own
+K1B_KERNELS = K1_KERNELS + ("k1b_",)
+K2B_KERNELS = ("flash_bwd_",)
+BACKWARD_RANGES = {"gwport::conv_gn_silu_backward": ("k1_backward",
+                                                     K1B_KERNELS),
+                   "gwport::flash_attention_backward": ("k2_backward",
+                                                        K2B_KERNELS)}
 
 
 def train_split(trace_path, wall_us, steps):
     """Device ms per step of a profiled training window by part: K1's and
-    K2's kernels (forward only: their backward is plain), the kernels
-    launched inside each op's plain backward, the rest of the backward,
-    the rest of the forwards, the optimizer with the EMA and the gate, and
-    anything else (the batch gather, the noising); plus the idle share of
-    the wall.  A kernel belongs to the innermost ``torch.profiler`` range
+    K2's forward kernels, the kernels launched inside each op's backward
+    (K1B's, K2B's; ``backward_kernels_ms`` by name, and ``foreign_kernels``
+    the names there that are not the kernel's own, which must be none: no
+    plain backward on the card), the rest of the backward, the rest of the
+    forwards, the optimizer with the EMA and the gate, and anything else
+    (the batch gather, the noising); plus the idle share of the wall.  A
+    kernel belongs to the innermost ``torch.profiler`` range
     (``train/...``, ``gwport::..._backward``) around the host call that
     launched it."""
     events = json.loads(trace_path.read_text())["traceEvents"]
@@ -973,20 +1124,29 @@ def train_split(trace_path, wall_us, steps):
               and (e["name"].startswith("train/")
                    or e["name"].endswith("_backward"))]
     groups = dict.fromkeys(TRAIN_GROUPS, 0.0)
+    by_kernel = {"k1_backward": {}, "k2_backward": {}}
+    foreign = set()
     for e in dev:
         name, dur = e["name"], float(e["dur"])
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        inside = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
+        where = min(inside, key=lambda r: r[1] - r[0])[2] if inside else ""
+        if where in BACKWARD_RANGES:
+            group, own = BACKWARD_RANGES[where]
+            groups[group] += dur
+            short = name.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0][:60]
+            by_kernel[group][short] = by_kernel[group].get(short, 0.0) + dur
+            if not any(k in name for k in own):
+                foreign.add(f"{where}: {name[:80]}")
+            continue
         if any(k in name for k in K1_KERNELS):
             groups["k1_forward"] += dur
             continue
         if any(k in name for k in K2_KERNELS):
             groups["k2_forward"] += dur
             continue
-        ts = launch_ts.get(e.get("args", {}).get("correlation"))
-        inside = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
-        where = min(inside, key=lambda r: r[1] - r[0])[2] if inside else ""
-        group = {"gwport::conv_gn_silu_backward": "k1_plain_backward",
-                 "gwport::flash_attention_backward": "k2_plain_backward",
-                 "train/backward": "rest_of_backward",
+        group = {"train/backward": "rest_of_backward",
                  "train/forward": "rest_of_forward",
                  "train/selfcond_forward": "rest_of_forward",
                  "train/optimizer": "optimizer_ema_gate"}.get(where, "other")
@@ -995,6 +1155,11 @@ def train_split(trace_path, wall_us, steps):
     total = sum(groups.values())
     return {"ms_per_step": {k: v / 1e3 / steps for k, v in groups.items()},
             "share": {k: v / total for k, v in groups.items()},
+            "backward_kernels_ms_per_step": {
+                g: {n: v / 1e3 / steps for n, v in sorted(
+                    d.items(), key=lambda kv: -kv[1])}
+                for g, d in by_kernel.items()},
+            "foreign_kernels": sorted(foreign),
             "device_ms_per_step": total / 1e3 / steps,
             "wall_ms_per_step": wall_us / 1e3 / steps,
             "idle_share": 1.0 - busy / (wall_us / 1e3),
@@ -1049,7 +1214,7 @@ def phase_train(torch, tmp):
     steps = TRAIN_SAMPLES // TRAIN_BATCH
 
     # counted: self-conditioning on every step, so each step runs two
-    # forwards (K1 x 7 and K2 x 1 each) and one backward (no launches)
+    # forwards (K1 x 7 and K2 x 1 each) and one backward (K1B x 7, K2B x 1)
     reset_launch_counts()
     out = tt.train(attn16k_train_config(tmp, "count", epochs=1,
                                         p_selfcond=1.0, p_uncond=0.2),
@@ -1057,7 +1222,9 @@ def phase_train(torch, tmp):
     torch.cuda.synchronize()
     launches = check_launches(
         launch_counts, {"conv_gn_silu": 14 * steps,
-                        "flash_attention": 2 * steps}, "attn16k train")
+                        "flash_attention": 2 * steps,
+                        "conv_gn_silu_backward": 7 * steps,
+                        "flash_attention_backward": steps}, "attn16k train")
     check(np.isfinite(out["history"][0]["avg_per_sample"])
           and int(out["state"].step) == steps, "attn16k counted run")
 
@@ -1115,9 +1282,10 @@ def phase_train(torch, tmp):
     TRACES.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
     split = train_split(trace, wall_us, len(window))
-    check(split["ms_per_step"]["k1_plain_backward"] > 0
-          and split["ms_per_step"]["k2_plain_backward"] > 0,
-          f"the trace attributes the plain backwards: {split}")
+    check(split["ms_per_step"]["k1_backward"] > 0
+          and split["ms_per_step"]["k2_backward"] > 0
+          and not split["foreign_kernels"],
+          f"the backward ranges hold K1B's and K2B's kernels only: {split}")
 
     flops = (3.0 + 0.5) * TRAIN_BATCH * _unet_flops(ATTN16K, 32768)
     emit({"phase": "train", "config": "attn16k bf16", "L": 32768,
@@ -1198,8 +1366,10 @@ def phase_train_grads(torch, ds, tmp):
     for dname, bf16 in (("float32", False), ("bfloat16", True)):
         lk, gk, ck = one_step(bf16, plain=False)
         lp, gp, cp = one_step(bf16, plain=True)
-        check(ck == {"conv_gn_silu": 14, "flash_attention": 2}
-              and cp == {"conv_gn_silu": 0, "flash_attention": 0},
+        check(ck == all_counts({"conv_gn_silu": 14, "flash_attention": 2,
+                                "conv_gn_silu_backward": 7,
+                                "flash_attention_backward": 1})
+              and cp == all_counts({}),
               f"gradient check {dname}: launches {ck} / plain {cp}")
         grad_rel = float((gk - gp).abs().max() / gp.abs().max())
         loss_rel = abs(lk - lp) / abs(lp)
@@ -1261,7 +1431,8 @@ def phase_train_cli(torch, tmp):
     train_s = time.perf_counter() - t0
     launches = check_launches(launch_counts,
                               {"conv_gn_silu": 7 * (steps + heads),
-                               "flash_attention": 0}, "pn128 train cli")
+                               "conv_gn_silu_backward": 7 * steps},
+                              "pn128 train cli")
     hist = [h["avg_per_sample"] for h in out["history"]]
     check(len(hist) == CLI_TRAIN_EPOCHS and hist[0] > hist[-1],
           f"gw-train: the loss did not fall, {hist}")
@@ -1324,19 +1495,17 @@ def host_us_per_call(torch, fn, calls=300):
 
 
 def phase_op_overhead(torch):
-    """What the op registration adds to the host time of one launch: the
-    launch body alone, the registered op called directly, the public
-    wrapper (checks, then the op) and, for K1, the body
-    behind a low-level ``torch.library.Library`` registration; in turns
-    (each way, then each again in reverse order)."""
+    """What the op registration adds to the host time of one launch of
+    each kernel, forward and backward: the launch body alone, the
+    registered op called directly, the public wrapper (checks, then the op)
+    and, for K1, the body behind a low-level ``torch.library.Library``
+    registration; in turns (each way, then each again in reverse order)."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
         conv_gn_silu as k1,
     )
-    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels.flash_attention import (
-        _launch as k2_launch,
-        flash_attention,
-        flash_attention_op,
-    )
+    import importlib
+
+    k2 = importlib.import_module(f"{PORT}.ops.kernels.flash_attention")
 
     # the same launch body behind a low-level registration (one trip into
     # Python per call, no autograd layer), to price custom_op's layers
@@ -1350,6 +1519,9 @@ def phase_op_overhead(torch):
     b, s, bb = (torch.randn(64, generator=g, device="cuda") for _ in range(3))
     q, k, v = (torch.randn(1, 2, 128, 64, generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
+    dy = torch.randn(2, 128, 64, generator=g, device="cuda").to(torch.bfloat16)
+    o = k2.flash_attention_op(q, k, v)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
     probe_op = torch.ops.gwport_probe.conv_gn_silu.default
     ways = {
         "conv_gn_silu": {
@@ -1358,9 +1530,19 @@ def phase_op_overhead(torch):
             "wrapper": lambda: k1.fused_conv_gn_silu(x, W, b, s, bb, 8),
             "library_impl": lambda: probe_op(x, W, b, s, bb, 8, 1e-5)},
         "flash_attention": {
-            "body": lambda: k2_launch(q, k, v),
-            "op": lambda: flash_attention_op(q, k, v),
-            "wrapper": lambda: flash_attention(q, k, v)}}
+            "body": lambda: k2._launch(q, k, v),
+            "op": lambda: k2.flash_attention_op(q, k, v),
+            "wrapper": lambda: k2.flash_attention(q, k, v)},
+        "conv_gn_silu_backward": {
+            "body": lambda: k1._launch_backward(dy, x, W, b, s, bb, 8, 1e-5),
+            "op": lambda: k1.conv_gn_silu_backward_op(dy, x, W, b, s, bb, 8,
+                                                      1e-5),
+            "wrapper": lambda: k1.fused_conv_gn_silu_grad(dy, x, W, b, s, bb,
+                                                          8)},
+        "flash_attention_backward": {
+            "body": lambda: k2._launch_backward(do, q, k, v, o),
+            "op": lambda: k2.flash_attention_backward_op(do, q, k, v, o),
+            "wrapper": lambda: k2.flash_attention_grad(do, q, k, v, o)}}
     for name, fns in ways.items():
         us = {way: [] for way in fns}
         with torch.no_grad():
@@ -1368,7 +1550,7 @@ def phase_op_overhead(torch):
                 us[way].append(host_us_per_call(torch, fns[way]))
         rec = {way: float(np.mean(v)) for way, v in us.items()}
         emit({"phase": "op_overhead", "kernel": name, "calls": 300,
-              "shape": list((x if name == "conv_gn_silu" else q).shape),
+              "shape": list((x if name.startswith("conv") else q).shape),
               "host_us_per_call": rec, "runs_us": us,
               "registration_us": rec["op"] - rec["body"],
               "wrapper_us_over_body": rec["wrapper"] - rec["body"]})
@@ -1376,8 +1558,8 @@ def phase_op_overhead(torch):
 
 def phase_autograd(torch):
     """A CUDA forward that autograd records launches both kernels (counted;
-    no plain forward, no refusal) and backpropagates through their
-    registered backwards to every parameter."""
+    no plain forward, no refusal) and backpropagates through the backward
+    kernels K1B and K2B (counted) to every parameter."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
         launch_counts,
@@ -1393,7 +1575,7 @@ def phase_autograd(torch):
     reset_launch_counts()
     model(x, t).square().mean().backward()
     torch.cuda.synchronize()
-    launches = check_launches(launch_counts, expected_launches(model, 1),
+    launches = check_launches(launch_counts, expected_launches(model, 1, 1),
                               "grad-enabled forward")
     grads = {n: p.grad for n, p in model.named_parameters()}
     check(all(g is not None and bool(torch.isfinite(g).all())
@@ -1936,7 +2118,7 @@ def run_counted(torch, fn, want, what):
     LaunchShapes.label = "other"
     got = launch_counts()
     if want is not None:
-        check(got == want(out) if callable(want) else got == want,
+        check(got == all_counts(want(out) if callable(want) else want),
               f"{what}: launches {got}")
     return out, got, seconds
 
@@ -2117,8 +2299,9 @@ def phase_evals(torch, tmp):
 
     def grid_launches(config, steps, start_t, ladder="t", calls=1):
         n = ladder_len(steps, start_t, ladder) * calls
-        return {"conv_gn_silu": 7 * n,
-                "flash_attention": n if config == "attn16k" else 0}
+        return all_counts({"conv_gn_silu": 7 * n,
+                           "flash_attention": n if config == "attn16k"
+                           else 0})
 
     records = {}
     torch.cuda.reset_peak_memory_stats()
@@ -2249,8 +2432,8 @@ DISTILL_GROUPS = ("teacher_forward", "student_forward", "backward",
 def distill_split(trace_path, wall_us, steps):
     """Device ms per distillation step by part: each kernel belongs to the
     innermost ``distill/...`` range around the host call that launched it
-    (the ops' plain backwards run inside ``distill/backward``); K1's and
-    K2's share of each part; the idle share of the wall."""
+    (the backward kernels K1B and K2B run inside ``distill/backward``); the
+    port's kernels' share of each part; the idle share of the wall."""
     events = json.loads(trace_path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
@@ -2268,7 +2451,8 @@ def distill_split(trace_path, wall_us, steps):
         inside = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
         group = min(inside, key=lambda r: r[1] - r[0])[2] if inside else "other"
         groups[group] += float(e["dur"])
-        if any(k in e["name"] for k in K1_KERNELS + K2_KERNELS):
+        if any(k in e["name"] for k in K1B_KERNELS + K2_KERNELS
+               + K2B_KERNELS):
             kernels[group] += float(e["dur"])
     busy = device_breakdown(trace_path, wall_us)["busy_ms"]
     return {"ms_per_step": {k: v / 1e3 / steps for k, v in groups.items()},
@@ -2330,8 +2514,8 @@ def phase_distill_grads(torch, corpus):
 
     lk, gk, ck = one_step(False)
     lp, gp, cp = one_step(True)
-    check(ck == {"conv_gn_silu": 21, "flash_attention": 0}
-          and cp == {"conv_gn_silu": 0, "flash_attention": 0},
+    check(ck == all_counts({"conv_gn_silu": 21, "conv_gn_silu_backward": 7})
+          and cp == all_counts({}),
           f"distill gradient check: launches {ck} / plain {cp}")
     grad_rel = float((gk - gp).abs().max() / gp.abs().max())
     loss_rel = abs(lk - lp) / abs(lp)
@@ -2386,7 +2570,8 @@ def phase_distill(torch, tmp, teacher, corpus):
             "--batch-size", str(DISTILL_BATCH), "--log-jsonl", log,
             "--device", "cuda"]),
         {"conv_gn_silu": 7 * 3 * steps_per_stage * stages,
-         "flash_attention": 0}, "gw-distill")
+         "conv_gn_silu_backward": 7 * steps_per_stage * stages},
+        "gw-distill")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches["pn128 distill"] = got
     with open(log) as fh:
@@ -2743,7 +2928,8 @@ def phase_parallel_nccl(torch, tmp):
     ds = pipeline.synthetic_dataset(2 * TRAIN_BATCH, segment_len=32768,
                                     fs=16384, whiten=True, seed=3,
                                     device="cuda")
-    want = {"conv_gn_silu": 14 * 2, "flash_attention": 2 * 2}
+    want = {"conv_gn_silu": 14 * 2, "flash_attention": 2 * 2,
+            "conv_gn_silu_backward": 7 * 2, "flash_attention_backward": 2}
 
     def run(name, mesh):
         cfg = attn16k_train_config(tmp, name, epochs=1, p_selfcond=1.0,
@@ -3096,10 +3282,15 @@ def phase_parallel_ranks(torch, tmp, prep, shapes):
           f"sharded reconstruct_batch vs unsharded: {batch_rel}, {std_rel}")
     check(np.array_equal(r0["tile_y"], r1["tile_y"]) and tile_rel <= MODEL_TOL,
           f"tiled_apply(mesh=) vs unmeshed: {tile_rel}")
-    check(r0["batch_launches"] == {"conv_gn_silu": 7 * n_fwd,
-                                   "flash_attention": n_fwd}
-          and r0["tile_launches"] == {"conv_gn_silu": 7,
-                                      "flash_attention": 1},
+    check(r0["batch_launches"] == all_counts({"conv_gn_silu": 7 * n_fwd,
+                                               "flash_attention": n_fwd})
+          and r0["tile_launches"] == all_counts({"conv_gn_silu": 7,
+                                                 "flash_attention": 1})
+          and r0["timed_launches"] == all_counts({
+              "conv_gn_silu": 7 * (PAR_TIMED_STEPS + sum(r0["coins"])),
+              "flash_attention": PAR_TIMED_STEPS + sum(r0["coins"]),
+              "conv_gn_silu_backward": 7 * PAR_TIMED_STEPS,
+              "flash_attention_backward": PAR_TIMED_STEPS}),
           f"the ranks' launches {r0['batch_launches']} "
           f"{r0['tile_launches']}")
 
@@ -3207,8 +3398,10 @@ def phase_parallel_tp(got, seconds, want_m, want_flat, want_grad, want_x0,
           f"reconstruct_batch / tiled_apply on a model axis vs no mesh: "
           f"{batch_rel}, {std_rel}, {tile_rel}")
     for r, n in zip(got, fwd):
-        check(r["timed_launches"] == {"conv_gn_silu": 7 * n,
-                                      "flash_attention": n},
+        check(r["timed_launches"] == all_counts({
+            "conv_gn_silu": 7 * n, "flash_attention": n,
+            "conv_gn_silu_backward": 7 * TP_STEPS[1],
+            "flash_attention_backward": TP_STEPS[1]}),
               f"tp rank {r['rank']}: timed launches {r['timed_launches']} "
               f"for {n} forwards")
     k1 = r0["timed_launches_by_shape"]["conv_gn_silu"]
@@ -3216,8 +3409,8 @@ def phase_parallel_tp(got, seconds, want_m, want_flat, want_grad, want_x0,
               for key in k1),
           f"tp rank 0 launched K1 at {sorted(k1)}, not at Cout / 2 with "
           f"4 groups")
-    check(r0["batch_launches"] == {"conv_gn_silu": 7 * n_fwd,
-                                   "flash_attention": n_fwd},
+    check(r0["batch_launches"] == all_counts({"conv_gn_silu": 7 * n_fwd,
+                                               "flash_attention": n_fwd}),
           f"the tp ranks' sampling launches {r0['batch_launches']}")
 
 
@@ -3487,8 +3680,8 @@ def phase_data(torch, tmp):
     torch.cuda.reset_peak_memory_stats()
     out, train_l, train_s = run_counted(
         torch, lambda: train_cli.main(argv),
-        {"conv_gn_silu": 7 * (steps + heads), "flash_attention": 0},
-        "pn128 streaming train")
+        {"conv_gn_silu": 7 * (steps + heads),
+         "conv_gn_silu_backward": 7 * steps}, "pn128 streaming train")
     peak = torch.cuda.max_memory_allocated() / 1e9
     with open(log) as fh:
         ends = [r for r in map(json.loads, fh) if r["phase"] == "epoch_end"]
@@ -3752,33 +3945,43 @@ def phase_tools(torch, tmp, corpus, ckpt, data_paths):
 
 class LaunchShapes:
     """While installed (``with``), the input shapes each kernel is launched
-    at: it wraps each kernel module's launch body (``_launch``, which the
-    registered op calls once per launch) and puts the shape into a set, one
-    tuple a launch on the host, under the label of the run in progress
-    (``run_counted`` sets it; "other" elsewhere).  K1's key is (dtype, rows,
-    L, Cin, Cout, groups), K2's (dtype, B, H, L, D)."""
+    at: it wraps each kernel's launch body (``_launch`` of the forward
+    kernels, ``_launch_backward`` of K1B and K2B, which the registered op
+    calls once per launch) and puts the shape into a set, one tuple a
+    launch on the host, under the label of the run in progress
+    (``run_counted`` sets it; "other" elsewhere).  K1's and K1B's key is
+    (dtype, rows, L, Cin, Cout, groups), K2's and K2B's (dtype, B, H, L,
+    D)."""
 
     label = "other"
-    KERNELS = ("conv_gn_silu", "flash_attention")
+    # kernel -> (its module in ops/kernels, its launch body there)
+    KERNELS = {"conv_gn_silu": ("conv_gn_silu", "_launch"),
+               "flash_attention": ("flash_attention", "_launch"),
+               "conv_gn_silu_backward": ("conv_gn_silu", "_launch_backward"),
+               "flash_attention_backward": ("flash_attention",
+                                            "_launch_backward")}
 
     def __init__(self):
         import importlib
 
-        self.mods = {k: importlib.import_module(f"{PORT}.ops.kernels.{k}")
-                     for k in self.KERNELS}
-        self.bodies = {k: m._launch for k, m in self.mods.items()}
+        self.mods = {k: importlib.import_module(f"{PORT}.ops.kernels.{m}")
+                     for k, (m, _) in self.KERNELS.items()}
+        self.bodies = {k: getattr(self.mods[k], attr)
+                       for k, (_, attr) in self.KERNELS.items()}
         self.raw = {k: {} for k in self.KERNELS}     # shape -> labels
         self.counts = {k: {} for k in self.KERNELS}  # shape -> launches
 
     def _wrap(self, kernel):
         body, raw = self.bodies[kernel], self.raw[kernel]
         counts = self.counts[kernel]
-        conv = kernel == "conv_gn_silu"
+        conv = kernel.startswith("conv_gn_silu")
+        o = int(kernel.endswith("_backward"))   # a backward's dout first
 
         def launch(*args):
             # hashable as they come, normalised by ``seen``
-            key = ((args[0].dtype, args[0].shape, args[1].shape, args[5])
-                   if conv else (args[0].dtype, args[0].shape))
+            key = ((args[o].dtype, args[o].shape, args[o + 1].shape,
+                    args[o + 5]) if conv
+                   else (args[o].dtype, args[o].shape))
             raw.setdefault(key, set()).add(LaunchShapes.label)
             counts[key] = counts.get(key, 0) + 1
             return body(*args)
@@ -3789,7 +3992,7 @@ class LaunchShapes:
     def _norm(kernel, key):
         dname = str(key[0]).split(".")[1]
         return ((dname, *key[1][:2], *key[2][1:], int(key[3]))
-                if kernel == "conv_gn_silu" else (dname, *key[1]))
+                if kernel.startswith("conv_gn_silu") else (dname, *key[1]))
 
     @property
     def seen(self):
@@ -3811,13 +4014,13 @@ class LaunchShapes:
             c.clear()
 
     def __enter__(self):
-        for k, m in self.mods.items():
-            m._launch = self._wrap(k)
+        for k, (_, attr) in self.KERNELS.items():
+            setattr(self.mods[k], attr, self._wrap(k))
         return self
 
     def __exit__(self, *exc):
-        for k, m in self.mods.items():
-            m._launch = self.bodies[k]
+        for k, (_, attr) in self.KERNELS.items():
+            setattr(self.mods[k], attr, self.bodies[k])
 
     @contextlib.contextmanager
     def paused(self):
@@ -3845,21 +4048,35 @@ def k1_sum(recs):
     return out
 
 
-def phase_launched_shapes(torch, shapes, k1, k2):
+def phase_launched_shapes(torch, shapes, k1, k2, kb):
     """Every shape a kernel was launched at while ``shapes`` recorded (the
-    main paths, the small checks against the CPU, the gradient checks)
-    against the kernel's plain version: the shapes no check of the kernel
-    phase covered, one by one, at the tolerances of the kernel phase.
-    Returns K1's and K2's records of every launched shape by run label, and
-    the coverage."""
+    main paths, the small checks against the CPU, the gradient checks, the
+    training runs' backward kernels) against the kernel's plain version:
+    the shapes no check of the kernel phases covered, one by one, at the
+    tolerances of the kernel phases (K1B and K2B without timing).  Returns
+    K1's and K2's records of every launched shape by run label, and the
+    coverage."""
     seen = shapes.seen
-    done1 = {(r["dtype"], r["rows"], r["L"], r["Cin"], r["Cout"],
-              r["groups"]): r for r in k1}
-    done2 = {(r["dtype"], r["B"], r["H"], r["L"], r["D"]): r for r in k2}
-    before = {"conv_gn_silu": len(set(seen["conv_gn_silu"])
-                                  & set(done1)),
-              "flash_attention": len(set(seen["flash_attention"])
-                                     & set(done2))}
+    key1 = ("dtype", "rows", "L", "Cin", "Cout", "groups")
+    key2 = ("dtype", "B", "H", "L", "D")
+    done1 = {tuple(r[k] for k in key1): r for r in k1}
+    done2 = {tuple(r[k] for k in key2): r for r in k2}
+    done = {"conv_gn_silu": done1, "flash_attention": done2,
+            "conv_gn_silu_backward": {tuple(r[k] for k in key1): r
+                                      for r in kb[0]},
+            "flash_attention_backward": {tuple(r[k] for k in key2): r
+                                         for r in kb[1]}}
+    before = {k: len(set(seen[k]) & set(done[k])) for k in done}
+    for key in sorted(set(seen["conv_gn_silu_backward"])
+                      - set(done["conv_gn_silu_backward"])):
+        dname, rows, L, Cin, Cout, G = key
+        done["conv_gn_silu_backward"][key], = backward_conv_rows(
+            torch, "launched", [(f"L{L} {Cin}->{Cout}", L, Cin, Cout, G)],
+            getattr(torch, dname), rows, reps=0)
+    for key in sorted(set(seen["flash_attention_backward"])
+                      - set(done["flash_attention_backward"])):
+        done["flash_attention_backward"][key], = backward_attention_rows(
+            torch, "launched", [key], reps=0)
     todo = {}
     for key in sorted(set(seen["conv_gn_silu"]) - set(done1)):
         dname, rows, L, Cin, Cout, G = key
@@ -3892,15 +4109,89 @@ def phase_launched_shapes(torch, shapes, k1, k2):
                     "checked_in_kernel_phase": before[k],
                     "checked_here": len(seen[k]) - before[k]}
                 for k in seen}
-    check(all(key in done1 for key in seen["conv_gn_silu"])
-          and all(key in done2 for key in seen["flash_attention"]),
+    check(all(key in done[k] for k in done for key in seen[k]),
           "every launched shape is checked against its plain version")
     emit({"phase": "launched_shapes", "coverage": coverage,
           "by_run": by_run})
     return by_run, coverage
 
 
-def kernels_line(k1, k2, launches, by_run, coverage):
+def kb_sum(recs):
+    """K1B records summed over their blocks (one backward when the records
+    are a training path's ConvBlocks)."""
+    out = {key: sum(r[key] for r in recs) for key in (
+        "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    out["ops_bound_ms"] = sum(r["bound_ms"] for r in recs
+                              if r["bound_by"] == "operations")
+    out.update(rows=recs[0]["rows"], L=max(r["L"] for r in recs),
+               blocks=len(recs), dtype=recs[0]["dtype"],
+               max_abs_err=max(r["max_abs_err"] for r in recs),
+               grad_err=max(max(r["grad_err"]) for r in recs))
+    return out
+
+
+def backward_entries(kb, launches, coverage, pkg):
+    """The ``kernels`` records of K1B and K2B: K1B summed over attn16k's 7
+    ConvBlocks at the training batch, K2B at attn16k's training shape (16,
+    4, 4096, 64), both bf16; every other checked path beside them;
+    launches summed over the main-path runs."""
+    kb1, kb2 = kb
+    paths = {}
+    for r in kb1:
+        if "kernel_ms" in r:
+            paths.setdefault(r["config"], []).append(r)
+    k1b = {c: kb_sum(recs) for c, recs in paths.items()}
+    main1 = k1b["attn16k train"]
+    k2b = {f"{r['config']} {r['dtype']} {(r['B'], r['H'], r['L'], r['D'])}":
+           {key: r[key] for key in ("kernel_ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err",
+                                    "grad_err", "grad_scale", "route",
+                                    "tflops")}
+           for r in kb2 if "kernel_ms" in r}
+    main2 = next(r for r in kb2 if r["config"] == "attn16k train")
+    ref = f"{pkg}/ops/pallas/"
+    return [
+        {"name": "conv_gn_silu_backward", "route": "cuda",
+         "source": f"{pkg}_torch/csrc/conv_gn_silu_backward.cu",
+         "replaces": f"{ref}fused.py:26",
+         "replaces_note": "no Pallas kernel: the gradient of "
+                          "fused_conv_gn_silu_reference (fused.py:26-40), "
+                          "which the JAX trainer takes by XLA autodiff",
+         "launches": sum(n.get("conv_gn_silu_backward", 0)
+                         for n in launches.values()),
+         "launches_by_path": {c: n.get("conv_gn_silu_backward", 0)
+                              for c, n in launches.items()},
+         "max_abs_err": main1["max_abs_err"], "grad_err": main1["grad_err"],
+         "ms": main1["kernel_ms"], "plain_ms": main1["plain_ms"],
+         "bound_ms": main1["bound_ms"],
+         "bound_by": ("operations" if main1["ops_bound_ms"]
+                      > main1["bound_ms"] / 2 else "bytes"),
+         "library_ms": main1["library_ms"], "by_path": k1b,
+         "launched_shapes": coverage["conv_gn_silu_backward"],
+         "shapes": "the 7 ConvBlocks of attn16k's training step, 16 rows, "
+                   "L 32768, bf16",
+         "phase": "kernel_backward"},
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": f"{pkg}_torch/csrc/flash_attention_backward.cu",
+         "replaces": f"{ref}attention.py:27",
+         "replaces_note": "no Pallas kernel: the gradient of "
+                          "flash_attention_reference (attention.py:27-33), "
+                          "which the JAX trainer takes by XLA autodiff",
+         "launches": sum(n.get("flash_attention_backward", 0)
+                         for n in launches.values()),
+         "launches_by_path": {c: n.get("flash_attention_backward", 0)
+                              for c, n in launches.items()},
+         "max_abs_err": main2["max_abs_err"], "grad_err": main2["grad_err"],
+         "ms": main2["kernel_ms"], "plain_ms": main2["plain_ms"],
+         "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
+         "library_ms": main2["library_ms"], "cuda_route": main2["route"],
+         "tflops": main2["tflops"], "by_shape": k2b,
+         "launched_shapes": coverage["flash_attention_backward"],
+         "shapes": "attn16k's training attention (16, 4, 4096, 64), bf16",
+         "phase": "kernel_backward"}]
+
+
+def kernels_line(k1, k2, kb, launches, by_run, coverage):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
     of each main path at its serving batch, K2 at attn16k's serving shape
     (both also at the infer batch of 8 rows and the training batch of 16,
@@ -3942,8 +4233,8 @@ def kernels_line(k1, k2, launches, by_run, coverage):
         {"name": "conv_gn_silu", "route": "cuda",
          "source": f"{pkg}_torch/csrc/conv_gn_silu.cu",
          "replaces": f"{pkg}/ops/pallas/fused.py:87",
-         "launches": sum(n["conv_gn_silu"] for n in launches.values()),
-         "launches_by_path": {c: n["conv_gn_silu"]
+         "launches": sum(n.get("conv_gn_silu", 0) for n in launches.values()),
+         "launches_by_path": {c: n.get("conv_gn_silu", 0)
                               for c, n in launches.items()},
          "max_abs_err": max(p["max_abs_err"] for p in k1_paths.values()),
          "ms": k1_total["kernel_ms"], "plain_ms": k1_total["plain_ms"],
@@ -3966,8 +4257,9 @@ def kernels_line(k1, k2, launches, by_run, coverage):
         {"name": "flash_attention", "route": "cuda",
          "source": f"{pkg}_torch/csrc/flash_attention.cu",
          "replaces": f"{pkg}/ops/pallas/attention.py:70",
-         "launches": sum(n["flash_attention"] for n in launches.values()),
-         "launches_by_path": {c: n["flash_attention"]
+         "launches": sum(n.get("flash_attention", 0)
+                         for n in launches.values()),
+         "launches_by_path": {c: n.get("flash_attention", 0)
                               for c, n in launches.items()},
          "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
          "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -3986,7 +4278,7 @@ def kernels_line(k1, k2, launches, by_run, coverage):
              "bench_kernels unet"),
          "launched_shapes": coverage["flash_attention"],
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
-         "phase": "kernel"}]}
+         "phase": "kernel"}] + backward_entries(kb, launches, coverage, pkg)}
 
 
 def sass_has_hgmma(path):
@@ -4000,6 +4292,19 @@ def sass_has_hgmma(path):
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     return sum("HGMMA" in ln for ln in sass.splitlines())
+
+
+class Laps:
+    """Seconds of the run's stretches: each call books the time since the
+    previous one under its name."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 def main():
@@ -4041,10 +4346,12 @@ def main():
                            if "entry function" in ln or "Used" in ln
                            or "spill" in ln or "warning" in ln]
                     for name, log in logs.items()}})
-    for name in ("conv_gn_silu", "flash_attention"):
+    # K1B's recompute and dx passes are K1's conv pass: on wgmma too
+    for name in ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward"):
         check(hgmma[name] == "not measured" or hgmma[name] > 0,
               f"{name}'s library holds no wgmma (HGMMA) instruction")
 
+    lap = Laps()
     k1 = []
     for config, dtypes_rows in (
             ("pn128", ((torch.bfloat16, 64), (torch.bfloat16, 128),
@@ -4061,12 +4368,16 @@ def main():
         shapes = convblock_shapes(UNet1D(**model_kw, device="cuda"), L)
         k1 += phase_kernel(torch, config, shapes, ((torch.bfloat16, rows),))
     k2 = phase_kernel_attention(torch)
+    lap("kernel")
+    kb = phase_kernel_backward(torch)
+    lap("kernel_backward")
     shapes = LaunchShapes()
     with shapes:
         phase_model(torch, "pn128", 4, 4096)
         phase_model(torch, "attn16k", 2, 32768)
         phase_serving_small(torch)
         launches = {config: phase_serving(torch, config) for config in PATHS}
+    lap("model, serving")
     with tempfile.TemporaryDirectory() as tmp:
         with shapes:
             phase_infer_small(torch, tmp)
@@ -4074,7 +4385,9 @@ def main():
                 (launches[f"{config} infer"],
                  launches[f"{config} infer cli"]) = phase_infer(torch, config,
                                                                 tmp)
+        lap("infer")
         phase_op_overhead(torch)        # times the bare launch bodies
+        lap("op_overhead")
         with shapes:
             for config in PATHS:
                 launches[f"{config} export replay"] = phase_export(
@@ -4082,6 +4395,7 @@ def main():
             LaunchShapes.label = "other"
             launches["pn128 pod replay rank 0"] = phase_pod(torch, tmp,
                                                             shapes)
+    lap("export, pod_serving")
     # the evals phase's directory lives on until the tools phase
     with shapes, tempfile.TemporaryDirectory() as tmp_evals:
         phase_autograd(torch)
@@ -4090,12 +4404,15 @@ def main():
         del ds
         launches["pn128 train cli"], trained = phase_train_cli(torch,
                                                                tmp_evals)
+        lap("autograd, train")
         phase_evals_small(torch, tmp_evals)
         evals_launches, corpus, ckpt = phase_evals(torch, tmp_evals)
         launches.update(evals_launches)
+        lap("evals")
         phase_distill_grads(torch, corpus)
         launches.update(phase_distill(torch, tmp_evals, trained, corpus))
         launches["bench"], launches["entry"] = phase_bench(torch)
+        lap("distill, bench")
         with tempfile.TemporaryDirectory() as tmp:
             launches["attn16k train nccl"] = phase_parallel_nccl(torch, tmp)
             (prep, launches["attn16k tiled infer"],
@@ -4103,19 +4420,30 @@ def main():
                 torch, tmp, shapes)
             launches["attn16k train tp rank 0"] = phase_parallel_ranks(
                 torch, tmp, prep, shapes)
+        lap("parallel")
         with tempfile.TemporaryDirectory() as tmp:
             data_launches, data_buckets, data_paths = phase_data(torch, tmp)
             launches.update(data_launches)
+            lap("data")
             launches.update(phase_tools(torch, tmp, corpus, ckpt,
                                         data_paths))
-    # K1 at the streaming train's forward shapes: 16 rows at each bucket
+            lap("tools")
+    # K1 and K1B at the streaming train's shapes: 16 rows at each bucket
+    # (K1B at the lengths the kernel_backward phase did not check)
     for L in data_buckets:
         shapes_L = convblock_shapes(UNet1D(**FLAGSHIP, device="cuda"), L)
         k1 += phase_kernel(torch, f"{STREAM_CONFIG} L{L}", shapes_L,
                            ((torch.bfloat16, TRAIN_BATCH),))
-    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2)
-
-    emit(kernels_line(k1, k2, launches, by_run, coverage))
+        if L not in (4096, CLI_TRAIN_L):
+            kb[0].extend(backward_conv_rows(
+                torch, f"{STREAM_CONFIG} L{L}", train_blocks(FLAGSHIP, L),
+                torch.bfloat16, TRAIN_BATCH, reps=2))
+    lap("stream buckets")
+    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2, kb)
+    lap("launched_shapes")
+    emit({"phase": "seconds", "by_stretch": lap.s,
+          "total": sum(lap.s.values())})
+    emit(kernels_line(k1, k2, kb, launches, by_run, coverage))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

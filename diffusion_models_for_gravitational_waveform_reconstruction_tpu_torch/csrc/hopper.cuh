@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor loads, shared-memory matrix descriptors, wgmma, named barriers,
-// register rebalancing, and the host-side tensor-map encoder.  Included by
-// conv_gn_silu.cu (K1) and flash_attention.cu (K2); each compiles into its
-// own library, so everything here is inline.
+// TMA tensor loads, shared-memory matrix descriptors, wgmma, mma.sync and
+// ldmatrix, named barriers, register rebalancing, and the host-side
+// tensor-map encoder.  Included by every csrc/*.cu (K1, K2 and their
+// backwards K1B, K2B); each compiles into its own library, so everything
+// here is inline.
 #pragma once
 
 #include <cuda.h>
@@ -250,6 +251,52 @@ __device__ __forceinline__ void wgmma_rs_bf16_tb<128>(float* d,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D = A(16x16, row) * B(16x8, col) + D, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  mma_bf16(d, a, b[0], b[1]);
+}
+
+// Four 8x8 bf16 matrices, transposed on the way into registers: lanes
+// 8i .. 8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// max and sum over the quad of lanes 4g .. 4g+3 (one row of an mma
+// accumulator fragment)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {

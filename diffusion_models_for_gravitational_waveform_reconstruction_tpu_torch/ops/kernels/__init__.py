@@ -1,4 +1,6 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version.
+"""Hand-written Hopper kernels of the port, each beside its plain version:
+K1 (the fused ConvBlock) and K2 (flash attention), and their backwards K1B
+and K2B.
 
 Each wrapper carries a plain integer ``launches`` that its registered op
 raises by one each time it launches the kernel (never for the plain
@@ -8,6 +10,8 @@ from .conv_gn_silu import (
     conv3_same,
     conv_route,
     fused_conv_gn_silu,
+    fused_conv_gn_silu_backward,
+    fused_conv_gn_silu_grad,
     fused_conv_gn_silu_reference,
     group_norm,
     pack_weights_reference,
@@ -15,11 +19,15 @@ from .conv_gn_silu import (
 from .flash_attention import (
     attention_route,
     flash_attention,
+    flash_attention_backward,
+    flash_attention_grad,
     flash_attention_reference,
 )
 
 _WRAPPERS = {"conv_gn_silu": fused_conv_gn_silu,
-             "flash_attention": flash_attention}
+             "flash_attention": flash_attention,
+             "conv_gn_silu_backward": fused_conv_gn_silu_grad,
+             "flash_attention_backward": flash_attention_grad}
 
 
 def reset_launch_counts() -> None:
@@ -32,6 +40,8 @@ def launch_counts() -> dict:
 
 
 __all__ = ["attention_route", "conv3_same", "conv_route", "flash_attention",
+           "flash_attention_backward", "flash_attention_grad",
            "flash_attention_reference", "fused_conv_gn_silu",
+           "fused_conv_gn_silu_backward", "fused_conv_gn_silu_grad",
            "fused_conv_gn_silu_reference", "group_norm", "launch_counts",
            "pack_weights_reference", "reset_launch_counts"]

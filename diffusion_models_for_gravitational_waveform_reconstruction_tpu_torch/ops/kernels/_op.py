@@ -3,11 +3,12 @@
 Each CUDA launch of the port is a ``torch.library.custom_op`` in one
 namespace, so ``torch.export`` records it as one node of the exported graph
 (its fake implementation gives the output's shape and dtype) and a replay of
-that graph launches the kernel.  Each kernel's op carries a backward
-registered with ``torch.library.register_autograd``: the plain PyTorch
-gradient of the kernel's plain version, written beside it in the kernel's
-module.  A forward that autograd records therefore still launches the
-kernel; only the backward runs plain.
+that graph launches the kernel.  Each forward kernel's op carries a
+backward registered with ``torch.library.register_autograd`` that calls the
+op of its backward kernel (``conv_gn_silu_backward``,
+``flash_attention_backward``), so a training step on the card launches a
+hand-written kernel forward and backward; the plain backwards beside them
+serve the CPU and the checks.
 """
 from __future__ import annotations
 

@@ -10,11 +10,15 @@ else, or an input the kernel does not take, raises.  The op is what
 ``torch.export`` records, so an exported program launches the kernel and
 advances ``launches`` when it is replayed.
 
-The op's backward is :func:`fused_conv_gn_silu_backward`, plain PyTorch
-registered with ``torch.library.register_autograd``: a forward that autograd
-records still launches the kernel, and its gradients come from the plain
-backward (the JAX package's trainer differentiates the plain expression too;
-its Pallas kernel has no backward).
+The op's backward, registered with ``torch.library.register_autograd``, is
+a second hand-written kernel, K1B (``csrc/conv_gn_silu_backward.cu``),
+behind its own op ``gwport::conv_gn_silu_backward`` and wrapper
+:func:`fused_conv_gn_silu_grad`.  The JAX package has no such kernel (its
+Pallas ConvBlock is forward-only and its trainer differentiates the plain
+expression); :func:`fused_conv_gn_silu_backward` is the plain backward, the
+gradients K1B computes, which the CPU path takes and the card checks
+against, and :func:`fused_conv_gn_silu_backward_passes` is K1B's algorithm
+written out step by step for the CPU tests.
 
 The kernel's conv pass takes one of three routes, chosen from x alone
 (:func:`conv_route`, inside the op's CUDA body, since it reads the base
@@ -138,6 +142,111 @@ def pack_weights_reference(W: torch.Tensor) -> torch.Tensor:
     return Wp
 
 
+def pack_dx_weights_reference(W: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1B's pack for dx on the wgmma route: the taps of
+    W (3, Cin, Cout) flipped and each transposed, as K1's pack lays out
+    weights: bf16 (Cin_pad, 3, Cout_pad), output channels (Cout)
+    contiguous."""
+    return pack_weights_reference(W.flip(0).transpose(1, 2))
+
+
+# K1B's tiling, which the plain step-by-step version repeats: rows per
+# partial tile (the forward's statistics tile) and per dW staging step
+BACKWARD_TILE = 64
+DW_STEP = 32
+# dW's K = B L is cut into runs of rows, one f32 partial each: about 16
+# CTAs for each of the H100's 132 SMs (chosen by timing attn16k's training
+# blocks on an H100 at 4, 8, 16 and 32), at least 256 rows a run, the
+# partials at most 64 MiB
+DW_TARGET_CTAS = 16 * 132
+DW_PART_BYTES = 64 << 20
+
+
+def dw_run(B: int, L: int, Cin: int, Cout: int) -> int:
+    """Rows of the flattened (B L) axis per dW partial of K1B (a multiple
+    of ``DW_STEP``); the partials number ceil(B L / run) <= 65535."""
+    rows = B * L
+    tiles = 3 * -(-Cin // 64) * -(-Cout // 64)
+    runs = max(1, min(-(-DW_TARGET_CTAS // tiles), -(-rows // 256),
+                      DW_PART_BYTES // (12 * Cin * Cout), 65535))
+    per_run = -(-rows // runs)
+    return -(-per_run // DW_STEP) * DW_STEP
+
+
+def _sum_rows(part: torch.Tensor) -> torch.Tensor:
+    """K1B's ``k1b_sum_rows`` in its order: (nb, T, C) -> (nb, C), lane j
+    of a column summing rows j, j + 8, ... in turn, then the eight lane
+    sums added in lane order."""
+    nb, T, C = part.shape
+    lanes = part.new_zeros((nb, 8, C))
+    for i in range(0, T, 8):
+        chunk = part[:, i:i + 8]
+        lanes[:, :chunk.shape[1]] += chunk
+    total = lanes[:, 0]
+    for j in range(1, 8):
+        total = total + lanes[:, j]
+    return total
+
+
+def fused_conv_gn_silu_backward_passes(dout, x, W, b, gn_scale, gn_bias,
+                                       groups: int, eps: float = 1e-5):
+    """K1B's algorithm, pass by pass, in plain PyTorch: the gradients of
+    :func:`fused_conv_gn_silu_backward` as the kernel forms them.
+
+    y recomputed in f32 from operands in x's dtype (the forward kernel's
+    conv); per 64-row tile and channel the sums of dh and dh x-hat, summed
+    over tiles and then samples in ``k1b_sum_rows``' order (dbias, dscale);
+    per (sample, group) the means of dx-hat and dx-hat x-hat from those
+    sums; dy in f32, its tile sums giving db the same way, then cast to x's
+    dtype; dx = conv3(dy) through the packed flipped taps
+    (:func:`pack_dx_weights_reference`) in bf16, the flipped f32 taps in
+    f32; dW as one f32 partial per run of :func:`dw_run` rows, summed in
+    run order."""
+    dt = x.dtype
+    B, L, Cin = x.shape
+    Cout = W.shape[2]
+    cg = Cout // groups
+    n_tiles = -(-L // BACKWARD_TILE)
+    scale, shift = gn_scale.float(), gn_bias.float()
+    y = conv3_same(x.float(), W.to(dt).float(), b.float())
+    yg = y.reshape(B, L, groups, cg)
+    mean = yg.mean(dim=(1, 3))
+    rstd = torch.rsqrt(((yg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
+                       + eps)
+
+    def per_channel(a):     # (B, groups) -> (B, 1, Cout)
+        return a.repeat_interleave(cg, dim=1)[:, None]
+
+    def tile_sums(a):       # (B, L, Cout) -> (B, n_tiles, Cout)
+        a = F.pad(a, (0, 0, 0, n_tiles * BACKWARD_TILE - L))
+        return a.reshape(B, n_tiles, BACKWARD_TILE, Cout).sum(dim=2)
+
+    xh = (y - per_channel(mean)) * per_channel(rstd)
+    h = xh * scale + shift
+    s = torch.sigmoid(h)
+    dh = dout.float() * (s * (1.0 + h * (1.0 - s)))
+    s_dh, s_dhx = _sum_rows(tile_sums(dh)), _sum_rows(tile_sums(dh * xh))
+    dbias, dscale = _sum_rows(s_dh[None])[0], _sum_rows(s_dhx[None])[0]
+    ma = (s_dh * scale).reshape(B, groups, cg).sum(dim=-1) / (L * cg)
+    mb = (s_dhx * scale).reshape(B, groups, cg).sum(dim=-1) / (L * cg)
+    dy = (dh * scale - per_channel(ma) - xh * per_channel(mb)) \
+        * per_channel(rstd)
+    db = _sum_rows(_sum_rows(tile_sums(dy))[None])[0]
+    dyd = dy.to(dt)
+    if dt == torch.bfloat16:
+        w_t = pack_dx_weights_reference(W)[:Cin, :, :Cout].permute(1, 2, 0)
+    else:
+        w_t = W.flip(0).transpose(1, 2)
+    dx = (im2col3(dyd.float()) @ w_t.float().reshape(3 * Cout, Cin)).to(dt)
+    run = dw_run(B, L, Cin, Cout)
+    cols = im2col3(x.float()).reshape(B * L, 3 * Cin)
+    dyf = dyd.float().reshape(B * L, Cout)
+    parts = torch.stack([cols[r:r + run].transpose(0, 1) @ dyf[r:r + run]
+                         for r in range(0, B * L, run)])
+    dW = _sum_rows(parts.reshape(1, len(parts), -1))[0]
+    return dx, dW.reshape(3, Cin, Cout), db, dscale, dbias
+
+
 def conv_route(x: torch.Tensor) -> str:
     """The conv pass the kernel runs for ``x (B, L, Cin)``: "fma" for f32;
     for bf16, "wgmma" when TMA can read x (rows on 16-byte strides, i.e.
@@ -169,6 +278,37 @@ def _lib() -> ctypes.CDLL:
                                f"chunks of {lib.conv_gn_silu_pack_chunk()}, "
                                f"the wrapper in {PACK_CHUNK}")
     return lib
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("conv_gn_silu_backward")
+    if lib.conv_gn_silu_backward.argtypes is None:
+        lib.conv_gn_silu_backward.argtypes = _BWD_ARGTYPES
+        lib.conv_gn_silu_backward.restype = ctypes.c_int
+        for fn in (lib.conv_gn_silu_backward_rows_per_tile,
+                   lib.conv_gn_silu_backward_rows_per_step):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib.conv_gn_silu_backward_error_string.argtypes = [ctypes.c_int]
+        lib.conv_gn_silu_backward_error_string.restype = ctypes.c_char_p
+        if (lib.conv_gn_silu_backward_rows_per_tile() != BACKWARD_TILE
+                or lib.conv_gn_silu_backward_rows_per_step() != DW_STEP):
+            raise RuntimeError("conv_gn_silu_backward: the library's tiles "
+                               "differ from the wrapper's")
+    return lib
+
+
+def dx_route(x: torch.Tensor, Cout: int) -> str:
+    """K1B's conv route for dx, whose input is dy (B, L, Cout) in x's dtype
+    (a fresh, aligned buffer): "fma" for f32, "wgmma" for bf16 with Cout %
+    8 == 0, else "mma_sync"."""
+    if x.dtype == torch.float32:
+        return "fma"
+    return "wgmma" if Cout % 8 == 0 else "mma_sync"
 
 
 def _check(x, W, b, gn_scale, gn_bias, groups):
@@ -232,6 +372,104 @@ def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float):
     return out
 
 
+def _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups: int,
+                     eps: float):
+    """Allocate the gradients and the scratch and launch K1B; raises if a
+    launch fails."""
+    B, L, Cin = x.shape
+    Cout = W.shape[2]
+    lib = _bwd_lib()
+    n_tiles = -(-L // BACKWARD_TILE)
+    route, route_dx = conv_route(x), dx_route(x, Cout)
+    run = dw_run(B, L, Cin, Cout)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    dx = torch.empty_like(x)
+    dW = torch.empty((3, Cin, Cout), **f32)
+    db, dscale, dbias = (torch.empty((Cout,), **f32) for _ in range(3))
+    y = torch.empty((B, L, Cout), **f32)
+    part_a, part_b = (torch.empty((B, n_tiles, Cout), **f32)
+                      for _ in range(2))
+    g_mean, g_rstd = (torch.empty((B, groups), **f32) for _ in range(2))
+    sums = torch.empty((3, B, Cout), **f32)
+    coef = torch.empty((2, B, groups), **f32)
+    dy = torch.empty((B, L, Cout), dtype=x.dtype, device=dev)
+    w_t = torch.empty((3, Cout, Cin), **f32)
+    w_packed = (torch.empty(pack_shape(Cin, Cout), **bf)
+                if route == "wgmma" else None)
+    wt_packed = (torch.empty(pack_shape(Cout, Cin), **bf)
+                 if route_dx == "wgmma" else None)
+    dw_part = torch.empty((-(-(B * L) // run), 3, Cin, Cout), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.conv_gn_silu_backward(
+            dout.data_ptr(), x.data_ptr(), W.data_ptr(), b.data_ptr(),
+            gn_scale.data_ptr(), gn_bias.data_ptr(), dx.data_ptr(),
+            dW.data_ptr(), db.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), y.data_ptr(), part_a.data_ptr(),
+            part_b.data_ptr(), g_mean.data_ptr(), g_rstd.data_ptr(),
+            sums.data_ptr(), coef.data_ptr(), dy.data_ptr(), w_t.data_ptr(),
+            None if w_packed is None else w_packed.data_ptr(),
+            None if wt_packed is None else wt_packed.data_ptr(),
+            dw_part.data_ptr(), B, L, Cin, Cout, groups, float(eps),
+            ROUTES[route], ROUTES[route_dx], run,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("conv_gn_silu_backward launch failed: "
+                           + lib.conv_gn_silu_backward_error_string(rc)
+                           .decode())
+    return dx, dW, db, dscale, dbias
+
+
+@torch.library.custom_op(f"{NAMESPACE}::conv_gn_silu_backward",
+                         mutates_args=(), device_types="cuda")
+def conv_gn_silu_backward_op(
+        dout: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
+        b: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+        groups: int, eps: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """K1B as a registered op (CUDA only): one launch, counted."""
+    grads = _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups, eps)
+    fused_conv_gn_silu_grad.launches += 1
+    return grads
+
+
+@conv_gn_silu_backward_op.register_fake
+def _(dout, x, W, b, gn_scale, gn_bias, groups, eps):
+    f32 = dict(dtype=torch.float32)
+    return (torch.empty_like(x), W.new_empty(W.shape, **f32),
+            *(b.new_empty(b.shape, **f32) for _ in range(3)))
+
+
+def fused_conv_gn_silu_grad(dout: torch.Tensor, x: torch.Tensor,
+                            W: torch.Tensor, b: torch.Tensor,
+                            gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                            groups: int, eps: float = 1e-5):
+    """The ConvBlock's gradients (dx in x's dtype; dW, db, dscale, dbias in
+    f32) given ``dout`` (B, L, Cout) in x's dtype.  CPU tensors take the
+    plain backward :func:`fused_conv_gn_silu_backward`; CUDA tensors go
+    through ``gwport::conv_gn_silu_backward``, which launches K1B (a
+    non-contiguous dout is made contiguous first)."""
+    if x.device.type == "cpu":
+        return fused_conv_gn_silu_backward(dout, x, W, b, gn_scale, gn_bias,
+                                           groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_gn_silu_grad runs on cpu or cuda, not "
+                         f"{x.device}")
+    _check(x, W, b, gn_scale, gn_bias, groups)
+    want = (*x.shape[:2], W.shape[2])
+    if tuple(dout.shape) != want or dout.dtype != x.dtype \
+            or dout.device != x.device:
+        raise ValueError(f"dout must be {want} {x.dtype} on {x.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    return conv_gn_silu_backward_op(dout.contiguous(), x, W, b, gn_scale,
+                                    gn_bias, groups, float(eps))
+
+
+fused_conv_gn_silu_grad.launches = 0
+
+
 @torch.library.custom_op(f"{NAMESPACE}::conv_gn_silu", mutates_args=(),
                          device_types="cuda")
 def conv_gn_silu_op(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
@@ -256,8 +494,8 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, dout):
     with torch.profiler.record_function(f"{NAMESPACE}::conv_gn_silu_backward"):
-        grads = fused_conv_gn_silu_backward(dout, *ctx.saved_tensors,
-                                            ctx.groups, ctx.eps)
+        grads = fused_conv_gn_silu_grad(dout, *ctx.saved_tensors, ctx.groups,
+                                        ctx.eps)
     return (*grads, None, None)
 
 
@@ -271,8 +509,8 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     bf16, W (3, Cin, Cout) in flax layout, b / gn_scale / gn_bias (Cout,) f32;
     returns (B, L, Cout) in x's dtype.  CPU tensors take the plain version;
     CUDA tensors go through the registered op, which launches the kernel
-    (with grad enabled too: its backward is
-    :func:`fused_conv_gn_silu_backward`)."""
+    (with grad enabled too: its backward launches K1B through
+    :func:`fused_conv_gn_silu_grad`)."""
     if x.device.type == "cpu":
         return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
                                             groups, eps)

@@ -10,10 +10,17 @@ exported program launches it too, and counts it); anything else, or an
 input the kernel does not take, raises.  Any L >= 1 is taken: the kernel
 masks its own ragged edge.
 
-The op's backward is :func:`flash_attention_backward`, plain PyTorch
-registered with ``torch.library.register_autograd``: a forward that autograd
-records still launches the kernel, and its gradients come from the plain
-backward, given the kernel's output.
+The op's backward, registered with ``torch.library.register_autograd``, is
+a second hand-written kernel, K2B (``csrc/flash_attention_backward.cu``),
+behind its own op ``gwport::flash_attention_backward`` and wrapper
+:func:`flash_attention_grad`, given the forward kernel's output.  The JAX
+package has no such kernel (its Pallas attention is forward-only and its
+trainer differentiates the plain expression); :func:`flash_attention_backward`
+is the plain backward, the gradients K2B computes, which the CPU path takes
+and the card checks against, and :func:`flash_attention_backward_tiled` is
+K2B's algorithm written out step by step for the CPU tests.  K2B's routes
+(:func:`backward_route`): ``wgmma`` for bf16 with D 64 or 128 on 16-byte
+aligned rows, ``mma_sync`` for other bf16, ``fma`` for f32.
 
 The kernel takes one of three routes, chosen from the inputs alone
 (:func:`attention_route`, inside the op's CUDA body): bf16 with D 64 or
@@ -83,6 +90,68 @@ def flash_attention_backward(dout, q, k, v, out):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# K2B's tiles (query rows or keys), which the step-by-step version repeats
+BACKWARD_TILE = 64
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_backward_tiled(dout, q, k, v, out):
+    """K2B's algorithm, tile by tile, in plain PyTorch: the gradients of
+    :func:`flash_attention_backward` as the kernel forms them.
+
+    delta = rowsum(dO * O) in f32; the log-sum-exp of the scores in log2
+    units by an online pass over the key tiles; per key tile, over the
+    query tiles, P^T = exp2(S^T c - lse), dV += P^T dO and dK += dS^T Q with
+    dS^T = P^T (dP^T - delta); per query tile, over the key tiles, dQ += dS
+    K; every product in f32 on operands in q's dtype, P and dS rounded to
+    bf16 where the kernel rounds them (the A operands of dV, dK and dQ) for
+    bf16 inputs; dK and dQ times 1 / sqrt(D).  Returns (dq, dk, dv) in q's
+    dtype."""
+    B, H, L, D = q.shape
+    tile = BACKWARD_TILE
+    scale = 1.0 / math.sqrt(D)
+    c = LOG2E * scale
+    if q.dtype == torch.bfloat16:
+        def rnd(a):
+            return a.to(torch.bfloat16).float()
+    else:
+        def rnd(a):
+            return a
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, dout))
+    delta = (dof * out.float()).sum(dim=-1)
+    m = torch.full((B, H, L), -math.inf, device=q.device)
+    lsum = torch.zeros((B, H, L), device=q.device)
+    for k0 in range(0, L, tile):
+        x = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * c
+        mn = torch.maximum(m, x.amax(dim=-1))
+        lsum = lsum * torch.exp2(m - mn) + torch.exp2(x - mn[..., None]).sum(-1)
+        m = mn
+    lse = m + torch.log2(lsum)
+    dq, dk, dv = (torch.zeros((B, H, L, D), device=q.device)
+                  for _ in range(3))
+    for k0 in range(0, L, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        for q0 in range(0, L, tile):
+            qt, dot = qf[:, :, q0:q0 + tile], dof[:, :, q0:q0 + tile]
+            pt = torch.exp2((kt @ qt.transpose(-1, -2)) * c
+                            - lse[:, :, None, q0:q0 + tile])
+            dv[:, :, k0:k0 + tile] += rnd(pt) @ dot
+            dst = pt * (vt @ dot.transpose(-1, -2)
+                        - delta[:, :, None, q0:q0 + tile])
+            dk[:, :, k0:k0 + tile] += rnd(dst) @ qt
+    for q0 in range(0, L, tile):
+        qt, dot = qf[:, :, q0:q0 + tile], dof[:, :, q0:q0 + tile]
+        for k0 in range(0, L, tile):
+            kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+            p = torch.exp2((qt @ kt.transpose(-1, -2)) * c
+                           - lse[:, :, q0:q0 + tile, None])
+            ds = p * (dot @ vt.transpose(-1, -2)
+                      - delta[:, :, q0:q0 + tile, None])
+            dq[:, :, q0:q0 + tile] += rnd(ds) @ kt
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
 def attention_route(q: torch.Tensor, k: torch.Tensor | None = None,
                     v: torch.Tensor | None = None) -> str:
     """The route the kernel runs for ``q, k, v (B, H, L, D)`` (k and v
@@ -107,6 +176,34 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_backward")
+    if lib.flash_attention_backward.argtypes is None:
+        lib.flash_attention_backward.argtypes = _BWD_ARGTYPES
+        lib.flash_attention_backward.restype = ctypes.c_int
+        lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dout: torch.Tensor) -> str:
+    """K2B's route: "fma" for f32; for bf16, "wgmma" when D is 64 or 128,
+    q, k, v and dout start on 16-byte boundaries and dout's rows, heads and
+    samples lie multiples of 8 elements apart, else "mma_sync"."""
+    if q.dtype == torch.float32:
+        return "fma"
+    aligned = all(a.data_ptr() % 16 == 0 for a in (q, k, v, dout))
+    strides = all(n % 8 == 0 for n in dout.stride()[:3])
+    if q.shape[-1] in WGMMA_HEAD_DIMS and aligned and strides:
+        return "wgmma"
+    return "mma_sync"
 
 
 def _check(q, k, v):
@@ -149,6 +246,76 @@ def _launch(q, k, v):
     return out
 
 
+def _launch_backward(dout, q, k, v, out):
+    """Allocate the gradients and the scratch and launch K2B; raises if a
+    launch fails.  dout may be strided; its last dimension is contiguous."""
+    B, H, L, D = q.shape
+    lib = _bwd_lib()
+    dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
+    lse, delta = (torch.empty((B * H, L), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    sb, sh, sl, _ = dout.stride()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_backward(
+            dout.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), B, H, L, D, sb, sh, sl,
+            ROUTES[backward_route(q, k, v, dout)],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention_backward launch failed: "
+                           + lib.flash_attention_backward_error_string(rc)
+                           .decode())
+    return dq, dk, dv
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_attention_backward",
+                         mutates_args=(), device_types="cuda")
+def flash_attention_backward_op(
+        dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+        v: torch.Tensor, out: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2B as a registered op (CUDA only): one launch, counted."""
+    grads = _launch_backward(dout, q, k, v, out)
+    flash_attention_grad.launches += 1
+    return grads
+
+
+@flash_attention_backward_op.register_fake
+def _(dout, q, k, v, out):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def flash_attention_grad(dout: torch.Tensor, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor):
+    """The gradients (dq, dk, dv) of attention given ``dout`` and the
+    forward's output ``out`` (all (B, H, L, D) in q's dtype), in q's dtype.
+    CPU tensors take the plain backward :func:`flash_attention_backward`;
+    CUDA tensors go through ``gwport::flash_attention_backward``, which
+    launches K2B.  dout may be strided (the U-Net's is transposed) as long
+    as its last dimension is contiguous; otherwise it is made contiguous."""
+    if q.device.type == "cpu":
+        return flash_attention_backward(dout, q, k, v, out)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_grad runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check(q, k, v)
+    for name, a in (("dout", dout), ("out", out)):
+        if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
+            raise ValueError(f"{name} must be {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}, got {tuple(a.shape)} {a.dtype} "
+                             f"on {a.device}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    return flash_attention_backward_op(dout, q, k, v, out)
+
+
+flash_attention_grad.launches = 0
+
+
 @torch.library.custom_op(f"{NAMESPACE}::flash_attention", mutates_args=(),
                          device_types="cuda")
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor,
@@ -171,7 +338,7 @@ def _setup_context(ctx, inputs, output):
 def _backward(ctx, dout):
     with torch.profiler.record_function(
             f"{NAMESPACE}::flash_attention_backward"):
-        return flash_attention_backward(dout, *ctx.saved_tensors)
+        return flash_attention_grad(dout, *ctx.saved_tensors)
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
@@ -183,7 +350,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     (B, H, L, D) in q's dtype.  CPU tensors take the plain version; CUDA
     tensors go through the registered op, which launches the kernel on the
     route :func:`attention_route` picks (with grad enabled too: its
-    backward is :func:`flash_attention_backward`)."""
+    backward launches K2B through :func:`flash_attention_grad`)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     if q.device.type != "cuda":

@@ -55,8 +55,13 @@ import torch.nn.functional as F
 
 from ..models import unet
 from ..ops.kernels import (attention_route, conv_route, flash_attention,
+                           flash_attention_backward, flash_attention_grad,
                            flash_attention_reference, fused_conv_gn_silu,
+                           fused_conv_gn_silu_backward,
+                           fused_conv_gn_silu_grad,
                            fused_conv_gn_silu_reference)
+from ..ops.kernels.conv_gn_silu import dx_route
+from ..ops.kernels.flash_attention import backward_route
 from ..utils.device import resolve_device
 from ..utils.roofline import bound_ms, peak_for
 
@@ -80,6 +85,14 @@ TOL = {("conv_gn_silu", "float32"): (1e-4, 2e-5),
        ("conv_gn_silu", "bfloat16"): (2 ** -7, 1e-3),
        ("flash_attention", "float32"): (1e-4, 1e-5),
        ("flash_attention", "bfloat16"): (2 ** -6, 2e-3)}
+# K1B and K2B (the backward kernels), gradient by gradient, against the
+# plain backward in f32 on the values the kernel's products take (the
+# exact gradient of the plain forward, whose conv rounds W to x's dtype as
+# the kernel does), (rtol, atol): |got - want| <= rtol |want| + atol max
+# |want|, the gradient's own largest element.  f32: the JAX package's kernel
+# bar; bf16: within 2^-6 of the gradient's largest element (the kernel
+# rounds dy, P and dS to bf16 for its products)
+GRAD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (0.0, 2 ** -6)}
 REPS = 20
 
 
@@ -198,6 +211,121 @@ def attention_row(q, k, v, reps: int = REPS, plain_reps: int = REPS // 4,
             "speedup": t_p / t_k, **_bound(flops, nbytes, dev, dname),
             "tflops": flops / (t_k * 1e9), "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, **err, "within_tol": ok}
+
+
+def grads_against(got, want, dname: str, zero=()) -> dict:
+    """Each gradient of ``got`` against ``want`` within ``GRAD_TOL``, atol
+    on the scale of that gradient's largest element.  A gradient that is
+    zero in exact arithmetic (``zero``, by position: db with one channel a
+    group, dq and dk at L 1) is rounding in both, so it is held on the
+    largest scale of the others.  Returns each gradient's scale, its
+    largest difference over the scale, the largest difference of all, and
+    the count of elements outside the bar."""
+    rtol, atol = GRAD_TOL[dname]
+    got = [g.float() for g in got]
+    want = [w.float() for w in want]
+    scales = [float(w.abs().max()) for w in want]
+    floor = max((c for i, c in enumerate(scales) if i not in zero),
+                default=0.0)
+    scales = [max(c, floor) if i in zero else c
+              for i, c in enumerate(scales)]
+    errs, abs_errs, bad = [], [], 0
+    for g, w, scale in zip(got, want, scales):
+        diff = (g - w).abs()
+        bad += int((diff > rtol * w.abs() + atol * scale).sum())
+        abs_errs.append(float(diff.max()))
+        errs.append(abs_errs[-1] / scale if scale > 0 else abs_errs[-1])
+    return {"grad_scale": scales, "grad_err": errs,
+            "max_abs_err": max(abs_errs), "rtol": rtol, "atol": atol,
+            "n_outside_tol": bad}
+
+
+def _backward_row(kernel_fn, plain_fn, oracle, library, args, flops,
+                  nbytes, dev, dname, reps, plain_reps, zero):
+    """The common part of the backward rows: one counted launch, a second
+    call bit-equal to the first, the gradients against ``oracle`` (the
+    plain backward in f32) and, with ``reps``, the kernel's, the plain
+    backward's and the library backward's times and the bound."""
+    before = kernel_fn.launches
+    got = kernel_fn(*args)
+    launched = kernel_fn.launches - before
+    again = kernel_fn(*args)
+    _sync(dev)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    err = grads_against(got, oracle(), dname, zero)
+    del got
+    row = {"dtype": dname, "launches_per_call": launched,
+           "deterministic": same, **err,
+           "within_tol": err["n_outside_tol"] == 0 and same and (
+               dev.type != "cuda" or launched == 1),
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    if reps:
+        t_k = time_ms(lambda: kernel_fn(*args), dev, reps)
+        t_p = time_ms(lambda: plain_fn(*args), dev, max(1, plain_reps))
+        t_l = time_ms(library, dev, reps)
+        row.update(kernel_ms=t_k, plain_ms=t_p, library_ms=t_l,
+                   speedup=t_p / t_k, tflops=flops / (t_k * 1e9),
+                   **_bound(flops, nbytes, dev, dname))
+    return row
+
+
+def conv_backward_row(dout, x, W, b, s, bb, G: int, reps: int = REPS,
+                      plain_reps: int = REPS // 4) -> dict:
+    """K1B (``fused_conv_gn_silu_grad``) on these inputs: launches, a
+    second call bit-equal, the gradients against the plain backward in f32
+    on x, dout and W as the kernel's products take them (W rounded to x's
+    dtype; ``GRAD_TOL``) and, with ``reps``, times against the
+    plain backward in x's dtype and the library yardstick (autograd of
+    ``F.conv1d`` -> ``F.group_norm`` -> ``F.silu``, its backward alone),
+    the bound: x, dout and the parameters read once, dx and the parameter
+    gradients written once; the recompute, dx and dW products."""
+    dev, dtype = x.device, x.dtype
+    dname = str(dtype).split(".")[1]
+    B, L, Cin = x.shape
+    Cout = W.shape[-1]
+    args = (dout, x, W, b, s, bb, G)
+    ins = [a.detach().clone(memory_format=torch.contiguous_format)
+           .requires_grad_() for a in (
+        x.transpose(1, 2), W.permute(2, 1, 0).to(dtype),
+        *(v.to(dtype) for v in (b, s, bb)))]
+    out = F.silu(F.group_norm(F.conv1d(ins[0], ins[1], ins[2], padding=1),
+                              G, ins[3], ins[4], 1e-5))
+    dout_l = dout.transpose(1, 2).contiguous()
+    esize = x.element_size()
+    nbytes = (2 * x.numel() * esize + dout.numel() * esize
+              + 2 * (W.numel() + 3 * Cout) * 4)
+    return {"route": conv_route(x), "dx_route": dx_route(x, Cout),
+            **_backward_row(
+        fused_conv_gn_silu_grad, fused_conv_gn_silu_backward,
+        lambda: fused_conv_gn_silu_backward(
+            dout.float(), x.float(), W.to(dtype).float(), *args[3:]),
+        lambda: torch.autograd.grad(out, ins, dout_l, retain_graph=True),
+        args, 3 * 2.0 * B * L * 3 * Cin * Cout, nbytes, dev, dname, reps,
+        plain_reps, zero=(2,) if Cout == G else ())}
+
+
+def attention_backward_row(dout, q, k, v, reps: int = REPS,
+                           plain_reps: int = REPS // 4) -> dict:
+    """K2B (``flash_attention_grad``) given the forward kernel's output:
+    launches, a second call bit-equal, the gradients against the plain
+    backward on the inputs in f32 (``GRAD_TOL``) and, with ``reps``, times
+    against the plain backward in q's dtype and SDPA's backward alone, the
+    bound: q, k, v, the output and dout read once, dq, dk, dv written once;
+    five products of 2 B H L^2 D (S recomputed, dP, dV, dK, dQ)."""
+    dev = q.device
+    dname = str(q.dtype).split(".")[1]
+    B, H, L, D = q.shape
+    o = flash_attention(q, k, v)
+    args = (dout, q, k, v, o)
+    ins = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = F.scaled_dot_product_attention(*ins)
+    return {"route": backward_route(q, k, v, dout), **_backward_row(
+        flash_attention_grad, flash_attention_backward,
+        lambda: flash_attention_backward(*(a.float() for a in args)),
+        lambda: torch.autograd.grad(out, ins, dout, retain_graph=True),
+        args, 10.0 * B * H * L * L * D, 8 * q.numel() * q.element_size(),
+        dev, dname, reps, plain_reps, zero=(0, 1) if L == 1 else ())}
 
 
 def bench_conv(device=None, dtype=torch.float32, shapes=CONV_SHAPES,

@@ -27,7 +27,7 @@ checkpoints record ``selfcond_mode='zero'`` and ``distilled_steps`` /
 How it runs on the card: the teacher is a second ``UNet1D`` called under
 ``torch.no_grad()``; both forwards of the teacher and the student's launch
 the port's kernels (K1 in every ConvBlock, K2 on an attention model), and
-the student's backward is the ops' registered plain backward.  The
+the student's backward launches the ops' backward kernels (K1B, K2B).  The
 student's parameters, the EMA and the teacher are flat float32 buffers
 (``training/train.py``'s :class:`FlatParams`): the EMA student becomes the
 next teacher by one copy.  The optimizer is :class:`ClipAdamW` (optax's

@@ -14,10 +14,11 @@ checkpoint contract.
 How it runs on the card:
 
 - The U-Net's ConvBlocks and its attention launch the port's Hopper kernels
-  in the forward, with grad enabled too; their backward is plain PyTorch
-  (``ops/kernels``), as the JAX trainer differentiates its plain
-  expression.  ``cfg.remat`` recomputes the forward in the backward
-  (``torch.utils.checkpoint``), which launches the kernels again.
+  in the forward, with grad enabled too, and their backward kernels (K1B,
+  K2B; ``ops/kernels``) in the backward, where the JAX trainer
+  differentiates its plain expression.  ``cfg.remat`` recomputes the
+  forward in the backward (``torch.utils.checkpoint``), which launches the
+  forward kernels again.
 - The parameters are views of one flat float32 buffer and their gradients
   views of another (:class:`FlatParams`); the optimizer (:class:`ClipAdamW`,
   the arithmetic of ``optax.chain(clip_by_global_norm, adamw(schedule))``),

@@ -100,9 +100,13 @@ def test_wrapper_refuses_other_devices():
 
 def test_launch_counts_cover_every_wrapper():
     flash_attention.launches = 3
-    assert set(launch_counts()) == {"conv_gn_silu", "flash_attention"}
+    assert set(launch_counts()) == {"conv_gn_silu", "flash_attention",
+                                    "conv_gn_silu_backward",
+                                    "flash_attention_backward"}
     reset_launch_counts()
-    assert launch_counts() == {"conv_gn_silu": 0, "flash_attention": 0}
+    assert launch_counts() == {"conv_gn_silu": 0, "flash_attention": 0,
+                               "conv_gn_silu_backward": 0,
+                               "flash_attention_backward": 0}
 
 
 def test_build_all_starts_one_nvcc_per_unbuilt_source(tmp_path, monkeypatch):
@@ -110,7 +114,8 @@ def test_build_all_starts_one_nvcc_per_unbuilt_source(tmp_path, monkeypatch):
     yet built is compiled by its own process, a built one is skipped, and a
     failing build raises with its output."""
     assert {p.stem for p in _build.CSRC.glob("*.cu")} >= {
-        "conv_gn_silu", "flash_attention"}
+        "conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
+        "flash_attention_backward"}
     csrc, build = tmp_path / "csrc", tmp_path / "build"
     csrc.mkdir()
     for name in ("a", "b", "c"):

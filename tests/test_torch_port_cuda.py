@@ -4,8 +4,9 @@ their plain versions on the card, the U-Net's kernel path against its
 plain path, a checkpoint written and loaded on the card, the infer CLI on
 the card, the serving artifact traced on the card (its ops, its replay
 against the live function), a grad-enabled forward launching both kernels
-and backpropagating (each op's backward against its plain backward, on
-every route), a few train steps on the card, ``eval_indices`` and
+and backpropagating through the backward kernels (each against its plain
+backward, on every forward route and at their edge shapes), a few train
+steps on the card, ``eval_indices`` and
 ``gw-grid`` on the card, a distillation step's gradients, the tiled
 forward's kernel path against its plain path, a data-parallel train step
 on two gloo ranks sharing the card, a one-rank NCCL group, and the data
@@ -50,9 +51,16 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
     attention_route,
     conv_route,
     flash_attention,
+    flash_attention_grad,
     flash_attention_reference,
     fused_conv_gn_silu,
+    fused_conv_gn_silu_grad,
     fused_conv_gn_silu_reference,
+)
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+    attention_backward_row,
+    conv_backward_row,
+    grads_against,
 )
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +75,13 @@ def cuda():
     # the plain attention's bf16 p @ v accumulates in f32, as the kernel does
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
+
+
+def _counts(k1=0, k2=0, k1b=0, k2b=0):
+    """``launch_counts()`` after k1 / k2 forward and k1b / k2b backward
+    kernel launches."""
+    return {"conv_gn_silu": k1, "flash_attention": k2,
+            "conv_gn_silu_backward": k1b, "flash_attention_backward": k2b}
 
 
 # bf16: the kernel and the plain version round the same f32 values, which
@@ -393,8 +408,7 @@ def test_checkpoint_loads_on_the_card(cuda, tmp_path, use_attention):
     with torch.no_grad():
         got = m_gpu(x.to(cuda), t.to(cuda)).cpu()
         want = m_cpu(x, t)
-    assert launch_counts() == {"conv_gn_silu": 5,
-                               "flash_attention": int(use_attention)}
+    assert launch_counts() == _counts(5, int(use_attention))
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4   # f32: summation order through five blocks
 
@@ -414,7 +428,7 @@ def test_infer_cli_on_the_card(cuda, tmp_path):
                 "--amp-calib", "mf", "--log-jsonl", str(log),
                 "--device", "cuda"])
     n = len(build_t_schedule(1000, 3, None))
-    assert launch_counts() == {"conv_gn_silu": 5 * n, "flash_attention": 0}
+    assert launch_counts() == _counts(5 * n)
     files = sorted(os.listdir(out))
     assert [f.split("_")[0] for f in files] == [
         "measurement", "metrics", "recon", "recon"]
@@ -463,7 +477,7 @@ def test_cuda_artifact_holds_the_ops_and_counts_on_replay(cuda_artifact):
     reset_launch_counts()
     out = call(cond, sig, 3)
     torch.cuda.synchronize()
-    assert launch_counts() == {"conv_gn_silu": 5 * n, "flash_attention": n}
+    assert launch_counts() == _counts(5 * n, n)
     assert out.shape == (2, 512) and bool(torch.isfinite(out).all())
 
 
@@ -500,13 +514,13 @@ def test_grad_enabled_forward_raises(cuda, monkeypatch):
     t = torch.tensor([3, 700], device=cuda)
     reset_launch_counts()
     model(x, t).square().mean().backward()
-    assert launch_counts() == {"conv_gn_silu": 5, "flash_attention": 1}
+    assert launch_counts() == _counts(5, 1, 5, 1)
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad()
     monkeypatch.setattr(unet, "fused_conv_gn_silu", fused_conv_gn_silu_reference)
     monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
     model(x, t).square().mean().backward()
-    assert launch_counts() == {"conv_gn_silu": 5, "flash_attention": 1}
+    assert launch_counts() == _counts(5, 1, 5, 1)   # the plain path: none
     for n, p in model.named_parameters():
         scale = p.grad.abs().max().item()
         assert (got[n] - p.grad).abs().max().item() <= 1e-3 * scale + 1e-7, n
@@ -533,8 +547,9 @@ def _grads_close(got, want, dtype):
                                        (torch.bfloat16, 64)])
 def test_conv_gn_silu_backward_matches_plain_backward(cuda, dtype, Cin):
     """Each route (f32 FMA; bf16 mma.sync at Cin 7, wgmma at Cin 64): the
-    op's backward is the plain backward on the same inputs, bit for bit,
-    and matches autograd of the plain forward."""
+    op's backward launches K1B once, its gradients within the kernel bars
+    of the plain backward on the same inputs (``GRAD_TOL``), and they match
+    autograd of the plain forward."""
     k1 = importlib.import_module(
         "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
         ".ops.kernels.conv_gn_silu")
@@ -547,10 +562,12 @@ def test_conv_gn_silu_backward_matches_plain_backward(cuda, dtype, Cin):
     out = fused_conv_gn_silu(*ins, 8)
     assert fused_conv_gn_silu.launches == before + 1
     dout = torch.randn(out.shape, device=cuda).to(dtype)
+    before = fused_conv_gn_silu_grad.launches
     got = torch.autograd.grad(out, ins, dout)
+    assert fused_conv_gn_silu_grad.launches == before + 1
     plain = k1.fused_conv_gn_silu_backward(dout, x, W, b, s, bb, 8)
-    for g, w in zip(got, plain):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert [g.dtype for g in got] == [w.dtype for w in plain]
+    assert grads_against(got, plain, str(dtype)[6:])["n_outside_tol"] == 0
     ref_ins = _requires_grad(x, W, b, s, bb)
     want = torch.autograd.grad(fused_conv_gn_silu_reference(*ref_ins, 8),
                                ref_ins, dout)
@@ -561,9 +578,10 @@ def test_conv_gn_silu_backward_matches_plain_backward(cuda, dtype, Cin):
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 32)])
 def test_flash_attention_backward_matches_plain_backward(cuda, dtype, D):
-    """Each route (f32 FMA; bf16 wgmma at D 64, mma.sync at D 32): the op's
-    backward is the plain backward given the kernel's output, bit for bit,
-    and matches autograd of the plain forward."""
+    """Each forward route (f32 FMA; bf16 wgmma at D 64, mma.sync at D 32):
+    the op's backward launches K2B once, its gradients within the kernel
+    bars of the plain backward given the kernel's output (``GRAD_TOL``),
+    and they match autograd of the plain forward."""
     k2 = importlib.import_module(
         "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
         ".ops.kernels.flash_attention")
@@ -576,20 +594,73 @@ def test_flash_attention_backward_matches_plain_backward(cuda, dtype, D):
     out = flash_attention(*ins)
     assert flash_attention.launches == before + 1
     dout = torch.randn(out.shape, device=cuda).to(dtype)
+    before = flash_attention_grad.launches
     got = torch.autograd.grad(out, ins, dout)
+    assert flash_attention_grad.launches == before + 1
     plain = k2.flash_attention_backward(dout, q, k, v, out.detach())
-    for g, w in zip(got, plain):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert [g.dtype for g in got] == [w.dtype for w in plain]
+    assert grads_against(got, plain, str(dtype)[6:])["n_outside_tol"] == 0
     ref_ins = _requires_grad(q, k, v)
     want = torch.autograd.grad(flash_attention_reference(*ref_ins), ref_ins,
                                dout)
     _grads_close(got, want, dtype)
 
 
+# K1B's edges: one channel a group (C 8), a tensor-parallel rank's share
+# (Cout 64 / 2, 8 / 2 groups), L ragged across the 64-row tiles with Cin 40
+# and Cout 24 (a 64-channel dx tile masked past 40), a dout that is a
+# channel slice (row stride 2 Cout), B 1 at L 1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,Cin,Cout,G,sliced", [
+    (2, 200, 16, 8, 8, False), (2, 256, 64, 32, 4, False),
+    (1, 333, 40, 24, 8, False), (2, 130, 7, 16, 8, True),
+    (1, 1, 8, 16, 8, False)])
+def test_conv_gn_silu_backward_kernel_edges(cuda, dtype, B, L, Cin, Cout, G,
+                                            sliced):
+    """K1B alone: one launch a call, two calls bit-equal, every gradient
+    within ``GRAD_TOL`` of the plain backward on the inputs in f32."""
+    x, W, b, s, bb = _block_inputs(cuda, B, L, Cin, Cout, seed=L + Cout)
+    x = x.to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dout = torch.randn(B, L, 2 * Cout if sliced else Cout, generator=g,
+                       device=cuda).to(dtype)[..., :Cout]
+    assert dout.is_contiguous() != sliced
+    row = conv_backward_row(dout, x, W, b, s, bb, G, reps=0)
+    assert row["launches_per_call"] == 1 and row["deterministic"]
+    assert row["within_tol"], row
+
+
+# K2B's edges: L ragged across the 64-row tiles, D 16 (the 32 template
+# padded), 65 (rows not 16-byte aligned) and 256 (four column chunks), L 1,
+# a dout transposed as the U-Net hands it back; bf16 D 64 and 128 take the
+# wgmma route, the others mma.sync
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,D,transposed", [
+    (2, 2, 300, 64, True), (1, 2, 100, 16, False), (1, 2, 777, 65, True),
+    (1, 2, 200, 256, False), (2, 2, 1, 64, False), (1, 2, 333, 128, False)])
+def test_flash_attention_backward_kernel_edges(cuda, dtype, B, H, L, D,
+                                               transposed):
+    """K2B alone: one launch a call, two calls bit-equal, every gradient
+    within ``GRAD_TOL`` of the plain backward on the inputs in f32."""
+    q, k, v = (a.to(dtype) for a in _qkv(cuda, B, H, L, D, seed=L + D))
+    g = torch.Generator(device=cuda).manual_seed(8)
+    if transposed:
+        dout = torch.randn(B, L, H, D, generator=g, device=cuda).to(
+            dtype).transpose(1, 2)
+    else:
+        dout = torch.randn(B, H, L, D, generator=g, device=cuda).to(dtype)
+    row = attention_backward_row(dout, q, k, v, reps=0)
+    assert row["route"] == ("fma" if dtype == torch.float32 else
+                            "wgmma" if D in (64, 128) else "mma_sync")
+    assert row["launches_per_call"] == 1 and row["deterministic"]
+    assert row["within_tol"], row
+
+
 def test_train_step_on_the_card(cuda, tmp_path):
     """A few steps of the trainer on the card in bf16 with self-conditioning
-    on every step: K1 launched 2 x 5 times and K2 2 times per step, the
-    loss finite, a checkpoint written."""
+    on every step: K1 launched 2 x 5 times and K2 2 times per step, K1B 5
+    times and K2B once (the self-conditioning forward takes no gradient),
+    the loss finite, a checkpoint written."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.data import pipeline
     tt = importlib.import_module(
         "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
@@ -602,7 +673,7 @@ def test_train_step_on_the_card(cuda, tmp_path):
                          model_dir=str(tmp_path))
     reset_launch_counts()
     out = tt.train(cfg, dataset=ds, device="cuda")
-    assert launch_counts() == {"conv_gn_silu": 4 * 10, "flash_attention": 4 * 2}
+    assert launch_counts() == _counts(4 * 10, 4 * 2, 4 * 5, 4)
     assert all(np.isfinite(h["avg_per_sample"]) for h in out["history"])
     assert os.path.exists(out["checkpoint"]) and int(out["state"].step) == 4
 
@@ -679,8 +750,7 @@ def test_eval_indices_on_the_card_matches_cpu(cuda, tmp_path, use_attention):
                                       device=dev)
         if dev == "cuda":
             n = len(build_t_schedule(1000, 3, 999)) * 3
-            assert launch_counts() == {"conv_gn_silu": 5 * n,
-                                       "flash_attention": n * use_attention}
+            assert launch_counts() == _counts(5 * n, n * use_attention)
     for k in ("corr", "mae_norm", "unc_rel", "mf_ratio", "res_std_ratio"):
         got = np.array([r[k] for r in rows["cuda"]])
         want = np.array([r[k] for r in rows["cpu"]])
@@ -745,8 +815,8 @@ def test_distill_step_gradients_on_the_card(cuda, use_attention, monkeypatch):
 
     lk, gk, ck = grads(False)
     lp, gp, cp = grads(True)
-    assert ck == {"conv_gn_silu": 15, "flash_attention": 3 * use_attention}
-    assert cp == {"conv_gn_silu": 0, "flash_attention": 0}
+    assert ck == _counts(15, 3 * use_attention, 5, use_attention)
+    assert cp == _counts()
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     assert (gk - gp).abs().max().item() <= 1e-3 * gp.abs().max().item()
 
@@ -765,7 +835,7 @@ def test_grid_cli_on_the_card(cuda, tmp_path):
                          str(out), "--steps", "3", "--start-t", "999",
                          "--avg-seeds", "2", "--device", "cuda"])
     n = len(build_t_schedule(1000, 3, 999))
-    assert launch_counts() == {"conv_gn_silu": 5 * n, "flash_attention": 0}
+    assert launch_counts() == _counts(5 * n)
     assert {"per_index_metrics.csv", "metrics_grid.csv", "metrics_grid.json",
             "summary.json"} <= set(os.listdir(out))
     assert res["summary"]["n_cells"] == 4 and res["scan_caps"] == {512: 8}
@@ -792,7 +862,7 @@ def test_tiled_apply_kernel_path_matches_plain_path(cuda, monkeypatch):
         t = torch.tensor([10, 900], device=cuda)
         reset_launch_counts()
         got = tiled_apply(model, x, t, chunk=1024)
-        assert launch_counts() == {"conv_gn_silu": 5, "flash_attention": 1}
+        assert launch_counts() == _counts(5, 1)
         monkeypatch.setattr(unet, "fused_conv_gn_silu",
                             fused_conv_gn_silu_reference)
         monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
