@@ -13,8 +13,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
 2. build   - compiles every CUDA source of the port with nvcc, one process
              per source, all at once; reports the build's time, ptxas's
              registers, spills and warnings, and how many wgmma
-             instructions (``HGMMA``, read with ``cuobjdump -sass``) each
-             library's SASS holds; both kernels must have some.
+             (``HGMMA``) and TMA load (``UTMALDG``) instructions, read with
+             ``cuobjdump -sass``, each library's SASS holds; all four
+             kernels (K1, K2, K1B, K2B) must have both.
 3. kernel  - K1, the fused ConvBlock kernel, against its plain PyTorch
              version at every ConvBlock shape of pn128 (bf16 at 64 rows, the
              serving batch, and 128 rows; f32 at 128 rows) and of attn16k
@@ -36,8 +37,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
 3b. kernel_backward - K1B and K2B, the backward kernels, against their
              plain backwards on the inputs in f32 at every training path's
              shapes in bf16 (attn16k's 7 ConvBlocks at 16 rows and its
-             attention (16, 4, 4096, 64); a tensor-parallel rank's shares
-             of them, K2B at 2 heads; pn128's gw-train at L 8192; the
+             attention (16, 4, 4096, 64), K2B also at D 128; a
+             tensor-parallel rank's shares of them, K2B at 2 heads;
+             pn128's gw-train at L 8192; the
              distillation student at 16 rows, L 4096; after the data
              phase, the streaming train's other bucket lengths) and in f32
              at one shape each: one launch a call, two calls bit-equal,
@@ -45,7 +47,8 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              kernel's, the plain backward's and the library backward's
              times (autograd of ``F.conv1d -> F.group_norm -> F.silu``;
              SDPA's backward) and the bound (``conv_backward_row`` /
-             ``attention_backward_row``).
+             ``attention_backward_row``); K2B's time split by kernel (the
+             LSE pass, dK / dV, dQ; ``split_ms``).
 4. model   - each flagship U-Net in f32 with seeded random weights: the
              kernel path (its launches counted) against the same module
              through the plain versions.
@@ -378,9 +381,15 @@ def device_breakdown(trace_path, wall_us):
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
-def k1_split_ms(torch, fn, reps=3):
-    """Device ms of one call of ``fn`` by K1 pass, from ``torch.profiler``
-    over ``reps`` calls; "not measured" when the profiler saw no kernel."""
+# K2B's kernels: the log-sum-exp pass, dK / dV, dQ
+K2B_PASSES = {"pre": "flash_bwd_pre", "dkdv": "flash_bwd_dkdv",
+              "dq": "flash_bwd_dq"}
+
+
+def split_ms(torch, fn, passes, reps=3):
+    """Device ms of one call of ``fn`` by pass (``passes``: name -> kernel
+    name fragment), from ``torch.profiler`` over ``reps`` calls; "not
+    measured" when the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -389,11 +398,11 @@ def k1_split_ms(torch, fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = dict.fromkeys(K1_PASSES, 0.0)
+    split = dict.fromkeys(passes, 0.0)
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0.0))
-        for part, key in K1_PASSES.items():
+        for part, key in passes.items():
             if key in e.key:
                 split[part] += us / reps / 1e3
     if not any(split.values()):
@@ -429,8 +438,9 @@ def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
                         for _ in range(3))
             s = s + 1.0
             row = conv_row(x, W, b, s, bb, G, reps=5, plain_reps=3)
-            split = k1_split_ms(
-                torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G))
+            split = split_ms(
+                torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G),
+                K1_PASSES)
             y_bytes = 8 * rows * L * Cout      # y written and read in f32
             rec = {"phase": "kernel", "kernel": "conv_gn_silu",
                    "config": config, "block": name, "rows": rows, "L": L,
@@ -514,7 +524,12 @@ def backward_conv_rows(torch, config, blocks, dtype, rows, reps=5):
 def backward_attention_rows(torch, config, shapes, reps=5):
     """K2B at each (dtype, B, H, L, D) of ``shapes`` with a dout transposed
     as the U-Net hands it back: the record of ``tools.bench_kernels.
-    attention_backward_row``."""
+    attention_backward_row``, with ``reps`` also one call's device time by
+    kernel (``split_ms``: the LSE pass, dK / dV, dQ)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        flash_attention,
+        flash_attention_grad,
+    )
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
         attention_backward_row,
     )
@@ -528,6 +543,12 @@ def backward_attention_rows(torch, config, shapes, reps=5):
         dout = torch.randn(B, L, H, D, generator=g, device="cuda").to(
             dtype).transpose(1, 2)
         row = attention_backward_row(dout, q, k, v, reps=reps, plain_reps=1)
+        if reps:
+            o = flash_attention(q, k, v)
+            row["split_ms"] = split_ms(
+                torch, lambda: flash_attention_grad(dout, q, k, v, o),
+                K2B_PASSES)
+            del o
         rec = {"phase": "kernel_backward",
                "kernel": "flash_attention_backward", "config": config,
                "B": B, "H": H, "L": L, "D": D, **row}
@@ -560,10 +581,11 @@ def train_blocks(model_kw, L, n_model=1):
 def phase_kernel_backward(torch):
     """K1B and K2B against their plain backwards on the card at every
     training path's shapes, bf16: attn16k's training batch (7 ConvBlocks,
-    K2B at (16, 4, 4096, 64)), a tensor-parallel rank's shares of it (K2B
-    at 2 heads), pn128's gw-train at L 8192 and the distillation student
-    (16 rows, L 4096); in f32 at one shape each (attn16k's mid block and
-    its attention at the f32 gradient check's rows).  The streaming
+    K2B at (16, 4, 4096, 64), and at D 128), a tensor-parallel rank's
+    shares of it (K2B at 2 heads), pn128's gw-train at L 8192 and the
+    distillation student (16 rows, L 4096); in f32 at one shape each
+    (attn16k's mid block and its attention at the f32 gradient check's
+    rows).  The streaming
     train's other bucket lengths come after the data phase.  Returns K1B's
     and K2B's records."""
     bf = torch.bfloat16
@@ -581,6 +603,8 @@ def phase_kernel_backward(torch):
                               GRAD_ROWS)
     kb2 += backward_attention_rows(torch, "attn16k train",
                                    [("bfloat16", TRAIN_BATCH, 4, 4096, 64)])
+    kb2 += backward_attention_rows(torch, "D 128",
+                                   [("bfloat16", TRAIN_BATCH, 4, 4096, 128)])
     kb2 += backward_attention_rows(torch, "attn16k train tp share",
                                    [("bfloat16", TRAIN_BATCH, 2, 4096, 64)])
     kb2 += backward_attention_rows(torch, "attn16k f32",
@@ -4146,7 +4170,7 @@ def backward_entries(kb, launches, coverage, pkg):
            {key: r[key] for key in ("kernel_ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by", "max_abs_err",
                                     "grad_err", "grad_scale", "route",
-                                    "tflops")}
+                                    "tflops", "split_ms")}
            for r in kb2 if "kernel_ms" in r}
     main2 = next(r for r in kb2 if r["config"] == "attn16k train")
     ref = f"{pkg}/ops/pallas/"
@@ -4281,17 +4305,21 @@ def kernels_line(k1, k2, kb, launches, by_run, coverage):
          "phase": "kernel"}] + backward_entries(kb, launches, coverage, pkg)}
 
 
-def sass_has_hgmma(path):
-    """Count of wgmma instructions (``HGMMA``) in a built library's SASS,
-    or "not measured" where the toolkit has no ``cuobjdump``."""
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def sass_counts(path):
+    """Counts of wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions
+    in a built library's SASS, each "not measured" where the toolkit has no
+    ``cuobjdump``."""
     tool = (Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
             / "cuobjdump")
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if tool is None:
-        return "not measured"
+        return dict.fromkeys(SASS_OPS, "not measured")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True).stdout
-    return sum("HGMMA" in ln for ln in sass.splitlines())
+                          text=True, check=True).stdout.splitlines()
+    return {op: sum(op in ln for ln in sass) for op in SASS_OPS}
 
 
 class Laps:
@@ -4339,17 +4367,23 @@ def main():
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    hgmma = {n: sass_has_hgmma(_build.library_path(n)) for n in names}
+    sass = {n: sass_counts(_build.library_path(n)) for n in names}
     emit({"phase": "build", "seconds": build_s,
-          "built": sorted(logs), "sass_hgmma": hgmma,
+          "built": sorted(logs),
+          "sass_hgmma": {n: c["HGMMA"] for n, c in sass.items()},
+          "sass_utmaldg": {n: c["UTMALDG"] for n, c in sass.items()},
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
                            if "entry function" in ln or "Used" in ln
                            or "spill" in ln or "warning" in ln]
                     for name, log in logs.items()}})
-    # K1B's recompute and dx passes are K1's conv pass: on wgmma too
-    for name in ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward"):
-        check(hgmma[name] == "not measured" or hgmma[name] > 0,
-              f"{name}'s library holds no wgmma (HGMMA) instruction")
+    # every kernel has a wgmma route fed by TMA (K1B's recompute and dx
+    # are K1's conv pass, its dW its own; K2B's three kernels)
+    for name in ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
+                 "flash_attention_backward"):
+        for op in SASS_OPS:
+            n = sass[name][op]
+            check(n == "not measured" or n > 0,
+                  f"{name}'s library holds no {op} instruction")
 
     lap = Laps()
     k1 = []

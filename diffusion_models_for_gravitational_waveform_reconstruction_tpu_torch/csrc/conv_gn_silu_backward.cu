@@ -2,9 +2,10 @@
 // dW, db, dscale, dbias) of conv1d(k=3, SAME) + bias -> GroupNorm -> affine
 // -> SiLU on channels-last (B, L, C) activations, given dout.
 //
-// The JAX package has no kernel for this: its Pallas ConvBlock
-// (diffusion_models_for_gravitational_waveform_reconstruction_tpu/ops/pallas/fused.py:87)
-// is forward-only, and its trainer differentiates the plain expression
+// The backward of K1, the Pallas TPU kernel
+// diffusion_models_for_gravitational_waveform_reconstruction_tpu/ops/pallas/fused.py:87.
+// The JAX package has no kernel for it: that Pallas ConvBlock is
+// forward-only, and its trainer differentiates the plain expression
 // fused_conv_gn_silu_reference (fused.py:26-40) with XLA's autodiff.  This
 // kernel computes the gradients of the port's plain backward
 // (ops/kernels/conv_gn_silu.py::fused_conv_gn_silu_backward) with its cast
@@ -31,27 +32,46 @@
 //      swapped: wgmma against the packed (Cin_pad, 3, Cout_pad) weights for
 //      bf16 with Cout % 8 == 0, mma.sync for other bf16, FMA for f32);
 //   6. dW = im2col3(x)^T dy, (3 Cin x B L) (B L x Cout): K = B L is cut
-//      into runs of rows, one f32 partial of dW per run (k1b_dw_bf16 on
-//      mma.sync, k1b_dw_f32 on the FMA units), summed in run order by
-//      k1b_sum_rows.
+//      into tiles of up to 64 rows of one sample and the tiles into runs,
+//      one f32 partial of dW per run, summed in run order by k1b_sum_rows.
+//      bf16 with Cin % 8 == 0 and Cout % 8 == 0 (every block but the input
+//      block) on wgmma fed by a TMA ring (k1b_dw_tma: both operands
+//      MN-major, the three taps as three boxes of x one row apart); other
+//      bf16 on mma.sync (k1b_dw_bf16: TMA cannot map the input block's
+//      14-byte rows); f32 on the FMA units (k1b_dw_f32, double-buffered
+//      through cp.async, the taps sharing one staged x tile).
 //
 // What bounds it on the H100.  Three conv products of 2 B L 3 Cin Cout FLOPs
-// each (the recompute, dx, dW) against the bytes of x, dout, dx and the dW
-// partials; at the U-Nets' training shapes the bytes of the activations
-// set the bound.  The design takes the simple road: y goes to device memory
-// in f32 and is read twice, dy is written once and read twice, and the dW
-// pass stages its tiles in shared memory without a copy pipeline.  Keeping
-// y out of device memory and dW on wgmma are later work.
+// each (the recompute, dx, dW) against the bytes of x, dout, dx and the
+// parameter gradients; at the U-Nets' training shapes the bytes of the
+// activations set the bound for the narrow blocks, the products for the
+// wide ones.  y goes to device memory in f32 and is read twice, dy is
+// written once and read twice (keeping y out of device memory is later
+// work).  dW streams its operands through TMA into wgmma: both are
+// MN-major (channels contiguous), which the descriptors' transpose bits
+// take as they are, and the three taps reuse one dy box against three x
+// boxes one row apart, so x is read from L2 three times and from device
+// memory about once.
 #include "conv_gn_silu.cuh"
 
 namespace {
 
 constexpr int GRAD_THREADS = 256;
 constexpr int SUM_LANES = 8;      // k1b_sum_rows: lanes a column is cut into
-constexpr int DW_BM = 64;         // input channels of one tap per dW CTA
+constexpr int DW_STEP = 64;       // rows of one sample per dW tile
+constexpr int DW_BM = 64;         // input channels per dW CTA
 constexpr int DW_BN = 64;         // output channels per dW CTA
-constexpr int DW_BK = 32;         // rows staged per step
+constexpr int DW_BK = 32;         // mma.sync: rows staged per step
 constexpr int DW_S = DW_BM + 8;   // bf16 row stride: conflict-free ldmatrix
+constexpr int DWF_THREADS = 256;  // f32 dW
+constexpr int DWF_TS = 68;        // f32 dW: tile row stride (floats)
+constexpr int DWF_X = (DW_STEP + 2) * DWF_TS, DWF_D = DW_STEP * DWF_TS;
+constexpr int DWF_SMEM = 2 * (DWF_X + DWF_D) * 4;
+constexpr int DWT_STAGES = 3;     // wgmma dW: 96 KB, two CTAs an SM
+constexpr int DWT_BOX = DW_STEP * 128;  // 64 rows of 64 bf16 channels
+constexpr int DWT_STAGE = 4 * DWT_BOX;  // three x boxes (the taps), dy
+constexpr int DWT_THREADS = 160;        // a consumer warpgroup, a TMA warp
+constexpr int DWT_SMEM = 1024 + DWT_STAGES * DWT_STAGE + 16 * DWT_STAGES;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -192,34 +212,40 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, int c, int n,
   return v;
 }
 
-// The run of rows [r_begin, r_end) of the flattened (B L) axis that CTA z
-// sums, and the row's sample and position.
+// dW's K = B L is cut into tiles of up to DW_STEP rows of one sample, in
+// order (sample-major); CTA z sums the run of tiles [z T, z T + T) of the
+// n_tiles, T = tiles_per_run.  The tiles of a run are consecutive rows of
+// the flattened (B L) axis.
 struct Run {
   int64_t begin, end;
-  __device__ Run(int64_t total, int run)
-      : begin((int64_t)blockIdx.z * run),
-        end(begin + run < total ? begin + run : total) {}
+  __device__ Run(int64_t n_tiles, int tiles_per_run)
+      : begin((int64_t)blockIdx.z * tiles_per_run),
+        end(begin + tiles_per_run < n_tiles ? begin + tiles_per_run
+                                            : n_tiles) {}
 };
 
-// One CTA per (tap x 64 input channels, 64 output channels, run of rows):
-// the run's f32 partial of dW[tap][ci][co] = sum over rows r = (b, l) of
+// One CTA per (tap x 64 input channels, 64 output channels, run of tiles):
+// the run's f32 partial of dW[tap][ci][co] = sum over rows (b, l) of
 // x[b][l - 1 + tap][ci] dy[b][l][co] (zero past either end of a sample).
-// Each step stages 32 rows of x (shifted by the tap) and of dy as
-// [row][channel] tiles: both operands are M- / N-major there, so their
-// fragments come through ldmatrix.trans.  Four warps, 2 x 2 over the 64 x 64
-// tile, on mma.sync m16n8k16.  The next step's rows are loaded into
-// registers while this step's products run.
+// The bf16 route for x that TMA cannot map (Cin % 8 != 0: the input block's
+// 7 channels are 14-byte rows) or dy with Cout % 8 != 0.  Each step stages
+// 32 rows of x (shifted by the tap) and of dy as [row][channel] tiles: both
+// operands are M- / N-major there, so their fragments come through
+// ldmatrix.trans.  Four warps, 2 x 2 over the 64 x 64 tile, on mma.sync
+// m16n8k16.  The next step's rows are loaded into registers while this
+// step's products run.
 __global__ void __launch_bounds__(THREADS)
 k1b_dw_bf16(const __nv_bfloat16* __restrict__ x,
             const __nv_bfloat16* __restrict__ dy, float* __restrict__ part,
-            int L, int Cin, int Cout, int64_t rows_total, int run, int vec_x,
-            int vec_dy) {
+            int L, int Cin, int Cout, int64_t n_tiles, int tiles_per_run,
+            int vec_x, int vec_dy) {
   __shared__ __align__(16) __nv_bfloat16 xs[DW_BK][DW_S];
   __shared__ __align__(16) __nv_bfloat16 ds[DW_BK][DW_S];
   const int n_ci = (Cin + DW_BM - 1) / DW_BM;
   const int tap = blockIdx.x / n_ci, ci0 = (blockIdx.x % n_ci) * DW_BM;
   const int co0 = blockIdx.y * DW_BN;
-  const Run rr(rows_total, run);
+  const Run rr(n_tiles, tiles_per_run);
+  const int n_lt = (L + DW_STEP - 1) / DW_STEP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int g = lane >> 2, t = lane & 3, mat = lane >> 3, mrow = lane & 7;
@@ -234,24 +260,27 @@ k1b_dw_bf16(const __nv_bfloat16* __restrict__ x,
 
   // this thread's items of a step: rows j, channels [ch, ch + 8)
   constexpr int ITEMS = DW_BK * 8 / THREADS;
+  constexpr int HALVES = DW_STEP / DW_BK;
   uint4 xv[ITEMS], dv[ITEMS];
-  auto fetch = [&](int64_t k0) {
+  auto fetch = [&](int64_t step) {  // step HALVES t + h: rows h DW_BK .. of tile t
+    const int64_t tile = step / HALVES, b = tile / n_lt;
+    const int l0 = (int)(tile - b * n_lt) * DW_STEP + (int)(step % HALVES) * DW_BK;
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       const int idx = tid + it * THREADS, j = idx >> 3, ch = (idx & 7) * 8;
-      const int64_t r = k0 + j;
+      const int l = l0 + j;
       xv[it] = dv[it] = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rr.end) {
-        const int64_t b = r / L;
-        const int ls = (int)(r - b * L) - 1 + tap;
+      if (l < L) {
+        const int ls = l - 1 + tap;
         if (ls >= 0 && ls < L)
           xv[it] = load8(x + (b * L + ls) * Cin + ci0, ch, Cin - ci0, vec_x);
-        dv[it] = load8(dy + r * Cout + co0, ch, Cout - co0, vec_dy);
+        dv[it] = load8(dy + (b * L + l) * Cout + co0, ch, Cout - co0, vec_dy);
       }
     }
   };
-  fetch(rr.begin);
-  for (int64_t k0 = rr.begin; k0 < rr.end; k0 += DW_BK) {
+  const int64_t s_end = rr.end * HALVES;
+  fetch(rr.begin * HALVES);
+  for (int64_t step = rr.begin * HALVES; step < s_end; ++step) {
     __syncthreads();
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
@@ -260,7 +289,7 @@ k1b_dw_bf16(const __nv_bfloat16* __restrict__ x,
       *reinterpret_cast<uint4*>(&ds[j][ch]) = dv[it];
     }
     __syncthreads();
-    if (k0 + DW_BK < rr.end) fetch(k0 + DW_BK);
+    if (step + 1 < s_end) fetch(step + 1);
 #pragma unroll
     for (int kk = 0; kk < DW_BK; kk += 16) {
       uint32_t a[2][4], bq[2][4];
@@ -294,67 +323,195 @@ k1b_dw_bf16(const __nv_bfloat16* __restrict__ x,
       }
 }
 
-// The same partials in f32 on the FMA units (no TF32): thread (tx, ty) of
-// 16 x 8 owns input channels ty * 8 + i (i < 8) and output channels
-// tx + 16 j (j < 4) of the tile.
-__global__ void __launch_bounds__(THREADS)
+// The bf16 route on wgmma (Cin % 8 == 0, Cout % 8 == 0, x 16-byte
+// aligned): one CTA per (64 input channels, 64 output channels, run of
+// tiles), all three taps.  Warp 4 issues every TMA load into a ring of
+// DWT_STAGES stages under full / empty mbarriers: per tile of 64 rows of one
+// sample, three boxes of x (64 channels x 64 rows at rows l0 - 1, l0, l0 +
+// 1, one a tap; L2 serves the repeats; TMA zero-fills rows outside the
+// sample, so no tap reads the next sample) and one of dy (64 x 64 at l0),
+// 128B-swizzled.  Warpgroup 0 runs dW[tap] += x_tap^T dy on wgmma
+// m64n64k16 with both operands MN-major (channels contiguous, read through
+// the descriptors' transpose bits: no transposed copy); each tile's 12
+// products are issued before the previous tile's stage is released.
+__global__ void __launch_bounds__(DWT_THREADS)
+k1b_dw_tma(const __grid_constant__ CUtensorMap tm_x,
+           const __grid_constant__ CUtensorMap tm_dy, float* __restrict__ part,
+           int L, int Cin, int Cout, int64_t n_tiles, int tiles_per_run) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sS =
+      smem_u32(smem_raw) + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sBar = sS + DWT_STAGES * DWT_STAGE;  // full[s], empty[s]
+  const int ci0 = blockIdx.x * DW_BM, co0 = blockIdx.y * DW_BN;
+  const Run rr(n_tiles, tiles_per_run);
+  const int n_lt = (L + DW_STEP - 1) / DW_STEP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = (int)(rr.end - rr.begin);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DWT_STAGES; ++s) {
+      mbar_init(sBar + 8 * s, 1);
+      mbar_init(sBar + 8 * (DWT_STAGES + s), 4);  // the 4 consumer warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0)
+      for (int it = 0; it < n; ++it) {
+        const int s = it % DWT_STAGES;
+        const uint32_t full = sBar + 8 * s, st = sS + s * DWT_STAGE;
+        const int64_t tile = rr.begin + it, b = tile / n_lt;
+        const int l0 = (int)(tile - b * n_lt) * DW_STEP;
+        mbar_wait(sBar + 8 * (DWT_STAGES + s), ((it / DWT_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, DWT_STAGE);
+        for (int tap = 0; tap < 3; ++tap)
+          tma_load_3d(st + tap * DWT_BOX, &tm_x, full, ci0, l0 - 1 + tap,
+                      (int)b);
+        tma_load_3d(st + 3 * DWT_BOX, &tm_dy, full, co0, l0, (int)b);
+      }
+    return;
+  }
+  float acc[3][32];
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[tap][i] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    const int s = it % DWT_STAGES;
+    const uint32_t st = sS + s * DWT_STAGE;
+    mbar_wait(sBar + 8 * s, (it / DWT_STAGES) & 1);
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) fence_regs<32>(acc[tap]);
+    wgmma_fence();
+    const uint64_t db = smem_desc_mn(st + 3 * DWT_BOX, DWT_BOX);
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+      const uint64_t da = smem_desc_mn(st + tap * DWT_BOX, DWT_BOX);
+#pragma unroll
+      for (int ks = 0; ks < DW_STEP / 16; ++ks)  // 16 rows, 2048 bytes a step
+        wgmma_bf16_tt64(acc[tap], da + (uint64_t)(ks * 128),
+                        db + (uint64_t)(ks * 128));
+    }
+    wgmma_commit();
+    if (it > 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(sBar + 8 * (DWT_STAGES + (it - 1) % DWT_STAGES));
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap) fence_regs<32>(acc[tap]);
+  // accumulator element i: input channel 16 warp + g + 8 ((i >> 1) & 1),
+  // output channel 8 (i >> 2) + 2 t + (i & 1); Cout % 8 == 0 keeps pairs
+  // whole
+  const int g = lane >> 2, t = lane & 3;
+  float* out = part + (int64_t)blockIdx.z * 3 * Cin * Cout;
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int ci = ci0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int co = co0 + 8 * (i >> 2) + 2 * t;
+      if (ci < Cin && co < Cout)
+        *reinterpret_cast<float2*>(out + ((int64_t)tap * Cin + ci) * Cout + co) =
+            make_float2(acc[tap][i], acc[tap][i + 1]);
+    }
+}
+
+// The same partials in f32 on the FMA units (no TF32): one CTA per (64
+// input channels, 64 output channels, run of tiles), all three taps.  Each
+// tile stages x rows l0 - 1 .. l0 + 64 and dy rows l0 .. l0 + 63 as
+// [row][68] floats, double-buffered through cp.async; thread (tx, ty) of
+// 16 x 16 owns input channels ci0 + 4 ty + i and output channels co0 + 4 tx
+// + j of each tap: per row four float4 reads for 48 FMAs.
+__global__ void __launch_bounds__(DWF_THREADS)
 k1b_dw_f32(const float* __restrict__ x, const float* __restrict__ dy,
            float* __restrict__ part, int L, int Cin, int Cout,
-           int64_t rows_total, int run) {
-  __shared__ float xs[DW_BK][DW_BM];
-  __shared__ float ds[DW_BK][DW_BN];
-  const int n_ci = (Cin + DW_BM - 1) / DW_BM;
-  const int tap = blockIdx.x / n_ci, ci0 = (blockIdx.x % n_ci) * DW_BM;
-  const int co0 = blockIdx.y * DW_BN;
-  const Run rr(rows_total, run);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t k0 = rr.begin; k0 < rr.end; k0 += DW_BK) {
-    __syncthreads();
-    for (int idx = tid; idx < DW_BK * DW_BM; idx += THREADS) {
-      const int j = idx / DW_BM, c = idx % DW_BM;
-      const int64_t r = k0 + j;
-      float xv = 0.f, dv = 0.f;
-      if (r < rr.end) {
-        const int64_t b = r / L;
-        const int ls = (int)(r - b * L) - 1 + tap;
-        if (ls >= 0 && ls < L && ci0 + c < Cin)
-          xv = x[(b * L + ls) * Cin + ci0 + c];
-        if (co0 + c < Cout) dv = dy[r * Cout + co0 + c];
+           int64_t n_tiles, int tiles_per_run, int vec_x, int vec_dy) {
+  extern __shared__ __align__(16) float dwf_smem[];
+  float* xs = dwf_smem;           // two stages
+  float* ds = xs + 2 * DWF_X;     // two stages
+  const int ci0 = blockIdx.x * DW_BM, co0 = blockIdx.y * DW_BN;
+  const Run rr(n_tiles, tiles_per_run);
+  const int n_lt = (L + DW_STEP - 1) / DW_STEP;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // rows l0 + r0 .. of sample b (n of them) into the [n][DWF_TS] tile at
+  // dst: channels c0 .. c0 + 63 of C, zero outside [0, L) and past C
+  auto stage = [&](uint32_t dst, const float* src, int64_t b, int l_first,
+                   int n_rows, int c0, int C, int vec) {
+    if (vec) {
+      for (int idx = threadIdx.x; idx < n_rows * 16; idx += DWF_THREADS) {
+        const int r = idx >> 4, c = (idx & 15) * 4, l = l_first + r;
+        const bool ok = l >= 0 && l < L && c0 + c < C;
+        cp_async16(dst + (r * DWF_TS + c) * 4,
+                   ok ? src + (b * L + l) * C + c0 + c : src, ok);
       }
-      xs[j][c] = xv;
-      ds[j][c] = dv;
+    } else {
+      for (int idx = threadIdx.x; idx < n_rows * 64; idx += DWF_THREADS) {
+        const int r = idx >> 6, c = idx & 63, l = l_first + r;
+        const bool ok = l >= 0 && l < L && c0 + c < C;
+        cp_async4(dst + (r * DWF_TS + c) * 4,
+                  ok ? src + (b * L + l) * C + c0 + c : src, ok);
+      }
+    }
+  };
+  auto load = [&](int64_t tile, int s) {
+    const int64_t b = tile / n_lt;
+    const int l0 = (int)(tile - b * n_lt) * DW_STEP;
+    stage(smem_u32(xs + s * DWF_X), x, b, l0 - 1, DW_STEP + 2, ci0, Cin, vec_x);
+    stage(smem_u32(ds + s * DWF_D), dy, b, l0, DW_STEP, co0, Cout, vec_dy);
+    cp_async_commit();
+  };
+  float acc[3][4][4];
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[tap][i][j] = 0.f;
+  load(rr.begin, 0);
+  for (int64_t tile = rr.begin; tile < rr.end; ++tile) {
+    const int s = (int)((tile - rr.begin) & 1);
+    if (tile + 1 < rr.end) {
+      load(tile + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* X = xs + s * DWF_X;
+    const float* Dy = ds + s * DWF_D;
 #pragma unroll 4
-    for (int k = 0; k < DW_BK; ++k) {
-      float a[8], w[4];
+    for (int r = 0; r < DW_STEP; ++r) {
+      const float4 bv = *reinterpret_cast<const float4*>(Dy + r * DWF_TS + 4 * tx);
+      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[k][ty * 8 + i];
+      for (int tap = 0; tap < 3; ++tap) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(X + (r + tap) * DWF_TS + 4 * ty);
+        const float ai[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = ds[k][tx + 16 * j];
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j)
+            acc[tap][i][j] = fmaf(ai[i], bj[j], acc[tap][i][j]);
+      }
     }
+    __syncthreads();
   }
 
   float* out = part + (int64_t)blockIdx.z * 3 * Cin * Cout;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = ci0 + ty * 8 + i, co = co0 + tx + 16 * j;
-      if (ci < Cin && co < Cout)
-        out[((int64_t)tap * Cin + ci) * Cout + co] = acc[i][j];
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ci = ci0 + 4 * ty + i, co = co0 + 4 * tx + j;
+        if (ci < Cin && co < Cout)
+          out[((int64_t)tap * Cin + ci) * Cout + co] = acc[tap][i][j];
+      }
 }
 
 cudaError_t sum_rows(const float* in, float* out, int nb, int T, int64_t C,
@@ -392,9 +549,10 @@ const char* conv_gn_silu_backward_error_string(int code) {
 }
 
 // Rows per partial tile (the scratch part_a / part_b is (B, ceil(L / 64),
-// Cout)) and per dW staging step (a run of rows is a multiple of it).
+// Cout)) and per dW tile (up to that many rows of one sample; a run of dW
+// is a multiple of it).
 int conv_gn_silu_backward_rows_per_tile(void) { return BM; }
-int conv_gn_silu_backward_rows_per_step(void) { return DW_BK; }
+int conv_gn_silu_backward_rows_per_step(void) { return DW_STEP; }
 
 // dout, x (B, L, Cout / Cin) in x's dtype (f32: route 0; bf16: route 1 or 2,
 // as the forward), W (3, Cin, Cout), bias, gn_scale, gn_bias f32.  Outputs:
@@ -404,7 +562,8 @@ int conv_gn_silu_backward_rows_per_step(void) { return DW_BK; }
 // groups) f32; dy (B, L, Cout) in x's dtype, 16-byte aligned; w_t (3, Cout,
 // Cin) f32; for route 2 w_packed (Cout_pad, 3, Cin_pad) bf16, for dx_route
 // 2 wt_packed (Cin_pad, 3, Cout_pad) bf16 (pads rounded up to 64); dw_part
-// (ceil(B L / dw_run), 3, Cin, Cout) f32, dw_run a multiple of 32.  dx_route
+// (n_runs, 3, Cin, Cout) f32, n_runs = ceil(B ceil(L / 64) / (dw_run / 64)),
+// dw_run a multiple of 64 (rows a run, in whole tiles).  dx_route
 // is the conv route for dy (2 needs bf16 and Cout % 8 == 0).  All
 // contiguous on the current device.  Launches on `stream`, does not
 // synchronise, returns the first launch error (0 on success).
@@ -419,7 +578,7 @@ int conv_gn_silu_backward(const void* dout, const void* x, const float* W,
                           int groups, float eps, int route, int dx_route,
                           int dw_run, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dw_run < DW_BK || dw_run % DW_BK) return cudaErrorInvalidValue;
+  if (dw_run < DW_STEP || dw_run % DW_STEP) return cudaErrorInvalidValue;
   const int n_tiles = (L + BM - 1) / BM;
   const bool bf = route != ROUTE_FMA;
   float* s_dh = sums;
@@ -456,20 +615,40 @@ int conv_gn_silu_backward(const void* dout, const void* x, const float* W,
   rc = conv_dx(dy, w_t, wt_packed, dx, B, L, Cout, Cin, dx_route, st);
   if (rc != 0) return rc;
 
-  const int64_t rows = (int64_t)B * L;
-  const int n_runs = (int)((rows + dw_run - 1) / dw_run);
-  const dim3 grid(3 * ((Cin + DW_BM - 1) / DW_BM), (Cout + DW_BN - 1) / DW_BN,
-                  n_runs);
-  if (bf) {
+  const int64_t dw_tiles = (int64_t)B * ((L + DW_STEP - 1) / DW_STEP);
+  const int per_run = dw_run / DW_STEP;
+  const int n_runs = (int)((dw_tiles + per_run - 1) / per_run);
+  const int n_ci = (Cin + DW_BM - 1) / DW_BM, n_co = (Cout + DW_BN - 1) / DW_BN;
+  if (bf && route == ROUTE_WGMMA && dx_route == ROUTE_WGMMA) {
+    CUtensorMap tmx, tmdy;
+    const cuuint64_t x_dims[3] = {(cuuint64_t)Cin, (cuuint64_t)L, (cuuint64_t)B};
+    const cuuint64_t x_strides[2] = {(cuuint64_t)Cin * 2, (cuuint64_t)L * Cin * 2};
+    const cuuint64_t d_dims[3] = {(cuuint64_t)Cout, (cuuint64_t)L, (cuuint64_t)B};
+    const cuuint64_t d_strides[2] = {(cuuint64_t)Cout * 2,
+                                     (cuuint64_t)L * Cout * 2};
+    const cuuint32_t box[3] = {DW_BM, DW_STEP, 1};
+    if (!encode_bf16(&tmx, x, 3, x_dims, x_strides, box) ||
+        !encode_bf16(&tmdy, dy, 3, d_dims, d_strides, box))
+      return ERR_TENSOR_MAP;
+    K1B_TRY(cudaFuncSetAttribute(k1b_dw_tma,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 DWT_SMEM));
+    k1b_dw_tma<<<dim3(n_ci, n_co, n_runs), DWT_THREADS, DWT_SMEM, st>>>(
+        tmx, tmdy, dw_part, L, Cin, Cout, dw_tiles, per_run);
+  } else if (bf) {
     const int vec_x = Cin % 8 == 0 && (uintptr_t)x % 16 == 0;
-    k1b_dw_bf16<<<grid, THREADS, 0, st>>>(
+    k1b_dw_bf16<<<dim3(3 * n_ci, n_co, n_runs), THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(dy), dw_part, L, Cin, Cout, rows,
-        dw_run, vec_x, Cout % 8 == 0);
+        static_cast<const __nv_bfloat16*>(dy), dw_part, L, Cin, Cout,
+        dw_tiles, per_run, vec_x, Cout % 8 == 0);
   } else {
-    k1b_dw_f32<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(dy),
-                                         dw_part, L, Cin, Cout, rows, dw_run);
+    K1B_TRY(cudaFuncSetAttribute(k1b_dw_f32,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 DWF_SMEM));
+    k1b_dw_f32<<<dim3(n_ci, n_co, n_runs), DWF_THREADS, DWF_SMEM, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), dw_part,
+        L, Cin, Cout, dw_tiles, per_run,
+        Cin % 4 == 0 && (uintptr_t)x % 16 == 0, Cout % 4 == 0);
   }
   K1B_TRY(cudaGetLastError());
   K1B_TRY(sum_rows(dw_part, dW, 1, n_runs, n_w, st));

@@ -151,26 +151,39 @@ def pack_dx_weights_reference(W: torch.Tensor) -> torch.Tensor:
 
 
 # K1B's tiling, which the plain step-by-step version repeats: rows per
-# partial tile (the forward's statistics tile) and per dW staging step
+# partial tile (the forward's statistics tile) and per dW tile (up to that
+# many rows of one sample)
 BACKWARD_TILE = 64
-DW_STEP = 32
-# dW's K = B L is cut into runs of rows, one f32 partial each: about 16
-# CTAs for each of the H100's 132 SMs (chosen by timing attn16k's training
-# blocks on an H100 at 4, 8, 16 and 32), at least 256 rows a run, the
-# partials at most 64 MiB
+DW_STEP = 64
+# dW's K = B L is cut into dW tiles and the tiles into runs, one f32
+# partial each: about 16 CTAs for each of the H100's 132 SMs counted as the
+# mma.sync route's grid (chosen by timing attn16k's training blocks on an
+# H100 at 4, 8, 16 and 32), at least 256 rows a run, the partials at most
+# 64 MiB
 DW_TARGET_CTAS = 16 * 132
 DW_PART_BYTES = 64 << 20
 
 
+def dw_tiles(B: int, L: int) -> int:
+    """K1B's dW tiles: ``DW_STEP`` rows of one sample each, the last of a
+    sample ragged."""
+    return B * -(-L // DW_STEP)
+
+
 def dw_run(B: int, L: int, Cin: int, Cout: int) -> int:
-    """Rows of the flattened (B L) axis per dW partial of K1B (a multiple
-    of ``DW_STEP``); the partials number ceil(B L / run) <= 65535."""
+    """Rows per dW partial of K1B: a multiple of ``DW_STEP``, the run being
+    that many rows' worth of whole dW tiles (:func:`dw_tiles`); the
+    partials number :func:`dw_runs` <= 65535."""
     rows = B * L
     tiles = 3 * -(-Cin // 64) * -(-Cout // 64)
     runs = max(1, min(-(-DW_TARGET_CTAS // tiles), -(-rows // 256),
                       DW_PART_BYTES // (12 * Cin * Cout), 65535))
-    per_run = -(-rows // runs)
-    return -(-per_run // DW_STEP) * DW_STEP
+    return -(-dw_tiles(B, L) // runs) * DW_STEP
+
+
+def dw_runs(B: int, L: int, Cin: int, Cout: int) -> int:
+    """The number of K1B's dW partials."""
+    return -(-dw_tiles(B, L) // (dw_run(B, L, Cin, Cout) // DW_STEP))
 
 
 def _sum_rows(part: torch.Tensor) -> torch.Tensor:
@@ -200,8 +213,8 @@ def fused_conv_gn_silu_backward_passes(dout, x, W, b, gn_scale, gn_bias,
     sums; dy in f32, its tile sums giving db the same way, then cast to x's
     dtype; dx = conv3(dy) through the packed flipped taps
     (:func:`pack_dx_weights_reference`) in bf16, the flipped f32 taps in
-    f32; dW as one f32 partial per run of :func:`dw_run` rows, summed in
-    run order."""
+    f32; dW as one f32 partial per run of whole dW tiles (:func:`dw_run`),
+    summed in run order."""
     dt = x.dtype
     B, L, Cin = x.shape
     Cout = W.shape[2]
@@ -238,11 +251,16 @@ def fused_conv_gn_silu_backward_passes(dout, x, W, b, gn_scale, gn_bias,
     else:
         w_t = W.flip(0).transpose(1, 2)
     dx = (im2col3(dyd.float()) @ w_t.float().reshape(3 * Cout, Cin)).to(dt)
-    run = dw_run(B, L, Cin, Cout)
+    # a run's tiles are consecutive rows of the flattened (B L) axis,
+    # starting at its first tile's row
+    per_run = dw_run(B, L, Cin, Cout) // DW_STEP
+    n_lt = -(-L // DW_STEP)
+    starts = [t // n_lt * L + t % n_lt * DW_STEP
+              for t in range(0, dw_tiles(B, L), per_run)] + [B * L]
     cols = im2col3(x.float()).reshape(B * L, 3 * Cin)
     dyf = dyd.float().reshape(B * L, Cout)
-    parts = torch.stack([cols[r:r + run].transpose(0, 1) @ dyf[r:r + run]
-                         for r in range(0, B * L, run)])
+    parts = torch.stack([cols[r0:r1].transpose(0, 1) @ dyf[r0:r1]
+                         for r0, r1 in zip(starts, starts[1:])])
     dW = _sum_rows(parts.reshape(1, len(parts), -1))[0]
     return dx, dW.reshape(3, Cin, Cout), db, dscale, dbias
 
@@ -309,6 +327,18 @@ def dx_route(x: torch.Tensor, Cout: int) -> str:
     if x.dtype == torch.float32:
         return "fma"
     return "wgmma" if Cout % 8 == 0 else "mma_sync"
+
+
+def dw_route(x: torch.Tensor, Cout: int) -> str:
+    """K1B's dW pass for ``x (B, L, Cin)`` and Cout output channels (its
+    dy is a fresh, aligned buffer): "wgmma" (fed by TMA) when TMA can map
+    both x and dy (bf16, :func:`conv_route` "wgmma" and Cout % 8 == 0),
+    "mma_sync" for other bf16, "fma" for f32."""
+    if x.dtype == torch.float32:
+        return "fma"
+    if conv_route(x) == "wgmma" and Cout % 8 == 0:
+        return "wgmma"
+    return "mma_sync"
 
 
 def _check(x, W, b, gn_scale, gn_bias, groups):
@@ -400,7 +430,7 @@ def _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups: int,
                 if route == "wgmma" else None)
     wt_packed = (torch.empty(pack_shape(Cout, Cin), **bf)
                  if route_dx == "wgmma" else None)
-    dw_part = torch.empty((-(-(B * L) // run), 3, Cin, Cout), **f32)
+    dw_part = torch.empty((dw_runs(B, L, Cin, Cout), 3, Cin, Cout), **f32)
     with torch.cuda.device(dev):
         rc = lib.conv_gn_silu_backward(
             dout.data_ptr(), x.data_ptr(), W.data_ptr(), b.data_ptr(),

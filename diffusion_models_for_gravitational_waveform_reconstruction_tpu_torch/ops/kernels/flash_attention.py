@@ -20,7 +20,8 @@ is the plain backward, the gradients K2B computes, which the CPU path takes
 and the card checks against, and :func:`flash_attention_backward_tiled` is
 K2B's algorithm written out step by step for the CPU tests.  K2B's routes
 (:func:`backward_route`): ``wgmma`` for bf16 with D 64 or 128 on 16-byte
-aligned rows, ``mma_sync`` for other bf16, ``fma`` for f32.
+aligned rows (a TMA ring fed by a producer warpgroup, two consumer
+warpgroups), ``mma_sync`` for other bf16, ``fma`` for f32.
 
 The kernel takes one of three routes, chosen from the inputs alone
 (:func:`attention_route`, inside the op's CUDA body): bf16 with D 64 or
@@ -90,8 +91,12 @@ def flash_attention_backward(dout, q, k, v, out):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# K2B's tiles (query rows or keys), which the step-by-step version repeats
-BACKWARD_TILE = 64
+# K2B's tiles, which the step-by-step version repeats: a CTA owns 128 keys
+# (dK, dV) or 128 queries (dQ) and walks the other side in tiles of 64; the
+# log-sum-exp pass walks the keys in tiles of 128.  The lse and delta
+# scratch has a row for every query of the 128-row tiles.
+BACKWARD_TILE = 128
+BACKWARD_WALK = 64
 LOG2E = 1.4426950408889634
 
 
@@ -100,15 +105,15 @@ def flash_attention_backward_tiled(dout, q, k, v, out):
     :func:`flash_attention_backward` as the kernel forms them.
 
     delta = rowsum(dO * O) in f32; the log-sum-exp of the scores in log2
-    units by an online pass over the key tiles; per key tile, over the
-    query tiles, P^T = exp2(S^T c - lse), dV += P^T dO and dK += dS^T Q with
-    dS^T = P^T (dP^T - delta); per query tile, over the key tiles, dQ += dS
-    K; every product in f32 on operands in q's dtype, P and dS rounded to
-    bf16 where the kernel rounds them (the A operands of dV, dK and dQ) for
-    bf16 inputs; dK and dQ times 1 / sqrt(D).  Returns (dq, dk, dv) in q's
-    dtype."""
+    units by an online pass over key tiles of 128; per tile of 128 keys,
+    over the query tiles of 64, P^T = exp2(S^T c - lse), dV += P^T dO and
+    dK += dS^T Q with dS^T = P^T (dP^T - delta); per tile of 128 queries,
+    over the key tiles of 64, dQ += dS K; every product in f32 on operands
+    in q's dtype, P and dS rounded to bf16 where the kernel rounds them
+    (the A operands of dV, dK and dQ) for bf16 inputs; dK and dQ times
+    1 / sqrt(D).  Returns (dq, dk, dv) in q's dtype."""
     B, H, L, D = q.shape
-    tile = BACKWARD_TILE
+    own, walk = BACKWARD_TILE, BACKWARD_WALK
     scale = 1.0 / math.sqrt(D)
     c = LOG2E * scale
     if q.dtype == torch.bfloat16:
@@ -121,33 +126,33 @@ def flash_attention_backward_tiled(dout, q, k, v, out):
     delta = (dof * out.float()).sum(dim=-1)
     m = torch.full((B, H, L), -math.inf, device=q.device)
     lsum = torch.zeros((B, H, L), device=q.device)
-    for k0 in range(0, L, tile):
-        x = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * c
+    for k0 in range(0, L, own):
+        x = (qf @ kf[:, :, k0:k0 + own].transpose(-1, -2)) * c
         mn = torch.maximum(m, x.amax(dim=-1))
         lsum = lsum * torch.exp2(m - mn) + torch.exp2(x - mn[..., None]).sum(-1)
         m = mn
     lse = m + torch.log2(lsum)
     dq, dk, dv = (torch.zeros((B, H, L, D), device=q.device)
                   for _ in range(3))
-    for k0 in range(0, L, tile):
-        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
-        for q0 in range(0, L, tile):
-            qt, dot = qf[:, :, q0:q0 + tile], dof[:, :, q0:q0 + tile]
+    for k0 in range(0, L, own):
+        kt, vt = kf[:, :, k0:k0 + own], vf[:, :, k0:k0 + own]
+        for q0 in range(0, L, walk):
+            qt, dot = qf[:, :, q0:q0 + walk], dof[:, :, q0:q0 + walk]
             pt = torch.exp2((kt @ qt.transpose(-1, -2)) * c
-                            - lse[:, :, None, q0:q0 + tile])
-            dv[:, :, k0:k0 + tile] += rnd(pt) @ dot
+                            - lse[:, :, None, q0:q0 + walk])
+            dv[:, :, k0:k0 + own] += rnd(pt) @ dot
             dst = pt * (vt @ dot.transpose(-1, -2)
-                        - delta[:, :, None, q0:q0 + tile])
-            dk[:, :, k0:k0 + tile] += rnd(dst) @ qt
-    for q0 in range(0, L, tile):
-        qt, dot = qf[:, :, q0:q0 + tile], dof[:, :, q0:q0 + tile]
-        for k0 in range(0, L, tile):
-            kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+                        - delta[:, :, None, q0:q0 + walk])
+            dk[:, :, k0:k0 + own] += rnd(dst) @ qt
+    for q0 in range(0, L, own):
+        qt, dot = qf[:, :, q0:q0 + own], dof[:, :, q0:q0 + own]
+        for k0 in range(0, L, walk):
+            kt, vt = kf[:, :, k0:k0 + walk], vf[:, :, k0:k0 + walk]
             p = torch.exp2((qt @ kt.transpose(-1, -2)) * c
-                           - lse[:, :, q0:q0 + tile, None])
+                           - lse[:, :, q0:q0 + own, None])
             ds = p * (dot @ vt.transpose(-1, -2)
-                      - delta[:, :, q0:q0 + tile, None])
-            dq[:, :, q0:q0 + tile] += rnd(ds) @ kt
+                      - delta[:, :, q0:q0 + own, None])
+            dq[:, :, q0:q0 + own] += rnd(ds) @ kt
     return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
             dv.to(v.dtype))
 
@@ -193,13 +198,15 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   dout: torch.Tensor) -> str:
+                   dout: torch.Tensor, out: torch.Tensor | None = None) -> str:
     """K2B's route: "fma" for f32; for bf16, "wgmma" when D is 64 or 128,
-    q, k, v and dout start on 16-byte boundaries and dout's rows, heads and
-    samples lie multiples of 8 elements apart, else "mma_sync"."""
+    q, k, v, dout (and the forward's output ``out``, when given) start on
+    16-byte boundaries and dout's rows, heads and samples lie multiples of
+    8 elements apart, else "mma_sync"."""
     if q.dtype == torch.float32:
         return "fma"
-    aligned = all(a.data_ptr() % 16 == 0 for a in (q, k, v, dout))
+    given = [a for a in (q, k, v, dout, out) if a is not None]
+    aligned = all(a.data_ptr() % 16 == 0 for a in given)
     strides = all(n % 8 == 0 for n in dout.stride()[:3])
     if q.shape[-1] in WGMMA_HEAD_DIMS and aligned and strides:
         return "wgmma"
@@ -252,7 +259,8 @@ def _launch_backward(dout, q, k, v, out):
     B, H, L, D = q.shape
     lib = _bwd_lib()
     dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
-    lse, delta = (torch.empty((B * H, L), dtype=torch.float32,
+    rows = -(-L // BACKWARD_TILE) * BACKWARD_TILE
+    lse, delta = (torch.empty((B * H, rows), dtype=torch.float32,
                               device=q.device) for _ in range(2))
     sb, sh, sl, _ = dout.stride()
     with torch.cuda.device(q.device):
@@ -260,7 +268,7 @@ def _launch_backward(dout, q, k, v, out):
             dout.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), B, H, L, D, sb, sh, sl,
-            ROUTES[backward_route(q, k, v, dout)],
+            ROUTES[backward_route(q, k, v, dout, out)],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention_backward launch failed: "

@@ -60,7 +60,7 @@ from ..ops.kernels import (attention_route, conv_route, flash_attention,
                            fused_conv_gn_silu_backward,
                            fused_conv_gn_silu_grad,
                            fused_conv_gn_silu_reference)
-from ..ops.kernels.conv_gn_silu import dx_route
+from ..ops.kernels.conv_gn_silu import dw_route, dx_route
 from ..ops.kernels.flash_attention import backward_route
 from ..utils.device import resolve_device
 from ..utils.roofline import bound_ms, peak_for
@@ -296,6 +296,7 @@ def conv_backward_row(dout, x, W, b, s, bb, G: int, reps: int = REPS,
     nbytes = (2 * x.numel() * esize + dout.numel() * esize
               + 2 * (W.numel() + 3 * Cout) * 4)
     return {"route": conv_route(x), "dx_route": dx_route(x, Cout),
+            "dw_route": dw_route(x, Cout),
             **_backward_row(
         fused_conv_gn_silu_grad, fused_conv_gn_silu_backward,
         lambda: fused_conv_gn_silu_backward(
@@ -320,7 +321,7 @@ def attention_backward_row(dout, q, k, v, reps: int = REPS,
     args = (dout, q, k, v, o)
     ins = [a.detach().clone().requires_grad_() for a in (q, k, v)]
     out = F.scaled_dot_product_attention(*ins)
-    return {"route": backward_route(q, k, v, dout), **_backward_row(
+    return {"route": backward_route(q, k, v, dout, o), **_backward_row(
         flash_attention_grad, flash_attention_backward,
         lambda: flash_attention_backward(*(a.float() for a in args)),
         lambda: torch.autograd.grad(out, ins, dout, retain_graph=True),

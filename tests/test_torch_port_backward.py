@@ -76,8 +76,12 @@ def test_k1b_passes_match_jax_vjp(dtype, B, L, Cin, Cout, G):
     _assert_grads_close(got, want, dtype, zero=(2,) if Cout == G else ())
 
 
+# L ragged across the 128-row tiles (130, 200), below one tile (50), and
+# D 128 (two 64-column boxes)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,L,D", [(1, 2, 100, 16), (2, 2, 130, 64)])
+@pytest.mark.parametrize("B,H,L,D", [(1, 2, 100, 16), (2, 2, 130, 64),
+                                     (1, 2, 200, 32), (2, 1, 50, 64),
+                                     (1, 2, 150, 128)])
 def test_k2b_tiled_matches_jax_vjp(dtype, B, H, L, D):
     rng = np.random.default_rng(L + D)
     q, k, v, dout = (torch.from_numpy(rng.standard_normal(
@@ -133,14 +137,20 @@ def test_sum_rows_takes_the_kernel_order():
     np.testing.assert_array_equal(got, want)
 
 
+# a run is whole dW tiles of 64 rows of one sample: L ragged across them
+# over several samples (3, 100), attn16k's widest blocks on the wgmma route
 @pytest.mark.parametrize("B,L,Cin,Cout", [(16, 32768, 7, 64),
                                           (16, 4096, 256, 256),
-                                          (1, 1, 7, 8), (2, 130, 7, 16)])
+                                          (1, 1, 7, 8), (2, 130, 7, 16),
+                                          (3, 100, 64, 64),
+                                          (16, 8192, 512, 256)])
 def test_dw_runs_cover_the_rows(B, L, Cin, Cout):
     run = k1.dw_run(B, L, Cin, Cout)
-    n_runs = -(-(B * L) // run)
+    per_run, tiles = run // k1.DW_STEP, k1.dw_tiles(B, L)
+    n_runs = k1.dw_runs(B, L, Cin, Cout)
+    assert tiles == B * -(-L // k1.DW_STEP)
     assert run % k1.DW_STEP == 0 and 1 <= n_runs <= 65535
-    assert (n_runs - 1) * run < B * L <= n_runs * run
+    assert (n_runs - 1) * per_run < tiles <= n_runs * per_run
     assert n_runs * 12 * Cin * Cout <= max(k1.DW_PART_BYTES, 12 * Cin * Cout)
 
 
@@ -176,8 +186,32 @@ def test_k2b_route_follows_dtype_width_and_alignment():
     unaligned = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16)[1:]
     unaligned = unaligned.view(1, 2, 64, 64)
     assert k2.backward_route(q, q, q, unaligned) == "mma_sync"
+    # the forward's output is read by 16-byte rows too
+    assert k2.backward_route(q, q, q, q, out=q) == "wgmma"
+    assert k2.backward_route(q, q, q, q, out=unaligned) == "mma_sync"
     wide = torch.zeros(1, 2, 64, 256, dtype=torch.bfloat16)
     assert k2.backward_route(wide, wide, wide, wide) == "mma_sync"
+    # D 128 takes the TMA pipeline too, its dout transposed or not
+    d128 = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
+    assert k2.backward_route(d128, d128, d128, d128) == "wgmma"
+    assert k2.backward_route(d128, d128, d128, d128.transpose(1, 2)
+                             .contiguous().transpose(1, 2)) == "wgmma"
+    # a dout sliced from a wider tensor: rows 2 D apart, still multiples of 8
+    sliced = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)[..., :64]
+    assert k2.backward_route(q, q, q, sliced) == "wgmma"
+
+
+def test_k1b_dw_route_follows_dtype_and_widths():
+    # dW on wgmma where TMA maps both x and dy (Cin % 8 == 0, Cout % 8 ==
+    # 0); the input block's 7 channels keep mma.sync; f32 the FMA units
+    x = torch.zeros(1, 64, 16, dtype=torch.bfloat16)
+    assert k1.dw_route(x, 24) == "wgmma"
+    assert k1.dw_route(x, 12) == "mma_sync"
+    assert k1.dw_route(torch.zeros(1, 64, 7, dtype=torch.bfloat16),
+                       64) == "mma_sync"
+    assert k1.dw_route(x.float(), 64) == "fma"
+    unaligned = torch.zeros(1 * 64 * 16 + 1, dtype=torch.bfloat16)[1:]
+    assert k1.dw_route(unaligned.view(1, 64, 16), 64) == "mma_sync"
 
 
 def test_backward_wrappers_refuse_other_devices():

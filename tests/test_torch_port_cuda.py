@@ -609,12 +609,13 @@ def test_flash_attention_backward_matches_plain_backward(cuda, dtype, D):
 # K1B's edges: one channel a group (C 8), a tensor-parallel rank's share
 # (Cout 64 / 2, 8 / 2 groups), L ragged across the 64-row tiles with Cin 40
 # and Cout 24 (a 64-channel dx tile masked past 40), a dout that is a
-# channel slice (row stride 2 Cout), B 1 at L 1
+# channel slice (row stride 2 Cout), B 1 at L 1, and dW's tiles ragged in
+# each of three samples (the wgmma route's TMA boxes at the samples' edges)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,Cin,Cout,G,sliced", [
     (2, 200, 16, 8, 8, False), (2, 256, 64, 32, 4, False),
     (1, 333, 40, 24, 8, False), (2, 130, 7, 16, 8, True),
-    (1, 1, 8, 16, 8, False)])
+    (1, 1, 8, 16, 8, False), (3, 100, 64, 64, 8, False)])
 def test_conv_gn_silu_backward_kernel_edges(cuda, dtype, B, L, Cin, Cout, G,
                                             sliced):
     """K1B alone: one launch a call, two calls bit-equal, every gradient
@@ -626,18 +627,24 @@ def test_conv_gn_silu_backward_kernel_edges(cuda, dtype, B, L, Cin, Cout, G,
                        device=cuda).to(dtype)[..., :Cout]
     assert dout.is_contiguous() != sliced
     row = conv_backward_row(dout, x, W, b, s, bb, G, reps=0)
+    assert row["dw_route"] == ("fma" if dtype == torch.float32 else
+                               "wgmma" if Cin % 8 == 0 and Cout % 8 == 0
+                               else "mma_sync")
     assert row["launches_per_call"] == 1 and row["deterministic"]
     assert row["within_tol"], row
 
 
-# K2B's edges: L ragged across the 64-row tiles, D 16 (the 32 template
-# padded), 65 (rows not 16-byte aligned) and 256 (four column chunks), L 1,
-# a dout transposed as the U-Net hands it back; bf16 D 64 and 128 take the
-# wgmma route, the others mma.sync
+# K2B's edges: L ragged across the tiles, D 16 (the 32 template padded), 65
+# (rows not 16-byte aligned) and 256 (four column chunks), L 1, a dout
+# transposed as the U-Net hands it back; the ragged lengths of the tiled
+# reconstruction (2110) and of the kernel phase (4000) at 2 heads; bf16 D 64
+# and 128 take the wgmma route, the others mma.sync; two calls bit-equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,L,D,transposed", [
     (2, 2, 300, 64, True), (1, 2, 100, 16, False), (1, 2, 777, 65, True),
-    (1, 2, 200, 256, False), (2, 2, 1, 64, False), (1, 2, 333, 128, False)])
+    (1, 2, 200, 256, False), (2, 2, 1, 64, False), (1, 2, 333, 128, False),
+    (2, 2, 2110, 64, True), (1, 2, 4000, 64, True),
+    (1, 2, 2110, 128, True)])
 def test_flash_attention_backward_kernel_edges(cuda, dtype, B, H, L, D,
                                                transposed):
     """K2B alone: one launch a call, two calls bit-equal, every gradient
