@@ -41,6 +41,7 @@ from ..ops.kernels import (conv3_same, flash_attention,
                            fused_conv_gn_silu_reference, group_norm)
 from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 
 @contextlib.contextmanager
@@ -258,32 +259,33 @@ class BottleneckAttention(nn.Module):
                 and self.heads % n_model == 0)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        B, L, C = h.shape
-        x = group_norm(h, self.groups, self.norm.scale,
-                       self.norm.bias).to(h.dtype)
-        tp = self.tp
-        n, m = (1, 0) if tp is None else (tp.n_model, tp.model_rank)
-        heads, c = self.heads // n, C // n
+        with span("unet/attn"):
+            B, L, C = h.shape
+            x = group_norm(h, self.groups, self.norm.scale,
+                           self.norm.bias).to(h.dtype)
+            tp = self.tp
+            n, m = (1, 0) if tp is None else (tp.n_model, tp.model_rank)
+            heads, c = self.heads // n, C // n
 
-        def split_heads(a):
-            return (a.reshape(B, L, heads, c // heads)
-                    .transpose(1, 2).contiguous())
+            def split_heads(a):
+                return (a.reshape(B, L, heads, c // heads)
+                        .transpose(1, 2).contiguous())
 
-        if tp is None:
-            qkv = self.qkv(x)
-        else:
-            # this rank's columns of q, of k and of v
-            sl = slice(m * c, (m + 1) * c)
-            w = self.qkv.kernel.view(C, 3, C)[:, :, sl].reshape(C, 3 * c)
-            b = self.qkv.bias.view(3, C)[:, sl].reshape(3 * c)
-            qkv = self.qkv.dot(pmesh.copy_to_model(tp, x), w, b)
-        q, k, v = (split_heads(a) for a in qkv.chunk(3, dim=-1))
-        out = flash_attention(q, k, v).transpose(1, 2).reshape(B, L, c)
-        if tp is None:
-            return h + self.proj(out)
-        part = self.proj.dot(out, self.proj.kernel[m * c:(m + 1) * c])
-        return h + (pmesh.reduce_from_model(tp, part)
-                    + self.proj.bias.to(self.proj.dtype))
+            if tp is None:
+                qkv = self.qkv(x)
+            else:
+                # this rank's columns of q, of k and of v
+                sl = slice(m * c, (m + 1) * c)
+                w = self.qkv.kernel.view(C, 3, C)[:, :, sl].reshape(C, 3 * c)
+                b = self.qkv.bias.view(3, C)[:, sl].reshape(3 * c)
+                qkv = self.qkv.dot(pmesh.copy_to_model(tp, x), w, b)
+            q, k, v = (split_heads(a) for a in qkv.chunk(3, dim=-1))
+            out = flash_attention(q, k, v).transpose(1, 2).reshape(B, L, c)
+            if tp is None:
+                return h + self.proj(out)
+            part = self.proj.dot(out, self.proj.kernel[m * c:(m + 1) * c])
+            return h + (pmesh.reduce_from_model(tp, part)
+                        + self.proj.bias.to(self.proj.dtype))
 
 
 def _resize_linear(x: torch.Tensor, new_len: int) -> torch.Tensor:
@@ -419,49 +421,57 @@ class UNet1D(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, L); t: (B,) integer timesteps.  Returns the
         single-channel prediction (B, 1, L), float32."""
-        _, cond_ch = self._layout()
-        cdt = self.dtype or torch.float32
-        x = x.transpose(1, 2).to(cdt).contiguous()
-        L0 = x.shape[1]
+        with span("unet/forward"):
+            _, cond_ch = self._layout()
+            cdt = self.dtype or torch.float32
+            x = x.transpose(1, 2).to(cdt).contiguous()
+            L0 = x.shape[1]
 
-        t_emb = self.time_embedding(t).to(cdt)
-        t_ctx = F.silu(self.time_dense(t_emb))
-        x_t = x[:, :, :1]
-        cond = x[:, :, 1:1 + cond_ch] if cond_ch > 0 else None
+            t_emb = self.time_embedding(t).to(cdt)
+            t_ctx = F.silu(self.time_dense(t_emb))
+            x_t = x[:, :, :1]
+            cond = x[:, :, 1:1 + cond_ch] if cond_ch > 0 else None
 
-        def film(h, name):
-            tv = getattr(self, name)(F.silu(t_ctx))
-            gamma, beta = tv.chunk(2, dim=-1)
-            return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
+            def film(h, name):
+                with span("unet/film"):
+                    tv = getattr(self, name)(F.silu(t_ctx))
+                    gamma, beta = tv.chunk(2, dim=-1)
+                    return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
 
-        def cond_bias(h, name):
-            if cond is None:
-                return h
-            return h + getattr(self, name)(_resize_linear(cond, h.shape[1]))
+            def cond_bias(h, name):
+                if cond is None:
+                    return h
+                with span("unet/cond_bias"):
+                    return h + getattr(self, name)(_resize_linear(cond,
+                                                                  h.shape[1]))
 
-        skips = []
-        h = x
-        for i in range(self.depth):
-            h = getattr(self, f"enc{i}")(h)
-            h = film(cond_bias(h, f"cond_enc{i}"), f"tproj_enc{i}")
-            skips.append(h)
-            B, L, C = h.shape
-            h = h[:, :L // 2 * 2].reshape(B, L // 2, 2, C).mean(dim=2)
+            skips = []
+            h = x
+            for i in range(self.depth):
+                h = getattr(self, f"enc{i}")(h)
+                h = film(cond_bias(h, f"cond_enc{i}"), f"tproj_enc{i}")
+                skips.append(h)
+                with span("unet/resample"):
+                    B, L, C = h.shape
+                    h = h[:, :L // 2 * 2].reshape(B, L // 2, 2, C).mean(dim=2)
 
-        h = self.mid(h)
-        h = film(cond_bias(h, "cond_mid"), "tproj_mid")
-        if self.use_attention:
-            h = self.mid_attn(h)
+            h = self.mid(h)
+            h = film(cond_bias(h, "cond_mid"), "tproj_mid")
+            if self.use_attention:
+                h = self.mid_attn(h)
 
-        for i in range(self.depth):
-            skip = skips[-(i + 1)]
-            h = _fix_len(h.repeat_interleave(2, dim=1), skip.shape[1])
-            h = getattr(self, f"dec{i}")(torch.cat([h, skip], dim=-1))
-            h = film(cond_bias(h, f"cond_dec{i}"), f"tproj_dec{i}")
+            for i in range(self.depth):
+                with span("unet/resample"):
+                    skip = skips[-(i + 1)]
+                    h = torch.cat([_fix_len(h.repeat_interleave(2, dim=1),
+                                            skip.shape[1]), skip], dim=-1)
+                h = getattr(self, f"dec{i}")(h)
+                h = film(cond_bias(h, f"cond_dec{i}"), f"tproj_dec{i}")
 
-        h = torch.cat([_fix_len(h, L0), x_t], dim=-1)
-        out = conv3_same(h, self.final.kernel.to(cdt), self.final.bias.to(cdt))
-        return out.to(torch.float32).transpose(1, 2)
+            h = torch.cat([_fix_len(h, L0), x_t], dim=-1)
+            out = conv3_same(h, self.final.kernel.to(cdt),
+                             self.final.bias.to(cdt))
+            return out.to(torch.float32).transpose(1, 2)
 
 
 def build_net_input(x_t: torch.Tensor, cond_stack: Optional[torch.Tensor],

@@ -27,6 +27,7 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .kernels._op import NAMESPACE
 from .schedules import (
     DiffusionSchedule,
@@ -268,18 +269,25 @@ def _net_in(x_t, cond, sc, use_selfcond):
     return torch.cat([x_t, cond] + ([sc] if use_selfcond else []), dim=1)
 
 
-def _forward_out(model_fn, x_t, t_b, cond_used, cond_u, x0_sc, cfg,
-                 need_uncond, cu, cc):
-    """One (possibly CFG-combined) model forward; cond and uncond run as one
-    doubled batch."""
-    B = x_t.shape[0]
-    if need_uncond:
-        net_c = _net_in(x_t, cond_used, x0_sc, cfg.use_selfcond)
-        net_u = _net_in(x_t, cond_u, x0_sc, cfg.use_selfcond)
-        out2 = model_fn(torch.cat([net_c, net_u], dim=0),
-                        torch.cat([t_b, t_b], dim=0))
-        return float(cu) * out2[B:] + float(cc) * out2[:B]
-    return model_fn(_net_in(x_t, cond_used, x0_sc, cfg.use_selfcond), t_b)
+def _forward_out(model_fn, lad, i, x_t, x0_sc, cond_used, cond_u, cfg):
+    """Ladder step ``i``'s network input and its (possibly CFG-combined)
+    model forward; cond and uncond run as one doubled batch.  Returns the
+    clamped ``(x_t, x0_sc)`` and the output."""
+    with span("sampler/net_in"):
+        x_t, x0_sc = _clamped(x_t, x0_sc, cfg)
+        B = x_t.shape[0]
+        t_b = torch.full((B,), int(lad.t[i]), dtype=torch.int64,
+                         device=x_t.device)
+        net = _net_in(x_t, cond_used, x0_sc, cfg.use_selfcond)
+        if lad.need_uncond:
+            net = torch.cat([net, _net_in(x_t, cond_u, x0_sc,
+                                          cfg.use_selfcond)], dim=0)
+            t_b = torch.cat([t_b, t_b], dim=0)
+    out = model_fn(net, t_b)
+    if lad.need_uncond:
+        with span("sampler/guide"):
+            out = float(lad.cu[i]) * out[B:] + float(lad.cc[i]) * out[:B]
+    return x_t, x0_sc, out
 
 
 def _x0_eps_from_out(out, x_t, ab_t: np.float32, cfg: SamplerConfig):
@@ -363,13 +371,16 @@ def _x0_post(x0_hat, y_chan, x0_sc, cfg):
 
 
 def _start(schedule, cfg, cond_stack, noise, clean_norm, x0_std_est, ab_hi):
-    B, _, L = cond_stack.shape
-    lad = _Ladder(schedule, cfg, ab_hi)
-    y_chan, cond_used, cond_u = _prepare_cond(cond_stack, cfg)
-    x0_std = cfg.x0_std_est if x0_std_est is None else x0_std_est
-    x = _init_x(cfg, noise, B, L, lad.ab_start, y_chan, x0_std, clean_norm,
-                cond_stack.dtype, cond_stack.device)
-    return lad, y_chan, cond_used, cond_u, x
+    """The ladder, the conditioning, x_T and a zero self-conditioning
+    input."""
+    with span("sampler/start"):
+        B, _, L = cond_stack.shape
+        lad = _Ladder(schedule, cfg, ab_hi)
+        y_chan, cond_used, cond_u = _prepare_cond(cond_stack, cfg)
+        x0_std = cfg.x0_std_est if x0_std_est is None else x0_std_est
+        x = _init_x(cfg, noise, B, L, lad.ab_start, y_chan, x0_std,
+                    clean_norm, cond_stack.dtype, cond_stack.device)
+        return lad, y_chan, cond_used, cond_u, x, torch.zeros_like(x)
 
 
 @torch.no_grad()
@@ -387,32 +398,33 @@ def ddim_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
     ``corr``, ``xcorr_lag``, ``lag``, ``x_rms``, ``x0_rms``, ``eps_rms``
     (N, B), as the JAX sampler's."""
     noise = _noise_source(noise)
-    B = cond_stack.shape[0]
     dtype, device = cond_stack.dtype, cond_stack.device
-    lad, y_chan, cond_used, cond_u, x = _start(
+    lad, y_chan, cond_used, cond_u, x, sc = _start(
         schedule, cfg, cond_stack, noise, clean_norm, x0_std_est, 1.0)
-    sc = torch.zeros_like(x)
     one, zero, eta = _f32(1.0), _f32(0.0), _f32(cfg.eta)
     steps = []
     for i in range(lad.N):
-        x, sc = _clamped(x, sc, cfg)
-        t_b = torch.full((B,), int(lad.t[i]), dtype=torch.int64, device=device)
-        ab_t, ab_prev = lad.ab_t[i], lad.ab_prev[i]
-        out = _forward_out(model_fn, x, t_b, cond_used, cond_u, sc, cfg,
-                           lad.need_uncond, lad.cu[i], lad.cc[i])
-        x0_hat, eps_hat = _x0_eps_from_out(out, x, ab_t, cfg)
-        x0_hat, sc_next = _x0_post(x0_hat, y_chan, sc, cfg)
-        sigma_t = eta * np.sqrt(
-            np.maximum((one - ab_prev) / (one - ab_t), zero)
-            * np.maximum(one - ab_t / ab_prev, zero))
-        c_dir = np.sqrt(np.maximum(one - ab_prev - sigma_t * sigma_t, zero))
-        x_next = float(np.sqrt(ab_prev)) * x0_hat + float(c_dir) * eps_hat
-        if cfg.eta > 0:
-            x_next = x_next + float(sigma_t) * noise.step(i, tuple(x.shape),
-                                                          dtype, device)
-        if collect_diagnostics:
-            steps.append(_step_diagnostics(x_next, y_chan, x0_hat, eps_hat))
-        x, sc = x_next, sc_next
+        with span("sampler/step"):
+            x, sc, out = _forward_out(model_fn, lad, i, x, sc, cond_used,
+                                      cond_u, cfg)
+            with span("sampler/update"):
+                ab_t, ab_prev = lad.ab_t[i], lad.ab_prev[i]
+                x0_hat, eps_hat = _x0_eps_from_out(out, x, ab_t, cfg)
+                x0_hat, sc = _x0_post(x0_hat, y_chan, sc, cfg)
+                sigma_t = eta * np.sqrt(
+                    np.maximum((one - ab_prev) / (one - ab_t), zero)
+                    * np.maximum(one - ab_t / ab_prev, zero))
+                c_dir = np.sqrt(np.maximum(one - ab_prev - sigma_t * sigma_t,
+                                           zero))
+                x_next = (float(np.sqrt(ab_prev)) * x0_hat
+                          + float(c_dir) * eps_hat)
+                if cfg.eta > 0:
+                    x_next = x_next + float(sigma_t) * noise.step(
+                        i, tuple(x.shape), dtype, device)
+            if collect_diagnostics:
+                steps.append(_step_diagnostics(x_next, y_chan, x0_hat,
+                                               eps_hat))
+            x = x_next
     if not collect_diagnostics:
         return x
     diag = {"t": lad.t.astype(np.int32), "alpha_bar": lad.ab_t,
@@ -430,30 +442,29 @@ def ddpm_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
     """Ancestral DDPM over the (possibly strided) ladder, with the exact
     posterior q(x_s | x_t, x0_hat); the last step returns x0_hat."""
     noise = _noise_source(noise)
-    B = cond_stack.shape[0]
     dtype, device = cond_stack.dtype, cond_stack.device
-    lad, y_chan, cond_used, cond_u, x = _start(
+    lad, y_chan, cond_used, cond_u, x, sc = _start(
         schedule, cfg, cond_stack, noise, clean_norm, x0_std_est, 1.0)
-    sc = torch.zeros_like(x)
     one, zero = _f32(1.0), _f32(0.0)
     for i in range(lad.N):
-        x, sc = _clamped(x, sc, cfg)
-        t_b = torch.full((B,), int(lad.t[i]), dtype=torch.int64, device=device)
-        ab_t, ab_prev = lad.ab_t[i], lad.ab_prev[i]
-        out = _forward_out(model_fn, x, t_b, cond_used, cond_u, sc, cfg,
-                           lad.need_uncond, lad.cu[i], lad.cc[i])
-        x0_hat, _ = _x0_eps_from_out(out, x, ab_t, cfg)
-        x0_hat, sc_next = _x0_post(x0_hat, y_chan, sc, cfg)
-        denom = np.maximum(one - ab_t, _f32(1e-12))
-        coef0 = np.sqrt(ab_prev) * (one - ab_t / ab_prev) / denom
-        coeft = np.sqrt(ab_t / ab_prev) * (one - ab_prev) / denom
-        var = np.maximum((one - ab_prev) / denom * (one - ab_t / ab_prev), zero)
-        z = noise.step(i, tuple(x.shape), dtype, device)
-        if i == lad.N - 1:
-            x = x0_hat
-        else:
-            x = (float(coef0) * x0_hat + float(coeft) * x) + float(np.sqrt(var)) * z
-        sc = sc_next
+        with span("sampler/step"):
+            x, sc, out = _forward_out(model_fn, lad, i, x, sc, cond_used,
+                                      cond_u, cfg)
+            with span("sampler/update"):
+                ab_t, ab_prev = lad.ab_t[i], lad.ab_prev[i]
+                x0_hat, _ = _x0_eps_from_out(out, x, ab_t, cfg)
+                x0_hat, sc = _x0_post(x0_hat, y_chan, sc, cfg)
+                denom = np.maximum(one - ab_t, _f32(1e-12))
+                coef0 = np.sqrt(ab_prev) * (one - ab_t / ab_prev) / denom
+                coeft = np.sqrt(ab_t / ab_prev) * (one - ab_prev) / denom
+                var = np.maximum((one - ab_prev) / denom
+                                 * (one - ab_t / ab_prev), zero)
+                z = noise.step(i, tuple(x.shape), dtype, device)
+                if i == lad.N - 1:
+                    x = x0_hat
+                else:
+                    x = ((float(coef0) * x0_hat + float(coeft) * x)
+                         + float(np.sqrt(var)) * z)
     return x
 
 
@@ -466,9 +477,7 @@ def dpmpp_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
     lambda = log(alpha / sigma), one forward per step; first order at the
     first step and at the last (which lands on x0).  ``eta`` is ignored."""
     noise = _noise_source(noise)
-    B = cond_stack.shape[0]
-    device = cond_stack.device
-    lad, y_chan, cond_used, cond_u, x = _start(
+    lad, y_chan, cond_used, cond_u, x, sc = _start(
         schedule, cfg, cond_stack, noise, clean_norm, x0_std_est, 1.0 - 1e-12)
     N = lad.N
     alpha = np.sqrt(lad.ab_t64)
@@ -489,18 +498,17 @@ def dpmpp_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
     b_cur = (1.0 - b_old).astype(np.float32)
     b_old = b_old.astype(np.float32)
 
-    sc = torch.zeros_like(x)
     x0_old = torch.zeros_like(x)
     for i in range(N):
-        x, sc = _clamped(x, sc, cfg)
-        t_b = torch.full((B,), int(lad.t[i]), dtype=torch.int64, device=device)
-        out = _forward_out(model_fn, x, t_b, cond_used, cond_u, sc, cfg,
-                           lad.need_uncond, lad.cu[i], lad.cc[i])
-        x0_hat, _ = _x0_eps_from_out(out, x, lad.ab_t[i], cfg)
-        x0_hat, sc = _x0_post(x0_hat, y_chan, sc, cfg)
-        d = float(b_cur[i]) * x0_hat + float(b_old[i]) * x0_old
-        x = float(c_x[i]) * x + float(c_d[i]) * d
-        x0_old = x0_hat
+        with span("sampler/step"):
+            x, sc, out = _forward_out(model_fn, lad, i, x, sc, cond_used,
+                                      cond_u, cfg)
+            with span("sampler/update"):
+                x0_hat, _ = _x0_eps_from_out(out, x, lad.ab_t[i], cfg)
+                x0_hat, sc = _x0_post(x0_hat, y_chan, sc, cfg)
+                d = float(b_cur[i]) * x0_hat + float(b_old[i]) * x0_old
+                x = float(c_x[i]) * x + float(c_d[i]) * d
+                x0_old = x0_hat
     return x
 
 

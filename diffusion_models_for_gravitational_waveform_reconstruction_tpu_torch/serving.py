@@ -46,6 +46,7 @@ from .ops.sampling import (SAMPLERS, RankNoise, SamplerConfig, SeededNoise,
                            aggregate_seeds, seeded_normal,
                            sample_with_refinement)
 from .utils.device import resolve_device
+from .utils.spans import span
 
 # the calling-convention generation of the sidecar (the JAX package's)
 CONTRACT_VERSION = 1
@@ -112,29 +113,36 @@ def build_serving_fn(schedule, cfg: SamplerConfig, *, sampler: str = "ddim",
 
     @torch.no_grad()
     def fn(model, cond_stack, sigmas, seed, noise=None, rank=None):
-        cond = torch.as_tensor(cond_stack, dtype=torch.float32, device=dev)
-        B = cond.shape[0]
-        if noise is None:
-            noise = SeededNoise(seed)
-        if dp > 1:
-            noise = RankNoise(noise, rank, dp, blocks=S)
-        cond_t = cond.repeat(S, 1, 1) if S > 1 else cond
-        x0 = sample_with_refinement(sample_fn, model, schedule, cond_t, cfg,
-                                    noise)
-        if S > 1:
-            per_seed = x0.reshape(S, B, *x0.shape[1:])
-            x0 = aggregate_seeds(per_seed, avg_mode, y_norm=cond[:, 0, :])
-        sig = torch.as_tensor(sigmas, dtype=torch.float32,
-                              device=dev).reshape(-1)
-        x0w = x0[:, 0, :] * sig[:, None]
-        if amp_calib == "mf":
-            yw = cond[:, 0, :] * sig[:, None]
-            den = torch.sum(x0w * x0w, dim=-1)
-            s = torch.sum(yw * x0w, dim=-1) / torch.clamp(den, min=1e-30)
-            s = torch.where((den > 0.0) & torch.isfinite(s), s,
-                            torch.ones_like(s))
-            x0w = x0w * s.clamp(0.25, 4.0)[:, None]
-        return x0w
+        B = len(cond_stack)
+        with span("serve/call", f"rows={B} seeds={S} steps={cfg.steps}"):
+            with span("serve/inputs"):
+                cond = torch.as_tensor(cond_stack, dtype=torch.float32,
+                                       device=dev)
+                if noise is None:
+                    noise = SeededNoise(seed)
+                if dp > 1:
+                    noise = RankNoise(noise, rank, dp, blocks=S)
+                cond_t = cond.repeat(S, 1, 1) if S > 1 else cond
+            x0 = sample_with_refinement(sample_fn, model, schedule, cond_t,
+                                        cfg, noise)
+            if S > 1:
+                with span("serve/aggregate"):
+                    per_seed = x0.reshape(S, B, *x0.shape[1:])
+                    x0 = aggregate_seeds(per_seed, avg_mode,
+                                         y_norm=cond[:, 0, :])
+            with span("serve/calibrate"):
+                sig = torch.as_tensor(sigmas, dtype=torch.float32,
+                                      device=dev).reshape(-1)
+                x0w = x0[:, 0, :] * sig[:, None]
+                if amp_calib == "mf":
+                    yw = cond[:, 0, :] * sig[:, None]
+                    den = torch.sum(x0w * x0w, dim=-1)
+                    s = torch.sum(yw * x0w, dim=-1) / torch.clamp(den,
+                                                                  min=1e-30)
+                    s = torch.where((den > 0.0) & torch.isfinite(s), s,
+                                    torch.ones_like(s))
+                    x0w = x0w * s.clamp(0.25, 4.0)[:, None]
+            return x0w
 
     return fn
 
