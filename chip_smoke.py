@@ -226,6 +226,7 @@ printing any result.
 """
 import contextlib
 import copy
+import itertools
 import json
 import os
 import shutil
@@ -410,11 +411,40 @@ def split_ms(torch, fn, passes, reps=3):
     return split
 
 
-def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
-    """K1 at each (name, L, Cin, Cout) for each (dtype, rows): the row of
+def epilogue_args(torch, epilogue, rows, L, Cout, dtype, g):
+    """K1's epilogue arguments for ``epilogue`` ("none", "film" or
+    "cond<K>", as ``LaunchShapes`` names them): FiLM's [gamma | beta] and
+    for "cond<K>" the conditioning r (rows, L, K), its first row zero as
+    the unconditional row of a CFG batch, and its Dense's Wc and bc."""
+    if epilogue == "none":
+        return {}
+    cuda = dict(generator=g, device="cuda")
+    film = (0.3 * torch.randn(rows, 2 * Cout, **cuda)).to(dtype)
+    if epilogue == "film":
+        return {"film": film}
+    K = int(epilogue[len("cond"):])
+    r = torch.randn(rows, L, K, **cuda)
+    r[0] = 0.0
+    return {"film": film, "r": r.to(dtype),
+            "Wc": torch.randn(K, Cout, **cuda) / K ** 0.5,
+            "bc": 0.1 * torch.randn(Cout, **cuda)}
+
+
+def path_epilogue(config):
+    """The epilogue K1 carries on main path ``config``, whose forwards
+    autograd does not record: the conditioning bias and FiLM."""
+    return f"cond{PATHS[config]['model']['cond_in_ch']}"
+
+
+def phase_kernel(torch, config, shapes, dtypes_rows, groups=8,
+                 epilogues=("none",)):
+    """K1 at each (name, L, Cin, Cout) for each (dtype, rows) and each of
+    ``epilogues`` (``epilogue_args``): the row of
     ``tools.bench_kernels.conv_row`` (kernel, plain and cuDNN times, the
-    bound, the error within the port's bars) plus the split by pass and the
-    floor of a two-pass kernel (its f32 y written and read once more)."""
+    bound, the error within the port's bars; with an epilogue, its inputs'
+    bytes in the bound and the error against the same steps in f32 and
+    against the plain composition) plus the split by pass and the floor of
+    a two-pass kernel (its f32 y written and read once more)."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
         conv_row,
     )
@@ -429,7 +459,8 @@ def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
     results = []
     for dtype, rows in dtypes_rows:
         dname = str(dtype).split(".")[1]
-        for name, L, Cin, Cout in shapes:
+        for (name, L, Cin, Cout), epilogue in itertools.product(shapes,
+                                                                epilogues):
             G = groups
             g = torch.Generator(device="cuda").manual_seed(L + Cin + Cout)
             x = torch.randn(rows, L, Cin, generator=g, device="cuda").to(dtype)
@@ -437,14 +468,16 @@ def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
             b, s, bb = (0.1 * torch.randn(Cout, generator=g, device="cuda")
                         for _ in range(3))
             s = s + 1.0
-            row = conv_row(x, W, b, s, bb, G, reps=5, plain_reps=3)
+            epi = epilogue_args(torch, epilogue, rows, L, Cout, dtype, g)
+            row = conv_row(x, W, b, s, bb, G, reps=5, plain_reps=3, **epi)
             split = split_ms(
-                torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G),
+                torch, lambda: fused_conv_gn_silu(x, W, b, s, bb, G, **epi),
                 K1_PASSES)
             y_bytes = 8 * rows * L * Cout      # y written and read in f32
             rec = {"phase": "kernel", "kernel": "conv_gn_silu",
                    "config": config, "block": name, "rows": rows, "L": L,
-                   "Cin": Cin, "Cout": Cout, "groups": G, **row,
+                   "Cin": Cin, "Cout": Cout, "groups": G,
+                   "epilogue": epilogue, **row,
                    "two_pass_floor_ms": bound_ms(
                        row["gflop"] * 1e9, row["mbytes"] * 1e6 + y_bytes,
                        kind, dname)[0],
@@ -452,10 +485,12 @@ def phase_kernel(torch, config, shapes, dtypes_rows, groups=8):
             emit(rec)
             results.append(rec)
             check(row["within_tol"],
-                  f"conv_gn_silu {config} {name} {dname} rows={rows}: "
-                  f"{row['n_outside_tol']} outputs outside "
-                  f"rtol={row['rtol']} atol={row['atol']}")
-            del x, W
+                  f"conv_gn_silu {config} {name} {dname} rows={rows} "
+                  f"epilogue {epilogue}: {row['n_outside_tol']} outputs "
+                  f"outside rtol={row['rtol']} atol={row['atol']}, "
+                  f"{row.get('n_outside_plain_tol', 0)} outside the plain "
+                  f"composition's bar")
+            del x, W, epi
             torch.cuda.empty_cache()
     return results
 
@@ -614,23 +649,36 @@ def phase_kernel_backward(torch):
 
 def expected_launches(model, forwards, backwards=0):
     """K1 once per ConvBlock per forward, K2 once per forward with
-    attention; K1B and K2B likewise per backward."""
+    attention; K1B and K2B likewise per backward.  The forwards without a
+    backward are the no-grad ones, whose K1 launches carry the
+    conditioning epilogue."""
     blocks = 2 * model.depth + 1
     return {"conv_gn_silu": blocks * forwards,
             "flash_attention": forwards if model.use_attention else 0,
             "conv_gn_silu_backward": blocks * backwards,
             "flash_attention_backward": (backwards if model.use_attention
-                                         else 0)}
+                                         else 0),
+            EPILOGUE: blocks * (forwards - backwards)}
 
 
 KERNEL_NAMES = ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
                 "flash_attention_backward")
+# the count of K1's launches that carried the conditioning epilogue (a
+# part of K1's count, not a kernel of its own)
+EPILOGUE = "conv_gn_silu_epilogue"
 
 
 def all_counts(want):
     """``want`` with every kernel it does not name at 0 launches: serving,
-    export and replay runs must launch no backward kernel."""
-    return {**dict.fromkeys(KERNEL_NAMES, 0), **want}
+    export and replay runs must launch no backward kernel.  Where ``want``
+    does not name the epilogue's count, it is K1's launches less K1B's: a
+    forward that autograd records has its backward, and every other
+    forward hands each block's bias and FiLM to K1 (a run whose blocks run
+    split on a model axis, which keep them apart, names its count)."""
+    out = {**dict.fromkeys(KERNEL_NAMES, 0), **want}
+    out.setdefault(EPILOGUE, out["conv_gn_silu"]
+                   - out["conv_gn_silu_backward"])
+    return out
 
 
 def check_launches(launch_counts, want, what):
@@ -3037,7 +3085,7 @@ def phase_parallel_tiles(torch, tmp, shapes):
     seen = shapes.seen
     k2_shape = ("bfloat16", PAR_ROWS, 4, PAR_TILE_W // 8, 64)
     check(k2_shape in seen["flash_attention"]
-          and ("bfloat16", PAR_ROWS, PAR_TILE_W, 7, 64, 8)
+          and ("bfloat16", PAR_ROWS, PAR_TILE_W, 7, 64, 8, "cond5")
           in seen["conv_gn_silu"],
           f"the tiled forward ran {PAR_ROWS} rows of {PAR_TILE_W}")
     torch.cuda.reset_peak_memory_stats()
@@ -3425,7 +3473,7 @@ def phase_parallel_tp(got, seconds, want_m, want_flat, want_grad, want_x0,
         check(r["timed_launches"] == all_counts({
             "conv_gn_silu": 7 * n, "flash_attention": n,
             "conv_gn_silu_backward": 7 * TP_STEPS[1],
-            "flash_attention_backward": TP_STEPS[1]}),
+            "flash_attention_backward": TP_STEPS[1], EPILOGUE: 0}),
               f"tp rank {r['rank']}: timed launches {r['timed_launches']} "
               f"for {n} forwards")
     k1 = r0["timed_launches_by_shape"]["conv_gn_silu"]
@@ -3973,9 +4021,10 @@ class LaunchShapes:
     kernels, ``_launch_backward`` of K1B and K2B, which the registered op
     calls once per launch) and puts the shape into a set, one tuple a
     launch on the host, under the label of the run in progress
-    (``run_counted`` sets it; "other" elsewhere).  K1's and K1B's key is
-    (dtype, rows, L, Cin, Cout, groups), K2's and K2B's (dtype, B, H, L,
-    D)."""
+    (``run_counted`` sets it; "other" elsewhere).  K1's key is (dtype,
+    rows, L, Cin, Cout, groups, epilogue), the epilogue "none", "film" or
+    "cond<K>" (K the conditioning's channels); K1B's (dtype, rows, L, Cin,
+    Cout, groups); K2's and K2B's (dtype, B, H, L, D)."""
 
     label = "other"
     # kernel -> (its module in ops/kernels, its launch body there)
@@ -4006,6 +4055,10 @@ class LaunchShapes:
             key = ((args[o].dtype, args[o].shape, args[o + 1].shape,
                     args[o + 5]) if conv
                    else (args[o].dtype, args[o].shape))
+            if kernel == "conv_gn_silu":     # film and r follow eps
+                film, r = (*args[7:9], None, None)[:2]
+                key += ("none" if film is None else "film" if r is None
+                        else f"cond{r.shape[-1]}",)
             raw.setdefault(key, set()).add(LaunchShapes.label)
             counts[key] = counts.get(key, 0) + 1
             return body(*args)
@@ -4015,13 +4068,14 @@ class LaunchShapes:
     @staticmethod
     def _norm(kernel, key):
         dname = str(key[0]).split(".")[1]
-        return ((dname, *key[1][:2], *key[2][1:], int(key[3]))
+        return ((dname, *key[1][:2], *key[2][1:], int(key[3]), *key[4:])
                 if kernel.startswith("conv_gn_silu") else (dname, *key[1]))
 
     @property
     def seen(self):
         """{kernel: {key: labels}} with K1's key (dtype, rows, L, Cin, Cout,
-        groups) and K2's (dtype, B, H, L, D), dtype by name."""
+        groups, epilogue), K1B's without the epilogue and K2's (dtype, B, H,
+        L, D), dtype by name."""
         out = {k: {} for k in self.KERNELS}
         for k, raw in self.raw.items():
             for key, labels in raw.items():
@@ -4083,7 +4137,7 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb):
     seen = shapes.seen
     key1 = ("dtype", "rows", "L", "Cin", "Cout", "groups")
     key2 = ("dtype", "B", "H", "L", "D")
-    done1 = {tuple(r[k] for k in key1): r for r in k1}
+    done1 = {tuple(r[k] for k in key1 + ("epilogue",)): r for r in k1}
     done2 = {tuple(r[k] for k in key2): r for r in k2}
     done = {"conv_gn_silu": done1, "flash_attention": done2,
             "conv_gn_silu_backward": {tuple(r[k] for k in key1): r
@@ -4103,14 +4157,15 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb):
             torch, "launched", [key], reps=0)
     todo = {}
     for key in sorted(set(seen["conv_gn_silu"]) - set(done1)):
-        dname, rows, L, Cin, Cout, G = key
-        todo.setdefault((dname, rows, G), []).append(
+        dname, rows, L, Cin, Cout, G, epilogue = key
+        todo.setdefault((dname, rows, G, epilogue), []).append(
             (f"L{L} {Cin}->{Cout}", L, Cin, Cout))
-    for (dname, rows, G), blocks in todo.items():
+    for (dname, rows, G, epilogue), blocks in todo.items():
         for r in phase_kernel(torch, "launched", blocks,
-                              ((getattr(torch, dname), rows),), groups=G):
+                              ((getattr(torch, dname), rows),), groups=G,
+                              epilogues=(epilogue,)):
             done1[(r["dtype"], r["rows"], r["L"], r["Cin"], r["Cout"],
-                   r["groups"])] = r
+                   r["groups"], r["epilogue"])] = r
     for r in phase_kernel_attention(torch, sorted(
             set(seen["flash_attention"]) - set(done2))):
         done2[(r["dtype"], r["B"], r["H"], r["L"], r["D"])] = r
@@ -4118,7 +4173,9 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb):
     for key, labels in seen["conv_gn_silu"].items():
         for label in labels - {"other"}:
             group = by_run["conv_gn_silu"].setdefault(label, {})
-            group.setdefault(f"{key[0]} {key[1]} rows", []).append(done1[key])
+            group.setdefault(f"{key[0]} {key[1]} rows"
+                             + ("" if key[6] == "none" else f" {key[6]}"),
+                             []).append(done1[key])
     for label, groups in by_run["conv_gn_silu"].items():
         for name, recs in groups.items():
             groups[name] = k1_sum(recs)
@@ -4231,7 +4288,8 @@ def kernels_line(k1, k2, kb, launches, by_run, coverage):
     spin harnesses)."""
     def bf16_at(config, rows):
         return [r for r in k1 if r["config"] == config
-                and r["dtype"] == "bfloat16" and r["rows"] == rows]
+                and r["dtype"] == "bfloat16" and r["rows"] == rows
+                and r["epilogue"] == path_epilogue(config)]
 
     k1_paths = {}
     for config, path in PATHS.items():
@@ -4275,8 +4333,9 @@ def kernels_line(k1, k2, kb, launches, by_run, coverage):
          "by_eval_run": by_run["conv_gn_silu"],
          "bench_population": by_run["conv_gn_silu"].get("bench_population"),
          "launched_shapes": coverage["conv_gn_silu"],
-         "shapes": "the 7 ConvBlocks of one forward of each main path, bf16: "
-                   "pn128 at 64 rows, attn16k at 32 rows",
+         "shapes": "the 7 ConvBlocks of one forward of each main path, bf16, "
+                   "with the conditioning epilogue they launch: pn128 at 64 "
+                   "rows, attn16k at 32 rows",
          "phase": "kernel"},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{pkg}_torch/csrc/flash_attention.cu",
@@ -4394,7 +4453,8 @@ def main():
         path = PATHS[config]
         shapes = convblock_shapes(UNet1D(**path["model"], device="cuda"),
                                   path["L"])
-        k1 += phase_kernel(torch, config, shapes, dtypes_rows)
+        k1 += phase_kernel(torch, config, shapes, dtypes_rows,
+                           epilogues=("none", path_epilogue(config)))
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch import bench
 
     for config, model_kw, L, rows in K1_EXTRA + [

@@ -16,7 +16,8 @@
 //            Chan's pairwise (count, mean, M2) update in a fixed order (no
 //            float atomics: deterministic, and no cancellation the way
 //            E[y^2] - mean^2 cancels when |mean| >> std);
-//   gn_affine_silu - normalise, affine, SiLU, cast.
+//   gn_affine_silu - normalise, affine, SiLU, then the epilogue if asked
+//            for (the U-Net's conditioning bias and FiLM), cast.
 //
 // What bounds each pass on the H100, and what the design does about it.
 //   conv, bf16: 2 * L * 3 * Cin * Cout FLOPs per sample on operands read
@@ -50,6 +51,22 @@
 //     (sample, run of rows) with channels along the threads: each thread
 //     holds its channels' (mean, rstd * scale, shift) in registers and walks
 //     rows with 16-byte y loads and 8-byte bf16 (16-byte f32) stores.
+//     Its epilogue is what follows each ConvBlock of the U-Net at
+//     inference, so that the activation is written once instead of read and
+//     written again by each of those steps: with `film` (B, 2 Cout) =
+//     [gamma | beta] and, for the conditioning bias, the stage-length
+//     conditioning r (B, L, K), both in x's dtype, and the bias's Dense
+//     wc (K, Cout), bc (Cout,) f32, out = (s + bc + r wc) (1 + gamma) +
+//     beta for s = silu(gn(y)), all in f32 and rounded once (without r,
+//     out = s (1 + gamma) + beta).  A thread also holds its channels'
+//     1 + gamma, beta and bc in registers; each CTA stages wc and the K
+//     values of its rows of r in f32 in shared memory, one broadcast read
+//     per row and K.  The pass stays bytes-bound: 2 K bytes a row (10 at
+//     K 5) beside 6 Cout bytes of y and output; its registers are held to
+//     64 (4 CTAs an SM) to keep the loads in flight.  On an H100 the 7
+//     blocks of a pn128 forward at 128 rows took 4.6 ms with the epilogue,
+//     4.1-4.4 ms without it, and 9.5 ms with the bias and FiLM as separate
+//     PyTorch steps.
 //
 // The device code is in conv_gn_silu.cuh, which the backward
 // (conv_gn_silu_backward.cu) shares.
@@ -73,27 +90,32 @@ const char* conv_gn_silu_error_string(int code) {
 // gn_scale, gn_bias f32; out (B, L, Cout) in x's dtype; scratch y (B, L,
 // Cout) f32, part_mean and part_m2 (B, ceil(L / 64), Cout) f32, g_mean and
 // g_rstd (B, groups) f32, and for route 2 w_packed (Cout_pad, 3, Cin_pad)
-// bf16 with both pads rounded up to 64.  All contiguous on the current
+// bf16 with both pads rounded up to 64.  The epilogue: film (B, 2 Cout) in
+// x's dtype, or null for none; r (B, L, K) in x's dtype, wc (K, Cout) and
+// bc (Cout,) f32, or r null for FiLM alone.  All contiguous on the current
 // device.  Launches on `stream`, does not synchronise, returns the first
 // launch error (0 on success).
 int conv_gn_silu_forward(const void* x, const float* W, const float* bias,
                          const float* gn_scale, const float* gn_bias,
                          void* out, float* y, float* part_mean, float* part_m2,
-                         float* g_mean, float* g_rstd, void* w_packed, int B,
-                         int L, int Cin, int Cout, int groups, float eps,
-                         int route, void* stream) {
+                         float* g_mean, float* g_rstd, void* w_packed,
+                         const void* film, const void* r, const float* wc,
+                         const float* bc, int B, int L, int Cin, int Cout,
+                         int groups, int K, float eps, int route,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = conv_y_stats(x, W, bias, y, part_mean, part_m2, g_mean,
                               g_rstd, w_packed, B, L, Cin, Cout, groups, eps,
                               route, st);
   if (rc != 0) return rc;
+  const Epilogue ep{film, r, wc, bc, K};
   if (route == ROUTE_FMA)
     return launch_apply<float>(y, g_mean, g_rstd, gn_scale, gn_bias,
                                static_cast<float*>(out), B, L, Cout, groups,
-                               st);
+                               ep, st);
   return launch_apply<__nv_bfloat16>(y, g_mean, g_rstd, gn_scale, gn_bias,
                                      static_cast<__nv_bfloat16*>(out), B, L,
-                                     Cout, groups, st);
+                                     Cout, groups, ep, st);
 }
 
 }  // extern "C"

@@ -560,20 +560,62 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v) {
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The apply pass's epilogue (conv_gn_silu.cu's head comment): none, K1
+// alone; FiLM, out = s (1 + gamma) + beta; or the conditioning bias, then
+// FiLM, out = (s + bc + r Wc) (1 + gamma) + beta.  film is (B, 2 Cout) =
+// [gamma | beta] and r (B, L, K), both in the output's type; wc (K, Cout)
+// and bc (Cout,) f32.
+constexpr int EPI_NONE = 0, EPI_FILM = 1, EPI_COND_FILM = 2;
+// rows per apply CTA with the conditioning bias, at most: the CTA stages
+// wc and its rows of r in shared memory, 4 K (Cout + rows) bytes
+constexpr int EPI_ROWS = 1024;
+struct Epilogue {
+  const void* film;
+  const void* r;
+  const float* wc;
+  const float* bc;
+  int K;
+};
+
 // One CTA per (run of `rows_per_cta` rows, sample); V channels per thread
 // (V = 4 when Cout % 4 == 0).  A thread keeps its channels' coefficients in
-// registers and steps over rows, so no index is divided per element.
-template <typename T, int V>
-__global__ void __launch_bounds__(APPLY_THREADS)
+// registers and steps over rows, so no index is divided per element.  With
+// an epilogue it also keeps its channels' 1 + gamma and beta (and bc); for
+// the conditioning bias the CTA first stages wc and the K values of each
+// of its rows of r in f32 in shared memory, which the threads of a row read
+// as one broadcast.  The pass is bytes-bound and needs its loads in
+// flight, so its registers are held to 4 CTAs an SM with an epilogue, and
+// without one to the 6 (bf16) or 5 (f32) that it took before it had one.
+template <typename T, int V, int EPI>
+__global__ void __launch_bounds__(APPLY_THREADS,
+                                  EPI != EPI_NONE ? 4 : sizeof(T) == 2 ? 6 : 5)
 gn_affine_silu(const float* __restrict__ y, const float* __restrict__ g_mean,
                const float* __restrict__ g_rstd,
                const float* __restrict__ scale,
                const float* __restrict__ shift, T* __restrict__ out, int L,
-               int Cout, int groups, int rows_per_cta) {
+               int Cout, int groups, int rows_per_cta, Epilogue ep) {
+  extern __shared__ float epi_smem[];   // wc (K, Cout), then r's rows
   const int b = blockIdx.y;
   const int r_begin = blockIdx.x * rows_per_cta;
   const int r_end = min(L, r_begin + rows_per_cta);
   const int nq = Cout / V, cg = Cout / groups;
+  const int K = EPI == EPI_COND_FILM ? ep.K : 0;
+  float* wcs = epi_smem;
+  float* rs = epi_smem + K * Cout;
+  if constexpr (EPI == EPI_COND_FILM) {
+    const T* r0p =
+        static_cast<const T*>(ep.r) + ((int64_t)b * L + r_begin) * K;
+    for (int i = threadIdx.x; i < K * Cout; i += APPLY_THREADS)
+      wcs[i] = ep.wc[i];
+    for (int i = threadIdx.x; i < (r_end - r_begin) * K; i += APPLY_THREADS)
+      rs[i] = to_f32(r0p[i]);
+    __syncthreads();
+  }
   int q0, q_step, r0, r_step;
   if (nq >= APPLY_THREADS) {
     q0 = threadIdx.x; q_step = APPLY_THREADS; r0 = 0; r_step = 1;
@@ -582,15 +624,21 @@ gn_affine_silu(const float* __restrict__ y, const float* __restrict__ g_mean,
     if (threadIdx.x >= r_step * nq) return;
     q0 = threadIdx.x % nq; q_step = nq; r0 = threadIdx.x / nq;
   }
+  const T* __restrict__ film = static_cast<const T*>(ep.film);
   for (int qi = q0; qi < nq; qi += q_step) {
     const int c = qi * V;
-    float mu[V], a[V], sh[V];
+    float mu[V], a[V], sh[V], g1[V], be[V], bc[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int gi = b * groups + (c + v) / cg;
       mu[v] = g_mean[gi];
       a[v] = g_rstd[gi] * scale[c + v];
       sh[v] = shift[c + v];
+      if constexpr (EPI != EPI_NONE) {
+        g1[v] = 1.f + to_f32(film[(int64_t)b * 2 * Cout + c + v]);
+        be[v] = to_f32(film[(int64_t)b * 2 * Cout + Cout + c + v]);
+      }
+      if constexpr (EPI == EPI_COND_FILM) bc[v] = ep.bc[c + v];
     }
     for (int r = r_begin + r0; r < r_end; r += r_step) {
       const int64_t i = ((int64_t)b * L + r) * Cout + c;
@@ -601,25 +649,75 @@ gn_affine_silu(const float* __restrict__ y, const float* __restrict__ g_mean,
         const float t = (h[v] - mu[v]) * a[v] + sh[v];
         h[v] = t * (1.f / (1.f + expf(-t)));
       }
+      if constexpr (EPI == EPI_COND_FILM) {
+        const float* rr = rs + (r - r_begin) * K;
+        float p[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) p[v] = bc[v];
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+          const float rk = rr[k];
+          float w[V];
+          load_y<V>(wcs + k * Cout + c, w);
+#pragma unroll
+          for (int v = 0; v < V; ++v) p[v] = fmaf(rk, w[v], p[v]);
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) h[v] += p[v];
+      }
+      if constexpr (EPI != EPI_NONE) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) h[v] = fmaf(h[v], g1[v], be[v]);
+      }
       store_out<V>(out + i, h);
     }
   }
 }
 
 template <typename T>
+using ApplyKernel = void (*)(const float*, const float*, const float*,
+                             const float*, const float*, T*, int, int, int,
+                             int, Epilogue);
+
+template <typename T, int EPI>
+cudaError_t launch_apply_v(const float* y, const float* g_mean,
+                           const float* g_rstd, const float* scale,
+                           const float* shift, T* out, int B, int L, int Cout,
+                           int groups, const Epilogue& ep, cudaStream_t st) {
+  int rows = cmax(1, APPLY_ELEMS / Cout);
+  ApplyKernel<T> kernel = Cout % 4 == 0 ? gn_affine_silu<T, 4, EPI>
+                                        : gn_affine_silu<T, 1, EPI>;
+  size_t smem = 0;
+  if constexpr (EPI == EPI_COND_FILM) {
+    rows = rows < EPI_ROWS ? rows : EPI_ROWS;
+    smem = sizeof(float) * (size_t)ep.K * (rows + Cout);
+  }
+  const dim3 grid((L + rows - 1) / rows, B);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, APPLY_THREADS, smem, st>>>(y, g_mean, g_rstd, scale, shift,
+                                            out, L, Cout, groups, rows, ep);
+  return cudaGetLastError();
+}
+
+// The apply pass, with the epilogue that `ep` asks for: none without film,
+// FiLM alone without r.
+template <typename T>
 cudaError_t launch_apply(const float* y, const float* g_mean,
                          const float* g_rstd, const float* scale,
                          const float* shift, T* out, int B, int L, int Cout,
-                         int groups, cudaStream_t st) {
-  const int rows = cmax(1, APPLY_ELEMS / Cout);
-  const dim3 grid((L + rows - 1) / rows, B);
-  if (Cout % 4 == 0)
-    gn_affine_silu<T, 4><<<grid, APPLY_THREADS, 0, st>>>(
-        y, g_mean, g_rstd, scale, shift, out, L, Cout, groups, rows);
-  else
-    gn_affine_silu<T, 1><<<grid, APPLY_THREADS, 0, st>>>(
-        y, g_mean, g_rstd, scale, shift, out, L, Cout, groups, rows);
-  return cudaGetLastError();
+                         int groups, const Epilogue& ep, cudaStream_t st) {
+  if (ep.film == nullptr)
+    return launch_apply_v<T, EPI_NONE>(y, g_mean, g_rstd, scale, shift, out,
+                                       B, L, Cout, groups, ep, st);
+  if (ep.r == nullptr)
+    return launch_apply_v<T, EPI_FILM>(y, g_mean, g_rstd, scale, shift, out,
+                                       B, L, Cout, groups, ep, st);
+  return launch_apply_v<T, EPI_COND_FILM>(y, g_mean, g_rstd, scale, shift,
+                                          out, B, L, Cout, groups, ep, st);
 }
 
 template <int TN, bool DX>

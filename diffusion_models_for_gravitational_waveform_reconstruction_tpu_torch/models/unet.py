@@ -8,9 +8,14 @@ conditioning (counterpart of the JAX package's ``models/unet.py``).
   its plain version on the CPU;
 - FiLM ``h*(1+gamma)+beta`` from ``Dense(silu(t_ctx))`` where
   ``t_ctx = silu(Dense(t_emb))`` (SiLU twice, as in the JAX model);
-- conditioning bias: cond channels linearly resized to the stage length, then
-  a 1x1 projection; downsample avg-pool 2, decoder nearest x2 -> pad/crop ->
-  skip concat -> ConvBlock; zero-initialised final conv on ``[h | x_t]``.
+- conditioning bias: cond channels linearly resized to the stage length
+  (once a forward for each length), then a 1x1 projection; downsample
+  avg-pool 2, decoder nearest x2 -> pad/crop -> skip concat -> ConvBlock;
+  zero-initialised final conv on ``[h | x_t]``.
+- where autograd does not record (inference), each ConvBlock's conditioning
+  bias and FiLM go into the block's kernel call (the epilogue of
+  :func:`ops.kernels.fused_conv_gn_silu`); with autograd recording, or
+  under a model axis, they run as separate steps after the block.
 - with ``use_attention``, pre-norm multi-head self-attention after the
   bottleneck (:class:`BottleneckAttention`) through
   :func:`ops.kernels.flash_attention`: the Hopper kernel on a GPU at every
@@ -418,6 +423,12 @@ class UNet1D(nn.Module):
             for name in split:
                 getattr(self, name).tp = None
 
+    def _records(self, x: torch.Tensor) -> bool:
+        """Whether autograd records a forward of ``x``: grad mode is on and
+        the input or a parameter requires grad."""
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, L); t: (B,) integer timesteps.  Returns the
         single-channel prediction (B, 1, L), float32."""
@@ -431,32 +442,51 @@ class UNet1D(nn.Module):
             t_ctx = F.silu(self.time_dense(t_emb))
             x_t = x[:, :, :1]
             cond = x[:, :, 1:1 + cond_ch] if cond_ch > 0 else None
+            fuse = not self._records(x)
+            resized = {}
 
-            def film(h, name):
+            def cond_at(length):
+                # the conditioning at a stage length, resized once a forward
+                if length not in resized:
+                    with span("unet/cond_bias"):
+                        resized[length] = _resize_linear(cond,
+                                                         length).contiguous()
+                return resized[length]
+
+            def block(h, name):
+                """ConvBlock ``name``, then its conditioning bias
+                (``cond_<name>``) and FiLM (``tproj_<name>``)."""
+                blk = getattr(self, name)
+                r = None if cond is None else cond_at(h.shape[1])
+                dense = getattr(self, f"cond_{name}", None)
+                if fuse and blk.tp is None:
+                    with span("unet/film"):
+                        tv = getattr(self, f"tproj_{name}")(F.silu(t_ctx))
+                    conv, norm = blk.conv, blk.norm
+                    bias = ({} if r is None else
+                            dict(r=r, Wc=dense.kernel, bc=dense.bias))
+                    return fused_conv_gn_silu(
+                        h, conv.kernel, conv.bias, norm.scale, norm.bias,
+                        blk.groups, film=tv, **bias)
+                h = blk(h)
+                if r is not None:
+                    with span("unet/cond_bias"):
+                        h = h + dense(r)
                 with span("unet/film"):
-                    tv = getattr(self, name)(F.silu(t_ctx))
+                    tv = getattr(self, f"tproj_{name}")(F.silu(t_ctx))
                     gamma, beta = tv.chunk(2, dim=-1)
                     return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
-
-            def cond_bias(h, name):
-                if cond is None:
-                    return h
-                with span("unet/cond_bias"):
-                    return h + getattr(self, name)(_resize_linear(cond,
-                                                                  h.shape[1]))
 
             skips = []
             h = x
             for i in range(self.depth):
-                h = getattr(self, f"enc{i}")(h)
-                h = film(cond_bias(h, f"cond_enc{i}"), f"tproj_enc{i}")
+                h = block(h, f"enc{i}")
                 skips.append(h)
                 with span("unet/resample"):
                     B, L, C = h.shape
                     h = h[:, :L // 2 * 2].reshape(B, L // 2, 2, C).mean(dim=2)
 
-            h = self.mid(h)
-            h = film(cond_bias(h, "cond_mid"), "tproj_mid")
+            h = block(h, "mid")
             if self.use_attention:
                 h = self.mid_attn(h)
 
@@ -465,8 +495,7 @@ class UNet1D(nn.Module):
                     skip = skips[-(i + 1)]
                     h = torch.cat([_fix_len(h.repeat_interleave(2, dim=1),
                                             skip.shape[1]), skip], dim=-1)
-                h = getattr(self, f"dec{i}")(h)
-                h = film(cond_bias(h, f"cond_dec{i}"), f"tproj_dec{i}")
+                h = block(h, f"dec{i}")
 
             h = torch.cat([_fix_len(h, L0), x_t], dim=-1)
             out = conv3_same(h, self.final.kernel.to(cdt),

@@ -4,7 +4,9 @@ and K2B.
 
 Each wrapper carries a plain integer ``launches`` that its registered op
 raises by one each time it launches the kernel (never for the plain
-version), so a replay of an exported program counts too.
+version), so a replay of an exported program counts too.  K1's wrapper
+carries ``epilogue_launches`` besides: its launches with the conditioning
+epilogue, which count under ``conv_gn_silu`` too.
 """
 from .conv_gn_silu import (
     conv3_same,
@@ -24,19 +26,22 @@ from .flash_attention import (
     flash_attention_reference,
 )
 
-_WRAPPERS = {"conv_gn_silu": fused_conv_gn_silu,
-             "flash_attention": flash_attention,
-             "conv_gn_silu_backward": fused_conv_gn_silu_grad,
-             "flash_attention_backward": flash_attention_grad}
+# counter -> (the wrapper that carries it, its attribute)
+_COUNTERS = {"conv_gn_silu": (fused_conv_gn_silu, "launches"),
+             "flash_attention": (flash_attention, "launches"),
+             "conv_gn_silu_backward": (fused_conv_gn_silu_grad, "launches"),
+             "flash_attention_backward": (flash_attention_grad, "launches"),
+             "conv_gn_silu_epilogue": (fused_conv_gn_silu,
+                                       "epilogue_launches")}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
 __all__ = ["attention_route", "conv3_same", "conv_route", "flash_attention",

@@ -26,10 +26,19 @@ address): bf16 with Cin % 8 == 0 runs on ``wgmma`` fed by TMA
 from weights packed once per call (:func:`pack_weights_reference` is the
 pack's plain version); other bf16 inputs run on ``mma.sync``; f32 runs on
 the FMA units.  All three are the same kernel and count as its launches.
+
+At inference the U-Net hands each ConvBlock's conditioning bias and FiLM to
+the kernel's last pass (the wrapper's ``film``, ``r``, ``Wc`` and ``bc``):
+the same launch of K1, counted under ``conv_gn_silu``, with an epilogue,
+counted besides by ``fused_conv_gn_silu.epilogue_launches``.  The plain
+version with those arguments is the U-Net's composition of the three
+steps.  The epilogue has no backward: the U-Net asks for it only where
+autograd does not record.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -66,15 +75,28 @@ def group_norm(y: torch.Tensor, groups: int, scale: torch.Tensor,
 
 
 def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
-                                 eps: float = 1e-5):
+                                 eps: float = 1e-5, *, film=None, r=None,
+                                 Wc=None, bc=None):
     """Plain version: x (B, L, Cin); W (3, Cin, Cout); b, gn_scale, gn_bias
     (Cout,).  The conv takes its operands in x's dtype and accumulates in f32
     (bf16 values and their products are exact in f32), then GroupNorm over
     (L, Cout / groups) per sample, the affine, SiLU, and a cast to x's dtype
-    (JAX ``fused_conv_gn_silu_reference``)."""
+    (JAX ``fused_conv_gn_silu_reference``).
+
+    With ``film`` (B, 2 Cout) = [gamma | beta], the U-Net's steps after the
+    block follow in its order and dtypes: ``h + (r @ Wc + bc)`` for the
+    conditioning r (B, L, K), a Dense computed in x's dtype (none without
+    r), then ``h * (1 + gamma) + beta``."""
     y = conv3_same(x.float(), W.to(x.dtype).float(), b.float())
     h = group_norm(y, groups, gn_scale, gn_bias, eps)
-    return (h * torch.sigmoid(h)).to(x.dtype)
+    h = (h * torch.sigmoid(h)).to(x.dtype)
+    if film is None:
+        return h
+    dt = h.dtype
+    if r is not None:
+        h = h + (r.to(dt) @ Wc.to(dt) + bc.to(dt))
+    gamma, beta = film.chunk(2, dim=-1)
+    return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
 
 
 def fused_conv_gn_silu_backward(dout, x, W, b, gn_scale, gn_bias,
@@ -276,7 +298,7 @@ def conv_route(x: torch.Tensor) -> str:
     return "mma_sync"
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -369,9 +391,37 @@ def _check(x, W, b, gn_scale, gn_bias, groups):
             raise TypeError(f"{name} must be float32, got {v.dtype}")
 
 
-def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float):
+def _check_film(x, W, film, r, Wc, bc):
+    """The epilogue's inputs: ``film`` (B, 2 Cout) and ``r`` (B, L, K) in
+    x's dtype, ``Wc`` (K, Cout) and ``bc`` (Cout,) float32, all three or
+    none of r, Wc and bc, each contiguous on x's device."""
+    B, L, _ = x.shape
+    Cout = W.shape[2]
+    cond = (r, Wc, bc)
+    if any(v is None for v in cond) and any(v is not None for v in cond):
+        raise ValueError("r, Wc and bc go together")
+    want = [("film", film, (B, 2 * Cout), x.dtype)]
+    if r is not None:
+        K = r.shape[-1] if r.dim() == 3 else -1
+        want += [("r", r, (B, L, K), x.dtype), ("Wc", Wc, (K, Cout),
+                                                torch.float32),
+                 ("bc", bc, (Cout,), torch.float32)]
+    for name, v, shape, dtype in want:
+        if tuple(v.shape) != shape or min(shape) < 1:
+            raise ValueError(f"{name} must be {shape}, got {tuple(v.shape)}")
+        if v.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {v.dtype}")
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float, film=None,
+            r=None, Wc=None, bc=None):
     """Allocate the output and scratch and launch the kernel on the route
-    :func:`conv_route` picks; raises if the launch fails."""
+    :func:`conv_route` picks, with the epilogue that ``film`` and ``r`` ask
+    for (none without film); raises if the launch fails."""
     B, L, Cin = x.shape
     Cout = W.shape[2]
     lib = _lib()
@@ -387,14 +437,18 @@ def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float):
     part_m2 = torch.empty((B, n_tiles, Cout), **f32)
     g_mean = torch.empty((B, groups), **f32)
     g_rstd = torch.empty((B, groups), **f32)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
     with torch.cuda.device(x.device):
         rc = lib.conv_gn_silu_forward(
             x.data_ptr(), W.data_ptr(), b.data_ptr(), gn_scale.data_ptr(),
             gn_bias.data_ptr(), out.data_ptr(), y.data_ptr(),
             part_mean.data_ptr(), part_m2.data_ptr(), g_mean.data_ptr(),
-            g_rstd.data_ptr(),
-            None if w_packed is None else w_packed.data_ptr(),
-            B, L, Cin, Cout, groups, float(eps), ROUTES[route],
+            g_rstd.data_ptr(), ptr(w_packed), ptr(film), ptr(r), ptr(Wc),
+            ptr(bc), B, L, Cin, Cout, groups,
+            0 if r is None else r.shape[-1], float(eps), ROUTES[route],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("conv_gn_silu launch failed: "
@@ -504,29 +558,38 @@ fused_conv_gn_silu_grad.launches = 0
                          device_types="cuda")
 def conv_gn_silu_op(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                     gn_scale: torch.Tensor, gn_bias: torch.Tensor,
-                    groups: int, eps: float) -> torch.Tensor:
-    """The kernel as a registered op (CUDA only): one launch, counted."""
-    out = _launch(x, W, b, gn_scale, gn_bias, groups, eps)
+                    groups: int, eps: float,
+                    film: Optional[torch.Tensor] = None,
+                    r: Optional[torch.Tensor] = None,
+                    Wc: Optional[torch.Tensor] = None,
+                    bc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel as a registered op (CUDA only): one launch, counted, and
+    counted as the epilogue's too when ``film`` is given."""
+    out = _launch(x, W, b, gn_scale, gn_bias, groups, eps, film, r, Wc, bc)
     fused_conv_gn_silu.launches += 1
+    fused_conv_gn_silu.epilogue_launches += film is not None
     return out
 
 
 @conv_gn_silu_op.register_fake
-def _(x, W, b, gn_scale, gn_bias, groups, eps):
+def _(x, W, b, gn_scale, gn_bias, groups, eps, film=None, r=None, Wc=None,
+      bc=None):
     return x.new_empty((x.shape[0], x.shape[1], W.shape[2]))
 
 
 def _setup_context(ctx, inputs, output):
-    x, W, b, gn_scale, gn_bias, groups, eps = inputs
+    x, W, b, gn_scale, gn_bias, groups, eps, film = inputs[:8]
     ctx.save_for_backward(x, W, b, gn_scale, gn_bias)
-    ctx.groups, ctx.eps = groups, eps
+    ctx.groups, ctx.eps, ctx.epilogue = groups, eps, film is not None
 
 
 def _backward(ctx, dout):
+    if ctx.epilogue:
+        raise RuntimeError("conv_gn_silu's epilogue has no backward")
     with torch.profiler.record_function(f"{NAMESPACE}::conv_gn_silu_backward"):
         grads = fused_conv_gn_silu_grad(dout, *ctx.saved_tensors, ctx.groups,
                                         ctx.eps)
-    return (*grads, None, None)
+    return (*grads, None, None, None, None, None, None)
 
 
 conv_gn_silu_op.register_autograd(_backward, setup_context=_setup_context)
@@ -534,21 +597,46 @@ conv_gn_silu_op.register_autograd(_backward, setup_context=_setup_context)
 
 def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                        gn_scale: torch.Tensor, gn_bias: torch.Tensor,
-                       groups: int, eps: float = 1e-5) -> torch.Tensor:
+                       groups: int, eps: float = 1e-5, *,
+                       film: Optional[torch.Tensor] = None,
+                       r: Optional[torch.Tensor] = None,
+                       Wc: Optional[torch.Tensor] = None,
+                       bc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole ConvBlock (conv k=3 SAME + GN + SiLU): x (B, L, Cin) f32 or
     bf16, W (3, Cin, Cout) in flax layout, b / gn_scale / gn_bias (Cout,) f32;
     returns (B, L, Cout) in x's dtype.  CPU tensors take the plain version;
     CUDA tensors go through the registered op, which launches the kernel
     (with grad enabled too: its backward launches K1B through
-    :func:`fused_conv_gn_silu_grad`)."""
+    :func:`fused_conv_gn_silu_grad`).
+
+    With ``film`` (B, 2 Cout) = [gamma | beta] in x's dtype, and optionally
+    the conditioning r (B, L, K) in x's dtype with its Dense's ``Wc`` (K,
+    Cout) and ``bc`` (Cout,) f32, the kernel's last pass also adds
+    ``r @ Wc + bc`` and applies ``* (1 + gamma) + beta``, as the plain
+    version says, in f32, rounded once.  That epilogue has no backward: a
+    caller whose autograd records takes the steps apart."""
     if x.device.type == "cpu":
         return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
-                                            groups, eps)
+                                            groups, eps, film=film, r=r,
+                                            Wc=Wc, bc=bc)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_gn_silu runs on cpu or cuda, not "
                          f"{x.device}")
     _check(x, W, b, gn_scale, gn_bias, groups)
-    return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps))
+    if film is None:
+        if any(v is not None for v in (r, Wc, bc)):
+            raise ValueError("r, Wc and bc need film")
+        return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups,
+                               float(eps))
+    _check_film(x, W, film, r, Wc, bc)
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad
+            for v in (x, W, b, gn_scale, gn_bias, film, r, Wc, bc)):
+        raise RuntimeError("fused_conv_gn_silu's epilogue has no backward: "
+                           "pass film where autograd does not record")
+    return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps),
+                           film, r, Wc, bc)
 
 
 fused_conv_gn_silu.launches = 0
+fused_conv_gn_silu.epilogue_launches = 0

@@ -54,12 +54,12 @@ import torch
 import torch.nn.functional as F
 
 from ..models import unet
-from ..ops.kernels import (attention_route, conv_route, flash_attention,
-                           flash_attention_backward, flash_attention_grad,
-                           flash_attention_reference, fused_conv_gn_silu,
-                           fused_conv_gn_silu_backward,
+from ..ops.kernels import (attention_route, conv3_same, conv_route,
+                           flash_attention, flash_attention_backward,
+                           flash_attention_grad, flash_attention_reference,
+                           fused_conv_gn_silu, fused_conv_gn_silu_backward,
                            fused_conv_gn_silu_grad,
-                           fused_conv_gn_silu_reference)
+                           fused_conv_gn_silu_reference, group_norm)
 from ..ops.kernels.conv_gn_silu import dw_route, dx_route
 from ..ops.kernels.flash_attention import backward_route
 from ..utils.device import resolve_device
@@ -143,43 +143,99 @@ def _against(got, want, kernel) -> dict:
             "n_outside_tol": bad}
 
 
+def epilogue_f32(x, W, b, s, bb, G: int, film, r=None, Wc=None, bc=None):
+    """K1's conditioning epilogue on the plain ConvBlock's f32 value before
+    its cast, all in f32 (what the kernel rounds once), and the size of its
+    terms (the scale of the plain composition's roundings: of h, of Wc and
+    the Dense's output, of each sum and of the product)."""
+    y = conv3_same(x.float(), W.to(x.dtype).float(), b)
+    h = group_norm(y, G, s, bb)
+    h = h * torch.sigmoid(h)
+    p, terms = torch.zeros_like(h), h.abs()
+    if r is not None:
+        p = r.float() @ Wc + bc
+        terms = terms + r.float().abs() @ Wc.abs() + bc.abs()
+    gamma, beta = (a[:, None, :] for a in film.float().chunk(2, dim=-1))
+    return ((h + p) * (1.0 + gamma) + beta,
+            terms * (1.0 + gamma).abs() + beta.abs())
+
+
+# K1 with its epilogue against the plain composition, which rounds about
+# eight times to x's dtype: within this share of the terms' size (four bf16
+# ulps of 2^-7), plus the K1 bar's atol
+EPILOGUE_PLAIN_REL = {"float32": 1e-4, "bfloat16": 2 ** -5}
+
+
 def conv_row(x, W, b, s, bb, G: int, reps: int = REPS,
-             plain_reps: int = REPS // 4) -> dict:
+             plain_reps: int = REPS // 4, *, film=None, r=None, Wc=None,
+             bc=None) -> dict:
     """K1 on these inputs against its plain version (``TOL``) and the cuDNN
     yardstick (``F.conv1d`` -> ``F.group_norm`` -> ``F.silu``): route,
     times, the bound (each input read once, the output written once),
-    GFLOP, MB and the error."""
+    GFLOP, MB and the error.  With ``film`` (and r, Wc, bc) K1 carries the
+    U-Net's conditioning epilogue: the error is then against the same
+    steps in f32 (``epilogue_f32``, at ``TOL``) and against the plain
+    composition (``EPILOGUE_PLAIN_REL``), and the yardstick adds the
+    U-Net's separate steps after cuDNN."""
     dev, dtype = x.device, x.dtype
     dname = str(dtype).split(".")[1]
     B, L, Cin = x.shape
     Cout = W.shape[-1]
-    out = fused_conv_gn_silu(x, W, b, s, bb, G)
-    want = fused_conv_gn_silu_reference(x, W, b, s, bb, G)
+    epi = {} if film is None else dict(film=film, r=r, Wc=Wc, bc=bc)
+    out = fused_conv_gn_silu(x, W, b, s, bb, G, **epi)
+    want = fused_conv_gn_silu_reference(x, W, b, s, bb, G, **epi)
     _sync(dev)
-    err = _against(out, want, "conv_gn_silu")
+    if film is None:
+        err = _against(out, want, "conv_gn_silu")
+    else:
+        ideal, scale = epilogue_f32(x, W, b, s, bb, G, film, r, Wc, bc)
+        err = _against(out, ideal, "conv_gn_silu")
+        diff = (out.float() - want.float()).abs()
+        err["max_abs_err_vs_plain"] = float(diff.max())
+        err["n_outside_plain_tol"] = int(
+            (diff > EPILOGUE_PLAIN_REL[dname] * scale + err["atol"]).sum())
+        del ideal, scale, diff
     del out, want
     xc = x.transpose(1, 2).contiguous()
-    Wc = W.permute(2, 1, 0).to(dtype).contiguous()
+    Wl = W.permute(2, 1, 0).to(dtype).contiguous()
     bl, sl, bbl = b.to(dtype), s.to(dtype), bb.to(dtype)
 
     def library():
-        return F.silu(F.group_norm(F.conv1d(xc, Wc, bl, padding=1), G, sl,
-                                   bbl, 1e-5))
+        h = F.silu(F.group_norm(F.conv1d(xc, Wl, bl, padding=1), G, sl,
+                                bbl, 1e-5))
+        if film is None:
+            return h
+        h = h.transpose(1, 2)
+        if r is not None:
+            h = h + (r @ Wc.to(dtype) + bc.to(dtype))
+        gamma, beta = film.chunk(2, dim=-1)
+        return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
 
-    t_k = time_ms(lambda: fused_conv_gn_silu(x, W, b, s, bb, G), dev, reps)
-    t_p = time_ms(lambda: fused_conv_gn_silu_reference(x, W, b, s, bb, G),
+    t_k = time_ms(lambda: fused_conv_gn_silu(x, W, b, s, bb, G, **epi), dev,
+                  reps)
+    t_p = time_ms(lambda: fused_conv_gn_silu_reference(x, W, b, s, bb, G,
+                                                       **epi),
                   dev, max(1, plain_reps))
     t_l = time_ms(library, dev, reps)
     esize = x.element_size()
     nbytes = (x.numel() * esize + W.numel() * 4 + 3 * Cout * 4
               + B * L * Cout * esize)
     flops = 2.0 * B * L * 3 * Cin * Cout
+    if film is not None:
+        # FiLM's coefficients; r, Wc and bc; per output the product with
+        # r, the sum and FiLM's multiply-add
+        K = 0 if r is None else r.shape[-1]
+        nbytes += film.numel() * esize
+        if r is not None:
+            nbytes += r.numel() * esize + (Wc.numel() + bc.numel()) * 4
+        flops += (2.0 * K + 3) * B * L * Cout
     return {"route": conv_route(x), "dtype": dname, "kernel_ms": t_k,
             "plain_ms": t_p, "library_ms": t_l, "speedup": t_p / t_k,
             **_bound(flops, nbytes, dev, dname),
             "tflops": flops / (t_k * 1e9), "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, **err,
-            "within_tol": err["n_outside_tol"] == 0}
+            "within_tol": (err["n_outside_tol"] == 0
+                           and err.get("n_outside_plain_tol", 0) == 0)}
 
 
 def attention_row(q, k, v, reps: int = REPS, plain_reps: int = REPS // 4,

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the fused
-ConvBlock kernel and the flash-attention kernel (each of its routes) against
-their plain versions on the card, the U-Net's kernel path against its
+ConvBlock kernel (with and without its conditioning epilogue) and the
+flash-attention kernel (each of its routes) against their plain versions on
+the card, the U-Net's kernel path against its
 plain path, a checkpoint written and loaded on the card, the infer CLI on
 the card, the serving artifact traced on the card (its ops, its replay
 against the live function), a grad-enabled forward launching both kernels
@@ -58,8 +59,10 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
     fused_conv_gn_silu_reference,
 )
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+    EPILOGUE_PLAIN_REL,
     attention_backward_row,
     conv_backward_row,
+    epilogue_f32,
     grads_against,
 )
 
@@ -77,11 +80,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _counts(k1=0, k2=0, k1b=0, k2b=0):
+def _counts(k1=0, k2=0, k1b=0, k2b=0, epilogue=0):
     """``launch_counts()`` after k1 / k2 forward and k1b / k2b backward
-    kernel launches."""
+    kernel launches, ``epilogue`` of the k1 with the conditioning
+    epilogue (the U-Net's forwards that autograd does not record)."""
     return {"conv_gn_silu": k1, "flash_attention": k2,
-            "conv_gn_silu_backward": k1b, "flash_attention_backward": k2b}
+            "conv_gn_silu_backward": k1b, "flash_attention_backward": k2b,
+            "conv_gn_silu_epilogue": epilogue}
 
 
 # bf16: the kernel and the plain version round the same f32 values, which
@@ -190,6 +195,91 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_conv_gn_silu(x, W, v, v, v, 3)
 
 
+def _epilogue_inputs(device, dtype, B, L, Cin, Cout, K, seed):
+    """A ConvBlock's inputs and its conditioning epilogue's: r (B, L, K)
+    with an unconditional (zero) first row, as a CFG batch has, the
+    Dense's Wc (K, Cout) and bc, and FiLM's [gamma | beta] (B, 2 Cout)."""
+    x, W, b, s, bb = _block_inputs(device, B, L, Cin, Cout, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 100)
+    r = torch.randn(B, L, K, generator=g, device=device)
+    r[0] = 0.0
+    Wc = torch.randn(K, Cout, generator=g, device=device) / K ** 0.5
+    bc = 0.1 * torch.randn(Cout, generator=g, device=device)
+    film = 0.3 * torch.randn(B, 2 * Cout, generator=g, device=device)
+    return x.to(dtype), W, b, s, bb, r.to(dtype), Wc, bc, film.to(dtype)
+
+
+# each route of the conv pass (mma.sync for Cin 7 and 16-channel rows of an
+# odd Cout, wgmma for Cin 128 to 384, FMA in f32), 4 channels a thread and
+# 1 (Cout 9), and Cout 512 (one row a 128-thread stripe)
+@pytest.mark.parametrize("cond", [True, False], ids=["cond", "film_only"])
+@pytest.mark.parametrize("dtype,B,L,Cin,Cout,G", [
+    (torch.bfloat16, 2, 300, 7, 64, 8), (torch.bfloat16, 2, 256, 128, 128, 8),
+    (torch.bfloat16, 3, 200, 256, 256, 8),
+    (torch.bfloat16, 2, 333, 384, 512, 8), (torch.float32, 2, 256, 64, 64, 8),
+    (torch.float32, 2, 130, 7, 16, 8), (torch.bfloat16, 2, 150, 7, 9, 3),
+    (torch.bfloat16, 2, 150, 16, 9, 3), (torch.float32, 2, 150, 16, 9, 3)])
+def test_epilogue_matches_plain_version(cuda, cond, dtype, B, L, Cin, Cout,
+                                        G):
+    """K1 with the conditioning bias and FiLM in its apply pass: one launch
+    of K1, counted as K1's and the epilogue's; within the K1 bars of the
+    same steps in f32 rounded once, and within four bf16 ulps (2^-7 each)
+    of the terms' size of the plain composition, which rounds about eight
+    times to x's dtype (2 ulps seen when the once-rounded f32 steps are
+    held against it on the CPU)."""
+    x, W, b, s, bb, r, Wc, bc, film = _epilogue_inputs(cuda, dtype, B, L,
+                                                       Cin, Cout, 5, Cout)
+    cargs = dict(r=r, Wc=Wc, bc=bc) if cond else {}
+    before = launch_counts()
+    with torch.no_grad():
+        out = fused_conv_gn_silu(x, W, b, s, bb, G, film=film, **cargs)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert (after["conv_gn_silu"], after["conv_gn_silu_epilogue"]) == (
+        before["conv_gn_silu"] + 1, before["conv_gn_silu_epilogue"] + 1)
+    assert out.dtype == dtype and out.shape == (B, L, Cout)
+    ideal, scale = epilogue_f32(x, W, b, s, bb, G, film,
+                                *(cargs.get(k) for k in ("r", "Wc", "bc")))
+    torch.testing.assert_close(out.float(), ideal, **TOL[dtype])
+    plain = fused_conv_gn_silu_reference(x, W, b, s, bb, G, film=film,
+                                         **cargs)
+    rel = EPILOGUE_PLAIN_REL[str(dtype).split(".")[1]]
+    assert bool(((out.float() - plain.float()).abs()
+                 <= rel * scale + TOL[dtype]["atol"]).all())
+
+
+@pytest.mark.parametrize("K", [1, 11])
+def test_epilogue_takes_any_number_of_conditioning_channels(cuda, K):
+    """K 1 (the legacy 3-channel layout's one channel) and K 11, more than
+    the U-Net's 5."""
+    x, W, b, s, bb, r, Wc, bc, film = _epilogue_inputs(
+        cuda, torch.bfloat16, 2, 256, 64, 64, K, 7)
+    with torch.no_grad():
+        out = fused_conv_gn_silu(x, W, b, s, bb, 8, film=film, r=r, Wc=Wc,
+                                 bc=bc)
+    ideal, _ = epilogue_f32(x, W, b, s, bb, 8, film, r, Wc, bc)
+    torch.testing.assert_close(out.float(), ideal, **TOL[torch.bfloat16])
+
+
+def test_epilogue_rejects_what_it_does_not_take(cuda):
+    x, W, b, s, bb, r, Wc, bc, film = _epilogue_inputs(
+        cuda, torch.bfloat16, 2, 64, 16, 16, 5, 8)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            fused_conv_gn_silu(x, W, b, s, bb, 8, film=film.float(), r=r,
+                               Wc=Wc, bc=bc)
+        with pytest.raises(ValueError):
+            fused_conv_gn_silu(x, W, b, s, bb, 8, film=film, r=r[:, :, :4],
+                               Wc=Wc, bc=bc)
+        with pytest.raises(ValueError):
+            fused_conv_gn_silu(x, W, b, s, bb, 8, film=film, r=r, Wc=Wc)
+        with pytest.raises(ValueError, match="need film"):
+            fused_conv_gn_silu(x, W, b, s, bb, 8, r=r, Wc=Wc, bc=bc)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_conv_gn_silu(x, W.requires_grad_(), b, s, bb, 8, film=film,
+                           r=r, Wc=Wc, bc=bc)
+
+
 def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
     model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
                         cond_in_ch=5, use_selfcond=True, device=cuda)
@@ -199,12 +289,21 @@ def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
             p.copy_(0.2 * torch.randn(p.shape, generator=g, device=cuda))
         x = torch.randn(2, 7, 512, generator=g, device=cuda)
         t = torch.tensor([10, 900], device=cuda)
+        reset_launch_counts()
         got = model(x, t)
+        # no grad: every ConvBlock's bias and FiLM in K1's epilogue
+        assert launch_counts() == _counts(5, epilogue=5)
+    reset_launch_counts()
+    recorded = model(x, t)
+    assert launch_counts() == _counts(5)    # with grad: the separate steps
+    with torch.no_grad():
         monkeypatch.setattr(unet, "fused_conv_gn_silu",
                             fused_conv_gn_silu_reference)
         want = model(x, t)
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4   # f32: summation order through five blocks
+    err = (recorded.detach() - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-4
 
 
 # flash attention, kernel against plain version.  f32: the same sums in
@@ -356,15 +455,21 @@ def test_attention_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
             p.copy_(0.2 * torch.randn(p.shape, generator=g, device=cuda))
         x = torch.randn(2, 7, 1000, generator=g, device=cuda)
         t = torch.tensor([10, 900], device=cuda)
-        before = flash_attention.launches
+        reset_launch_counts()
         got = model(x, t)
-        assert flash_attention.launches == before + 1
+        assert launch_counts() == _counts(5, 1, epilogue=5)
+    reset_launch_counts()
+    recorded = model(x, t)
+    assert launch_counts() == _counts(5, 1)  # with grad: the separate steps
+    with torch.no_grad():
         monkeypatch.setattr(unet, "fused_conv_gn_silu",
                             fused_conv_gn_silu_reference)
         monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
         want = model(x, t)
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4   # f32: summation order through five blocks
+    err = (recorded.detach() - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-4
 
 
 SMALL_ARGS = {"in_ch": 7, "cond_in_ch": 5, "base_ch": 16, "time_dim": 32,
@@ -408,7 +513,7 @@ def test_checkpoint_loads_on_the_card(cuda, tmp_path, use_attention):
     with torch.no_grad():
         got = m_gpu(x.to(cuda), t.to(cuda)).cpu()
         want = m_cpu(x, t)
-    assert launch_counts() == _counts(5, int(use_attention))
+    assert launch_counts() == _counts(5, int(use_attention), epilogue=5)
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4   # f32: summation order through five blocks
 
@@ -428,7 +533,7 @@ def test_infer_cli_on_the_card(cuda, tmp_path):
                 "--amp-calib", "mf", "--log-jsonl", str(log),
                 "--device", "cuda"])
     n = len(build_t_schedule(1000, 3, None))
-    assert launch_counts() == _counts(5 * n)
+    assert launch_counts() == _counts(5 * n, epilogue=5 * n)
     files = sorted(os.listdir(out))
     assert [f.split("_")[0] for f in files] == [
         "measurement", "metrics", "recon", "recon"]
@@ -477,7 +582,7 @@ def test_cuda_artifact_holds_the_ops_and_counts_on_replay(cuda_artifact):
     reset_launch_counts()
     out = call(cond, sig, 3)
     torch.cuda.synchronize()
-    assert launch_counts() == _counts(5 * n, n)
+    assert launch_counts() == _counts(5 * n, n, epilogue=5 * n)
     assert out.shape == (2, 512) and bool(torch.isfinite(out).all())
 
 
@@ -680,7 +785,8 @@ def test_train_step_on_the_card(cuda, tmp_path):
                          model_dir=str(tmp_path))
     reset_launch_counts()
     out = tt.train(cfg, dataset=ds, device="cuda")
-    assert launch_counts() == _counts(4 * 10, 4 * 2, 4 * 5, 4)
+    # the self-conditioning forwards take K1's epilogue
+    assert launch_counts() == _counts(4 * 10, 4 * 2, 4 * 5, 4, 4 * 5)
     assert all(np.isfinite(h["avg_per_sample"]) for h in out["history"])
     assert os.path.exists(out["checkpoint"]) and int(out["state"].step) == 4
 
@@ -757,7 +863,8 @@ def test_eval_indices_on_the_card_matches_cpu(cuda, tmp_path, use_attention):
                                       device=dev)
         if dev == "cuda":
             n = len(build_t_schedule(1000, 3, 999)) * 3
-            assert launch_counts() == _counts(5 * n, n * use_attention)
+            assert launch_counts() == _counts(5 * n, n * use_attention,
+                                              epilogue=5 * n)
     for k in ("corr", "mae_norm", "unc_rel", "mf_ratio", "res_std_ratio"):
         got = np.array([r[k] for r in rows["cuda"]])
         want = np.array([r[k] for r in rows["cpu"]])
@@ -822,7 +929,8 @@ def test_distill_step_gradients_on_the_card(cuda, use_attention, monkeypatch):
 
     lk, gk, ck = grads(False)
     lp, gp, cp = grads(True)
-    assert ck == _counts(15, 3 * use_attention, 5, use_attention)
+    # the teacher's two forwards take K1's epilogue, the student's not
+    assert ck == _counts(15, 3 * use_attention, 5, use_attention, 10)
     assert cp == _counts()
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     assert (gk - gp).abs().max().item() <= 1e-3 * gp.abs().max().item()
@@ -842,7 +950,7 @@ def test_grid_cli_on_the_card(cuda, tmp_path):
                          str(out), "--steps", "3", "--start-t", "999",
                          "--avg-seeds", "2", "--device", "cuda"])
     n = len(build_t_schedule(1000, 3, 999))
-    assert launch_counts() == _counts(5 * n)
+    assert launch_counts() == _counts(5 * n, epilogue=5 * n)
     assert {"per_index_metrics.csv", "metrics_grid.csv", "metrics_grid.json",
             "summary.json"} <= set(os.listdir(out))
     assert res["summary"]["n_cells"] == 4 and res["scan_caps"] == {512: 8}
@@ -869,7 +977,7 @@ def test_tiled_apply_kernel_path_matches_plain_path(cuda, monkeypatch):
         t = torch.tensor([10, 900], device=cuda)
         reset_launch_counts()
         got = tiled_apply(model, x, t, chunk=1024)
-        assert launch_counts() == _counts(5, 1)
+        assert launch_counts() == _counts(5, 1, epilogue=5)
         monkeypatch.setattr(unet, "fused_conv_gn_silu",
                             fused_conv_gn_silu_reference)
         monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)
