@@ -1,7 +1,9 @@
 """A cell of ``BENCHMARK.json`` resolved to its files: the configuration
-(``configs/<config>.json``), the traffic mix (``traffic/<traffic>.json``,
-whose ``kind`` names its driver, ``drivers/<kind>.py``), the limits of its
-correctness numbers (``limits/<cell>.json``) and the readers of its metrics
+(``configs/<config>.json``, whose ``model`` block's ``arch`` names the pair
+``reference/<arch>.py`` and ``arch/<arch>.py``; the U-Net where it names
+none), the traffic mix (``traffic/<traffic>.json``, whose ``kind`` names
+its driver, ``drivers/<kind>.py``), the limits of its correctness numbers
+(``limits/<cell>.json``) and the readers of its metrics
 (``metrics/<metric>.py``), each found by name."""
 from __future__ import annotations
 

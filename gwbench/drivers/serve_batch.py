@@ -50,7 +50,7 @@ def setup(ctx):
     cfg, tr, dev = ctx.config, ctx.traffic, ctx.device
     port.build_kernels(dev)
     params = inputs.weights(cfg["model"], ctx.seed, dev)
-    model = port.unet(cfg, params, dev)
+    model = port.model(cfg, params, dev)
     fn, _ = port.serving_fn(cfg, tr, dev)
     B = tr["measurements_per_call"]
     m = inputs.chirps(tr["pool_calls"] * B, cfg["segment_len"], cfg["fs"],

@@ -13,7 +13,7 @@ from typing import Dict
 
 import torch
 
-from .reference.unet import parameter_shapes
+from .reference import architecture
 
 _MASK64 = (1 << 64) - 1
 # G M_sun / c^3 in seconds
@@ -41,11 +41,12 @@ def _gen(device, seed: int, *tags) -> torch.Generator:
 
 
 def weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every parameter of the configuration's U-Net, float32 on ``device``,
-    as views of one buffer drawn in one call: kernels N(0, 1 / fan_in)
-    (fan_in all but the last axis), GroupNorm scales 1 + N(0, 0.1^2), biases
-    N(0, 0.1^2) (the final conv and the attention's projection included)."""
-    shapes = parameter_shapes(model)
+    """Every parameter of the ``model`` block's architecture (its plain
+    reference's ``parameter_shapes``), float32 on ``device``, as views of
+    one buffer drawn in one call, by the name's end: ``kernel`` N(0, 1 /
+    fan_in) (fan_in all but the last axis), ``scale`` (the norms' scales)
+    1 + N(0, 0.1^2), any other (the biases) N(0, 0.1^2)."""
+    shapes = architecture(model).parameter_shapes(model)
     sizes = [math.prod(s) for s in shapes.values()]
     mult, add = [], []
     for name, shape in shapes.items():

@@ -1,7 +1,7 @@
 """What the readers of the per-layer metrics share."""
 from __future__ import annotations
 
-from gwbench import yardstick
+from gwbench import arch, yardstick
 
 
 def is_serving(run) -> bool:
@@ -21,10 +21,15 @@ def roofline(run, cls: str, launches_key: str):
     if t <= 0 or n <= 0:
         return None
     cfg = run["config"]
-    model, L = cfg["model"], cfg["segment_len"]
-    per = yardstick.forward_bounds(model, L, run["rows_per_forward"])[cls]
-    per_launch = len(yardstick.convblock_shapes(model, L)) \
-        if cls in ("k1", "k1b") else 1
+    model, L, rows = cfg["model"], cfg["segment_len"], run["rows_per_forward"]
+    per = yardstick.forward_bounds(model, L, rows)[cls]
+    # a forward's launches of the class: its architecture's shapes of K1
+    # or K2, one K1B or K2B launch for each
+    per_launch = len(arch.of(model).kernel_shapes(model, L, rows)
+                     .get(cls[:2], []))
+    if per_launch == 0:
+        raise ValueError(f"{launches_key} launched {n} times in a window of "
+                         f"an architecture that lists no {cls[:2]} shapes")
     return 100.0 * (n / per_launch) * per / t
 
 

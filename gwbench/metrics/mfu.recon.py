@@ -1,5 +1,6 @@
-"""The window's analytic forward FLOPs (the U-Net's count at every row of
-every forward) over its seconds, as a share (%) of one card's bf16 peak."""
+"""The window's analytic forward FLOPs (the architecture's count at every
+row of every forward) over its seconds, as a share (%) of one card's bf16
+peak."""
 from gwbench import yardstick
 from gwbench.metrics._shared import is_serving
 

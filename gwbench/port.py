@@ -1,8 +1,9 @@
-"""The program under test, as the benchmark drives it: the port's U-Net
-and its deployment sampler (``serving.build_serving_fn`` with
-``resolve_serving_config``'s defaults).
+"""The program under test, as the benchmark drives it: the port's model of
+the configuration's architecture and its deployment sampler
+(``serving.build_serving_fn`` with ``resolve_serving_config``'s defaults).
 
-The only module of the benchmark, with the drivers, that imports the port.
+The only module of the benchmark, with the drivers, that imports the port;
+the architectures' ``build`` import it through :func:`_m`.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import importlib
 from typing import Dict
 
 import torch
+
+from . import arch
 
 PORT = "diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch"
 
@@ -33,21 +36,10 @@ def dtype_of(config: dict):
     return {"bfloat16": torch.bfloat16, "float32": None}[config["dtype"]]
 
 
-def unet(config: dict, params: Dict[str, torch.Tensor], device):
-    """The port's ``UNet1D`` of the configuration with ``params`` copied in,
-    for inference (no gradients)."""
-    m = config["model"]
-    model = _m("models.unet").UNet1D(
-        in_ch=m["in_ch"], base_ch=m["base_ch"], time_dim=m["time_dim"],
-        depth=m["depth"], t_embed_max_time=m["t_embed_max_time"],
-        cond_in_ch=m["cond_in_ch"], use_selfcond=m["use_selfcond"],
-        use_attention=m["use_attention"], dtype=dtype_of(config),
-        device=device)
-    model.load_state_dict(params, strict=True)
-    model.eval()
-    for p in model.parameters():
-        p.requires_grad_(False)
-    return model
+def model(config: dict, params: Dict[str, torch.Tensor], device):
+    """The port's model of the configuration's architecture with ``params``
+    copied in, for inference: ``arch/<arch>.py``'s ``build``."""
+    return arch.of(config["model"]).build(config, params, device)
 
 
 def serving_fn(config: dict, traffic: dict, device):

@@ -1,5 +1,6 @@
-"""The benchmark's plain reference: the U-Net forward and the deployment
-sampler, in plain PyTorch, float32 by default.
+"""The benchmark's plain reference: the forward of each architecture a
+configuration names (``<arch>.py``: ``unet.py`` for the U-Net) and the
+deployment sampler, in plain PyTorch, float32 by default.
 
 It imports neither JAX nor anything of the program under test, and takes
 nothing the program made: the weights, measurements and seeds are the
@@ -12,6 +13,7 @@ convolutions, which the card would otherwise take in TF32."""
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 import torch
 
@@ -30,6 +32,19 @@ def float32_exact():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def arch_name(model: dict) -> str:
+    """The architecture of a configuration's ``model`` block: its ``arch``,
+    the U-Net where it names none."""
+    return model.get("arch", "unet")
+
+
+def architecture(model: dict):
+    """The plain module of the ``model`` block's architecture,
+    ``reference/<arch>.py``: ``parameter_shapes(model)`` (each parameter's
+    name and shape) and ``forward(P, x, t, model, cast)``."""
+    return importlib.import_module(f"{__name__}.{arch_name(model)}")
 
 
 def identity(x: torch.Tensor) -> torch.Tensor:

@@ -10,13 +10,12 @@ draws it: a ``torch.Generator`` on the device seeded with splitmix64 of
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
-from . import float32_exact, identity
-from .unet import Params, forward
+from . import architecture, float32_exact, identity
 
 _MASK64 = (1 << 64) - 1
 
@@ -56,13 +55,14 @@ def t_ladder(T: int, steps: int) -> np.ndarray:
 
 
 @float32_exact()
-def sample(P: Params, model: dict, recipe: dict, cond: torch.Tensor,
-           sigmas: torch.Tensor, seed: int,
+def sample(P: Dict[str, torch.Tensor], model: dict, recipe: dict,
+           cond: torch.Tensor, sigmas: torch.Tensor, seed: int,
            cast: Callable = identity, row_block: int = 0) -> torch.Tensor:
     """x0_white (B, L) of measurements ``cond`` (B, cond_in_ch, L) float32
     with ``sigmas`` (B,), by the recipe (``steps``, ``cfg_scale``,
     ``avg_seeds``, ``clamp``, ``x0_clip``, ``T``) from ``seed``.  The model
-    runs ``row_block`` rows at a time (0: all)."""
+    (``model``'s architecture's plain forward) runs ``row_block`` rows at a
+    time (0: all)."""
     dev = cond.device
     B, _, L = cond.shape
     S, w = int(recipe["avg_seeds"]), float(recipe["cfg_scale"])
@@ -78,6 +78,7 @@ def sample(P: Params, model: dict, recipe: dict, cond: torch.Tensor,
     sc = torch.zeros_like(x)
     n = 2 * S * B
     blk = row_block or n
+    forward = architecture(model).forward
 
     def net(inp, t):
         return torch.cat([forward(P, inp[i:i + blk], t[i:i + blk], model,

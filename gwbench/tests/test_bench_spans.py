@@ -8,6 +8,7 @@ import pytest
 
 from gwbench import cell, tracing
 from gwbench.metrics import _spans
+from gwbench.reference import arch_name
 
 BENCH = cell.benchmark()
 NEW = ("sampler_self_share.recon", "film_share.recon",
@@ -142,6 +143,23 @@ def test_a_traced_run_prints_every_span_metric(card, name):
     line = json.loads(out.stdout.strip().splitlines()[-1])
     want = [m["name"] for m in BENCH["per_layer"]
             if m["name"] in NEW and cell.applies(m, name)]
-    assert len(want) == (6 if name.startswith("attn16k") else 5)
     for metric in want:
+        assert metric in line["metrics"], (metric, sorted(line["metrics"]))
         assert 0.0 <= line["metrics"][metric]["value"] <= 100.0, metric
+
+
+def _model(cell_name: str) -> dict:
+    w = {w["name"]: w for w in BENCH["workloads"]}[cell_name]
+    c = {c["name"]: c for c in BENCH["configs"]}[w["config"]]
+    return json.loads((cell.ROOT / c["file"]).read_text())["model"]
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]
+                                  if arch_name(_model(w["name"])) == "unet"])
+def test_each_unet_cell_reads_every_span_of_its_forward(name):
+    """The spans are the U-Net's: a cell of a U-Net configuration reads all
+    six, the attention's glue only where the bottleneck attends."""
+    attends = _model(name)["use_attention"]
+    want = {n for n in NEW if attends or n != "attn_glue_share.recon"}
+    assert {m["name"] for m in BENCH["per_layer"]
+            if m["name"] in NEW and cell.applies(m, name)} == want

@@ -1,10 +1,12 @@
-"""The frozen arithmetic: the U-Net's FLOP count is the port's, and the
-kernels' bounds are those of ``PERF.md``'s kernel table at its shapes."""
+"""The frozen arithmetic: the U-Net's FLOP count (``arch/unet.py``) is the
+port's, and the kernels' bounds are those of ``PERF.md``'s kernel table at
+its shapes."""
 import json
 
 import pytest
 
 from gwbench import cell, yardstick
+from gwbench.arch import unet
 
 CONFIGS = {c["name"]: json.loads((cell.ROOT / c["file"]).read_text())
            for c in cell.benchmark()["configs"]}
@@ -54,9 +56,11 @@ def test_backward_bounds_of_the_kernel_table():
 
 def test_attention_shape_of_attn16k():
     cfg = CONFIGS["attn16k"]
-    assert yardstick.attention_shape(cfg["model"], 32768, 64) == (64, 4, 4096,
-                                                                  64)
-    assert yardstick.attention_shape(CONFIGS["pn128"]["model"], 4096, 8) is None
+    assert unet.attention_shape(cfg["model"], 32768, 64) == (64, 4, 4096, 64)
+    assert unet.attention_shape(CONFIGS["pn128"]["model"], 4096, 8) is None
+    assert unet.kernel_shapes(cfg["model"], 32768, 64)["k2"] == [
+        (64, 4, 4096, 64)]
+    assert unet.kernel_shapes(CONFIGS["pn128"]["model"], 4096, 8)["k2"] == []
 
 
 def test_kernel_classes():
