@@ -15,7 +15,15 @@ An ``arch/<arch>.py`` holds
   Cin, Cout); ``"k2"``: (B, H, L, D)); the backward launches one K1B or
   K2B for each;
 - ``CUTTABLE``: the ``model`` keys that a configuration may list in
-  ``reduced``: depth, or the chip's share of a layer, never a width.
+  ``reduced``: depth, or the chip's share of a layer, never a width;
+
+and, where the port's forward of the architecture opens profiler spans
+(the port's ``utils/spans.py::SPANS``),
+
+- ``FORWARD``: the name of the span around one forward;
+- ``SPANS``: the names of its leaf spans inside it, in the port's order.
+
+A module that declares neither has no spans.
 """
 from __future__ import annotations
 

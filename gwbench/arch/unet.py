@@ -15,6 +15,12 @@ from .. import port
 # depth sets the levels, and with them the channel widths: no key is cut
 CUTTABLE: Tuple[str, ...] = ()
 
+# the port's spans of ``UNet1D.forward``: the forward, and its parts that
+# launch elementwise work beside K1 and K2
+FORWARD = "unet/forward"
+SPANS: Tuple[str, ...] = ("unet/film", "unet/cond_bias", "unet/resample",
+                          "unet/attn")
+
 
 def build(config: dict, params: Dict, device):
     """The port's ``UNet1D`` of the configuration with ``params`` copied

@@ -4,10 +4,12 @@ base of ``elementwise_share.recon``: every class of
 ``yardstick.device_seconds``).
 
 The names are the program's (``utils/spans.py::SPANS`` of the port),
-copied here so that the benchmark imports nothing of the program."""
+copied into the benchmark so that it imports nothing of the program: the
+sampler's here, a forward's in its architecture's ``arch/<arch>.py``."""
 from __future__ import annotations
 
 from gwbench import yardstick
+from gwbench.arch import unet
 from gwbench.metrics._shared import is_serving
 
 # the sampler's own work: the call's inputs, seed aggregation and
@@ -16,8 +18,9 @@ from gwbench.metrics._shared import is_serving
 SAMPLER = ("serve/inputs", "serve/aggregate", "serve/calibrate",
            "sampler/start", "sampler/net_in", "sampler/guide",
            "sampler/update")
-# the U-Net's parts that launch elementwise work beside K1 and K2
-UNET = ("unet/film", "unet/cond_bias", "unet/resample", "unet/attn")
+# the U-Net's parts that launch elementwise work beside K1 and K2, as its
+# architecture declares them
+UNET = unet.SPANS
 LEAVES = SAMPLER + UNET
 
 

@@ -1,6 +1,7 @@
 """The readers of the program's spans (``metrics/_spans.py`` and the six
 metrics that use it) on hand-built traces, and on the card a traced run of
 each cell that prints every one of them."""
+import importlib
 import json
 import subprocess
 
@@ -9,6 +10,7 @@ import pytest
 from gwbench import cell, tracing
 from gwbench.metrics import _spans
 from gwbench.reference import arch_name
+from gwbench.tests import toy_arch
 
 BENCH = cell.benchmark()
 NEW = ("sampler_self_share.recon", "film_share.recon",
@@ -114,12 +116,64 @@ def test_unspanned_rest_counts_rest_outside_the_leaves_only():
     assert got == pytest.approx(100.0 * 3.5 / 8.0)
 
 
+# every ``arch/<arch>.py``, by the glob of ``test_bench_arch.py``
+ARCHS = sorted(p.stem for p in (cell.HERE / "arch").glob("*.py")
+               if p.stem != "__init__")
+# the served path's spans that no architecture opens: the call, and the
+# step that holds a forward
+SERVED = ("serve/call", "sampler/step")
+
+
+def span_faults(opened, archs) -> list:
+    """What the program's spans ``opened`` break of the rule, none where
+    they keep it: they are exactly the served path's own, the sampler's
+    leaves and each of ``archs``' ``FORWARD`` and ``SPANS``
+    (``gwbench.arch.<arch>``), and hold every leaf that the readers
+    read."""
+    want = set(SERVED) | set(_spans.SAMPLER)
+    for name in archs:
+        mod = importlib.import_module(f"gwbench.arch.{name}")
+        if hasattr(mod, "FORWARD"):
+            want.add(mod.FORWARD)
+        want.update(getattr(mod, "SPANS", ()))
+    opened = set(opened)
+    faults = [f"opened, declared by none: {n}" for n in sorted(opened - want)]
+    faults += [f"declared, not opened: {n}" for n in sorted(want - opened)]
+    if not set(_spans.LEAVES) < opened:
+        faults.append(f"leaves not opened: "
+                      f"{sorted(set(_spans.LEAVES) - opened)}")
+    return faults
+
+
 def test_the_leaves_are_spans_the_program_opens():
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils import spans
 
-    assert set(_spans.LEAVES) < set(spans.SPANS)
-    assert {"unet/forward", "sampler/step", "serve/call"} == \
-        set(spans.SPANS) - set(_spans.LEAVES)
+    assert span_faults(spans.SPANS, ARCHS) == []
+
+
+@pytest.mark.parametrize("declared", [True, False])
+def test_a_new_span_needs_an_architecture_that_declares_it(monkeypatch,
+                                                           declared):
+    """A span that the program adds (the toy's ``toy/block``) passes where
+    the toy's ``arch`` module declares it, and fails where it does not."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils import spans
+
+    monkeypatch.setattr(spans, "SPANS", spans.SPANS + ("toy/block",))
+    toy_arch.register(monkeypatch)
+    if declared:
+        monkeypatch.setattr(toy_arch, "SPANS", ("toy/block",), raising=False)
+    faults = span_faults(spans.SPANS, sorted(set(ARCHS) | {"toy"}))
+    assert faults == ([] if declared else
+                      ["opened, declared by none: toy/block"])
+
+
+@pytest.mark.parametrize("name", [r[0] for r in RANGES])
+def test_a_dropped_or_renamed_span_fails_the_rule(name):
+    """Each of the 14 spans that the program opens today."""
+    assert span_faults([r[0] for r in RANGES], ARCHS) == []
+    opened = [r[0] for r in RANGES if r[0] != name]
+    assert span_faults(opened, ARCHS)
+    assert span_faults(opened + [name + "_renamed"], ARCHS)
 
 
 def test_the_new_metrics_are_entries_of_the_benchmark():

@@ -1,18 +1,30 @@
 """The frozen arithmetic: the U-Net's FLOP count (``arch/unet.py``) is the
-port's, and the kernels' bounds are those of ``PERF.md``'s kernel table at
-its shapes."""
+port's, every configuration's counts are finite, and the kernels' bounds
+are those of ``PERF.md``'s kernel table at its shapes."""
 import json
+import math
 
 import pytest
 
 from gwbench import cell, yardstick
 from gwbench.arch import unet
+from gwbench.reference import arch_name
 
+BENCH = cell.benchmark()
 CONFIGS = {c["name"]: json.loads((cell.ROOT / c["file"]).read_text())
-           for c in cell.benchmark()["configs"]}
+           for c in BENCH["configs"]}
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+def _rows(workload: dict) -> int:
+    """Rows of one forward of the cell, as ``serve_batch.run`` records them
+    (``rows_per_forward``): each measurement's seeds, conditioned and not."""
+    t = json.loads((cell.HERE / "traffic" / f"{workload['traffic']}.json")
+                   .read_text())
+    return 2 * t["avg_seeds"] * t["measurements_per_call"]
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, c in CONFIGS.items() if arch_name(c["model"]) == "unet"))
 def test_unet_flops_equal_the_ports(name):
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils import roofline
 
@@ -21,6 +33,23 @@ def test_unet_flops_equal_the_ports(name):
     assert yardstick.model_flops_per_sample(m, L) == roofline.unet_flops_per_sample(
         L, m["in_ch"], m["base_ch"], m["depth"], cond_ch=m["cond_in_ch"],
         fast_decoder=False, use_attention=m["use_attention"])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_every_configurations_counts_are_finite(name):
+    """Of any architecture: a row's forward FLOPs positive and finite, and
+    at the rows of each of its cells the kernels' bounds finite and not
+    negative."""
+    cfg = CONFIGS[name]
+    m, L = cfg["model"], cfg["segment_len"]
+    flops = yardstick.model_flops_per_sample(m, L)
+    assert 0.0 < flops < math.inf
+    cells = [w for w in BENCH["workloads"] if w["config"] == name]
+    assert cells
+    for w in cells:
+        got = yardstick.forward_bounds(m, L, _rows(w))
+        assert all(0.0 <= v < math.inf for v in got.values()), (w["name"],
+                                                                got)
 
 
 def test_flops_of_the_flagships():
