@@ -33,7 +33,13 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              by ``tools.bench_kernels.conv_row`` / ``attention_row``.
              K1's records also carry the two-pass floor (the bound plus y's
              f32 write and read) and one call's device time split into
-             pack / conv / stats / apply (``torch.profiler``).
+             pack / conv / stats / apply (``torch.profiler``).  K1's
+             decoder route at each flagship's decoder blocks (its serving
+             batch, its cell's rows and the infer batch of 8; without and
+             with the conditioning epilogue), against its own arithmetic
+             and against the materialised upsample -> concat -> K1, timed
+             beside that path, the concatenation, the plain fold, the plain
+             version and the library (``tools.bench_kernels.decoder_row``).
 3b. kernel_backward - K1B and K2B, the backward kernels, against their
              plain backwards on the inputs in f32 at every training path's
              shapes in bf16 (attn16k's 7 ConvBlocks at 16 rows and its
@@ -78,8 +84,9 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              configuration of ``reconstruct`` is checked against the CPU
              plain path.
 7. op_overhead - host time of one launch of each kernel, K1B and K2B
-             too: its launch body alone, its registered op called
-             directly, and the public wrapper; what the registration adds.
+             too, and of K1's decoder route: its launch body alone, its
+             registered op called directly, and the public wrapper; what
+             the registration adds.
 8. export  - per flagship, the serving artifact: ``export_sampler`` on the
              card from the infer phase's checkpoint (serving batch and
              knobs; export time, ``.pt2`` size, the ops in its graph),
@@ -197,8 +204,8 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              launches, one population profiled, peak memory) and a small
              f32 population (B 4, L 512, 3 steps) against the CPU plain
              path; every ``tools.bench_kernels`` section at the root tool's
-             shapes (K1 f32 and bf16; DecoderConvBlock against upsample ->
-             concat -> K1; K2 f32 and bf16; the attention U-Net kernel path
+             shapes (K1 f32 and bf16; K1's decoder route against
+             upsample -> concat -> K1; K2 f32 and bf16; the attention U-Net kernel path
              against plain path, K2 at (64, 4, 512, 64), held in f32
              within the model bar; the HBM stream), each kernel row within
              the port's kernel bars; the glitch and spin
@@ -226,6 +233,7 @@ printing any result.
 """
 import contextlib
 import copy
+import functools
 import itertools
 import json
 import os
@@ -495,6 +503,78 @@ def phase_kernel(torch, config, shapes, dtypes_rows, groups=8,
     return results
 
 
+def decoder_shapes(model, L):
+    """(name, L, C_h, C_s, Cout) of every decoder block of ``model`` at
+    input length L, the skip's length and channels (C_s = Cout)."""
+    return [(name, n, Cin - Cout, Cout, Cout)
+            for name, n, Cin, Cout in convblock_shapes(model, L)
+            if name.startswith("dec")]
+
+
+def phase_kernel_decoder(torch, config, shapes, rows, epilogues=("none",),
+                         reps=5):
+    """K1's decoder route at each (name, L, C_h, C_s, Cout), bf16, ``rows``
+    rows, for each of ``epilogues``: the row of
+    ``tools.bench_kernels.decoder_row`` (the route against its arithmetic
+    at the K1 bars and against the materialised upsample -> concat -> K1;
+    with ``reps``, its time beside the materialised path's, the
+    concatenation's, the plain fold's, the plain version's and cuDNN's, and
+    the bound) plus its split by pass and, as ``phase_kernel``'s, the
+    two-pass floor."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import (
+        ConvBlock,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        fused_conv_gn_silu,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        decoder_row,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.roofline import (
+        bound_ms,
+    )
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import (
+        randomize_,
+    )
+
+    kind = torch.cuda.get_device_name(0)
+    results = []
+    for (name, L, Ch, Cs, Cout), epilogue in itertools.product(shapes,
+                                                              epilogues):
+        g = torch.Generator(device="cuda").manual_seed(L + Ch + Cs + Cout)
+        h = torch.randn(rows, L // 2, Ch, generator=g,
+                        device="cuda").bfloat16()
+        skip = torch.randn(rows, L, Cs, generator=g, device="cuda").bfloat16()
+        block = ConvBlock(Ch + Cs, Cout, "cuda")
+        randomize_(block, L + Cout)
+        block.requires_grad_(False)      # the route has no backward
+        epi = epilogue_args(torch, epilogue, rows, L, Cout, torch.bfloat16, g)
+        row = decoder_row(h, skip, block, reps=reps, plain_reps=3, **epi)
+        rec = {"phase": "kernel_decoder", "kernel": "conv_gn_silu_decoder",
+               "config": config, "block": name, "rows": rows, "L": L,
+               "Ch": Ch, "Cs": Cs, "Cout": Cout, "groups": block.groups,
+               **row}
+        if reps > 0:
+            rec["two_pass_floor_ms"] = bound_ms(
+                row["gflop"] * 1e9, row["mbytes"] * 1e6 + 8 * rows * L * Cout,
+                kind, "bfloat16")[0]
+            rec["split_ms"] = split_ms(
+                torch, lambda: fused_conv_gn_silu(
+                    h, block.conv.kernel, block.conv.bias, block.norm.scale,
+                    block.norm.bias, block.groups, skip=skip, **epi),
+                K1_PASSES)
+        emit(rec)
+        results.append(rec)
+        check(row["within_tol"],
+              f"conv_gn_silu decoder route {config} {name} rows={rows} "
+              f"epilogue {epilogue}: {row['n_outside_tol']} outputs outside "
+              f"the K1 bars, {row['n_outside_materialised_tol']} outside "
+              f"the materialised path's")
+        del h, skip, block, epi
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernel_attention(torch, shapes=K2_SHAPES):
     """K2 at each (dtype, B, H, L, D): the row of
     ``tools.bench_kernels.attention_row``."""
@@ -647,42 +727,82 @@ def phase_kernel_backward(torch):
     return kb1, kb2
 
 
+def decoder_routes(model):
+    """The decoder blocks of ``model`` that take K1's decoder route in a
+    forward autograd does not record: in bf16, those whose h and skip
+    channel counts are both multiples of 64 (every length here is even at
+    every stage, so the skip is always twice h's length)."""
+    if str(model.dtype) != "torch.bfloat16":
+        return 0
+    routes = 0
+    for i in range(model.depth):
+        _, cin, cout = getattr(model, f"dec{i}").conv.kernel.shape
+        routes += (cin - cout) % 64 == 0 and cout % 64 == 0
+    return routes
+
+
+@functools.lru_cache(maxsize=None)
+def _route_share(model_items):
+    import torch
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
+
+    model = UNet1D(**dict(model_items), dtype=torch.bfloat16, device="cpu")
+    return decoder_routes(model), 2 * model.depth + 1
+
+
+def route_share(model_kw):
+    """(decoder blocks on K1's decoder route, K1 launches) of a bf16
+    forward, autograd not recording, of the U-Net of ``model_kw``."""
+    return _route_share(tuple(sorted(model_kw.items())))
+
+
 def expected_launches(model, forwards, backwards=0):
     """K1 once per ConvBlock per forward, K2 once per forward with
     attention; K1B and K2B likewise per backward.  The forwards without a
     backward are the no-grad ones, whose K1 launches carry the
-    conditioning epilogue."""
+    conditioning epilogue and, for ``decoder_routes`` of the decoder
+    blocks, take K1's decoder route."""
     blocks = 2 * model.depth + 1
     return {"conv_gn_silu": blocks * forwards,
             "flash_attention": forwards if model.use_attention else 0,
             "conv_gn_silu_backward": blocks * backwards,
             "flash_attention_backward": (backwards if model.use_attention
                                          else 0),
-            EPILOGUE: blocks * (forwards - backwards)}
+            EPILOGUE: blocks * (forwards - backwards),
+            DECODER: decoder_routes(model) * (forwards - backwards)}
 
 
 KERNEL_NAMES = ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
                 "flash_attention_backward")
-# the count of K1's launches that carried the conditioning epilogue (a
-# part of K1's count, not a kernel of its own)
+# the count of K1's launches that carried the conditioning epilogue, and
+# of those on K1's decoder route (parts of K1's count, not kernels of
+# their own)
 EPILOGUE = "conv_gn_silu_epilogue"
+DECODER = "conv_gn_silu_decoder"
 
 
-def all_counts(want):
+def all_counts(want, model=None):
     """``want`` with every kernel it does not name at 0 launches: serving,
     export and replay runs must launch no backward kernel.  Where ``want``
     does not name the epilogue's count, it is K1's launches less K1B's: a
     forward that autograd records has its backward, and every other
     forward hands each block's bias and FiLM to K1 (a run whose blocks run
-    split on a model axis, which keep them apart, names its count)."""
+    split on a model axis, which keep them apart, names its count).  Where
+    it does not name the decoder route's, it is the epilogue's count times
+    ``route_share`` of ``model`` (the keyword arguments of the run's bf16
+    U-Net; None: no launch on the route): the route is taken on the same
+    forwards, by the model's decoder blocks whose widths it takes."""
     out = {**dict.fromkeys(KERNEL_NAMES, 0), **want}
     out.setdefault(EPILOGUE, out["conv_gn_silu"]
                    - out["conv_gn_silu_backward"])
+    routes, blocks = (0, 1) if model is None else route_share(model)
+    out.setdefault(DECODER, out[EPILOGUE] * routes // blocks)
     return out
 
 
-def check_launches(launch_counts, want, what):
-    got, want = launch_counts(), all_counts(want)
+def check_launches(launch_counts, want, what, model=None):
+    got, want = launch_counts(), all_counts(want, model)
     check(got == want, f"{what}: launches {got} != {want}")
     return got
 
@@ -1296,7 +1416,8 @@ def phase_train(torch, tmp):
         launch_counts, {"conv_gn_silu": 14 * steps,
                         "flash_attention": 2 * steps,
                         "conv_gn_silu_backward": 7 * steps,
-                        "flash_attention_backward": steps}, "attn16k train")
+                        "flash_attention_backward": steps}, "attn16k train",
+        model=ATTN16K)
     check(np.isfinite(out["history"][0]["avg_per_sample"])
           and int(out["state"].step) == steps, "attn16k counted run")
 
@@ -1440,7 +1561,8 @@ def phase_train_grads(torch, ds, tmp):
         lp, gp, cp = one_step(bf16, plain=True)
         check(ck == all_counts({"conv_gn_silu": 14, "flash_attention": 2,
                                 "conv_gn_silu_backward": 7,
-                                "flash_attention_backward": 1})
+                                "flash_attention_backward": 1},
+                               model=ATTN16K if bf16 else None)
               and cp == all_counts({}),
               f"gradient check {dname}: launches {ck} / plain {cp}")
         grad_rel = float((gk - gp).abs().max() / gp.abs().max())
@@ -1504,7 +1626,7 @@ def phase_train_cli(torch, tmp):
     launches = check_launches(launch_counts,
                               {"conv_gn_silu": 7 * (steps + heads),
                                "conv_gn_silu_backward": 7 * steps},
-                              "pn128 train cli")
+                              "pn128 train cli", model=FLAGSHIP)
     hist = [h["avg_per_sample"] for h in out["history"]]
     check(len(hist) == CLI_TRAIN_EPOCHS and hist[0] > hist[-1],
           f"gw-train: the loss did not fall, {hist}")
@@ -1592,6 +1714,9 @@ def phase_op_overhead(torch):
     q, k, v = (torch.randn(1, 2, 128, 64, generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     dy = torch.randn(2, 128, 64, generator=g, device="cuda").to(torch.bfloat16)
+    # the decoder route at the same output: h at half length, the skip
+    h = torch.randn(2, 64, 64, generator=g, device="cuda").to(torch.bfloat16)
+    Wd = torch.randn(3, 128, 64, generator=g, device="cuda") / 20.0
     o = k2.flash_attention_op(q, k, v)
     do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
     probe_op = torch.ops.gwport_probe.conv_gn_silu.default
@@ -1601,6 +1726,12 @@ def phase_op_overhead(torch):
             "op": lambda: k1.conv_gn_silu_op(x, W, b, s, bb, 8, 1e-5),
             "wrapper": lambda: k1.fused_conv_gn_silu(x, W, b, s, bb, 8),
             "library_impl": lambda: probe_op(x, W, b, s, bb, 8, 1e-5)},
+        "conv_gn_silu_decoder": {
+            "body": lambda: k1._launch_decoder(h, dy, Wd, b, s, bb, 8, 1e-5),
+            "op": lambda: k1.conv_gn_silu_op(h, Wd, b, s, bb, 8, 1e-5, None,
+                                             None, None, None, dy),
+            "wrapper": lambda: k1.fused_conv_gn_silu(h, Wd, b, s, bb, 8,
+                                                     skip=dy)},
         "flash_attention": {
             "body": lambda: k2._launch(q, k, v),
             "op": lambda: k2.flash_attention_op(q, k, v),
@@ -2061,7 +2192,7 @@ def phase_bench(torch):
     runs = (1 + bench.REPS) * (bench.SCAN_STEPS + bench.LONG)
     bench_launches = check_launches(
         launch_counts, {"conv_gn_silu": (2 * bench.MODEL["depth"] + 1) * runs,
-                        "flash_attention": 0}, "bench")
+                        "flash_attention": 0}, "bench", model=bench.MODEL)
     print(json.dumps(rec), flush=True)         # the bench's own line
     check(np.isfinite(rec["value"]) and rec["value"] > 0,
           f"bench value {rec['value']}")
@@ -2092,7 +2223,8 @@ def phase_bench(torch):
     out = fn(*args)
     torch.cuda.synchronize()
     entry_launches = check_launches(
-        launch_counts, {"conv_gn_silu": 7, "flash_attention": 0}, "entry()")
+        launch_counts, {"conv_gn_silu": 7, "flash_attention": 0}, "entry()",
+        model=FLAGSHIP)
     check(tuple(out.shape) == (8, 1, 4096) and bool(torch.isfinite(out).all()),
           f"entry() output {tuple(out.shape)}")
     emit({"phase": "entry", "shape": list(out.shape),
@@ -2172,9 +2304,10 @@ def ladder_len(steps, start_t, ladder="t"):
     return len(build_t_schedule(1000, steps, start_t))
 
 
-def run_counted(torch, fn, want, what):
+def run_counted(torch, fn, want, what, model=None):
     """``fn()`` with the launch counts set to 0 just before and read just
-    after; returns (its result, launches, seconds)."""
+    after, checked against ``all_counts(want, model)``; returns (its
+    result, launches, seconds)."""
     from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
         launch_counts,
         reset_launch_counts,
@@ -2190,7 +2323,8 @@ def run_counted(torch, fn, want, what):
     LaunchShapes.label = "other"
     got = launch_counts()
     if want is not None:
-        check(got == all_counts(want(out) if callable(want) else want),
+        check(got == all_counts(want(out) if callable(want) else want,
+                                model),
               f"{what}: launches {got}")
     return out, got, seconds
 
@@ -2323,7 +2457,8 @@ def phase_evals(torch, tmp):
     top, got, sweep_s = run_counted(
         torch, lambda: sweep_cli.main(argv),
         lambda top: {"conv_gn_silu": 7 * sweep_forwards(top),
-                     "flash_attention": 0}, "gw-sweep --grid")
+                     "flash_attention": 0}, "gw-sweep --grid",
+        model=FLAGSHIP)
     launches["pn128 sweep grid"] = got
     with open(os.path.join(sw, "grid_results.json")) as fh:
         res = json.load(fh)
@@ -2354,7 +2489,7 @@ def phase_evals(torch, tmp):
         torch, lambda: sweep_cli.main(argv_r),
         {"conv_gn_silu": 7 * (n8 * (4 + 2 * 2 + 1)
                               + ladder_len(EVAL_STEPS, 999)),
-         "flash_attention": 0}, "gw-sweep random")
+         "flash_attention": 0}, "gw-sweep random", model=FLAGSHIP)
     launches["pn128 sweep random"] = got
     check(sorted(os.listdir(sr)) == ["best_cmd.txt", "coarse_top.json",
                                       "final_results.json", "validation.json"]
@@ -2373,7 +2508,7 @@ def phase_evals(torch, tmp):
         n = ladder_len(steps, start_t, ladder) * calls
         return all_counts({"conv_gn_silu": 7 * n,
                            "flash_attention": n if config == "attn16k"
-                           else 0})
+                           else 0}, model=PATHS[config]["model"])
 
     records = {}
     torch.cuda.reset_peak_memory_stats()
@@ -2643,7 +2778,7 @@ def phase_distill(torch, tmp, teacher, corpus):
             "--device", "cuda"]),
         {"conv_gn_silu": 7 * 3 * steps_per_stage * stages,
          "conv_gn_silu_backward": 7 * steps_per_stage * stages},
-        "gw-distill")
+        "gw-distill", model=FLAGSHIP)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches["pn128 distill"] = got
     with open(log) as fh:
@@ -2720,7 +2855,8 @@ def phase_distill(torch, tmp, teacher, corpus):
             "--input-h5", corpus, "--model", student2, "--outdir", gd,
             "--per-cell", str(EVAL_CORPORA["pn128"]["per_cell"]),
             "--avg-seeds", str(EVAL_SEEDS), "--device", "cuda"]),
-        {"conv_gn_silu": 7 * n2, "flash_attention": 0}, "gw-grid distilled")
+        {"conv_gn_silu": 7 * n2, "flash_attention": 0}, "gw-grid distilled",
+        model=FLAGSHIP)
     launches["pn128 distilled grid"] = got
     knobs = out["summary"]["knobs"]
     check(knobs["steps"] == 2 and knobs["cfg_scale"] == 1.0
@@ -3008,7 +3144,7 @@ def phase_parallel_nccl(torch, tmp):
                                    p_uncond=0.2)
         return run_counted(torch, lambda: tt.train(cfg, dataset=ds, mesh=mesh,
                                                    device="cuda"),
-                           want, f"attn16k train {name}")
+                           want, f"attn16k train {name}", model=ATTN16K)
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
                             world_size=1, rank=0)
@@ -3362,7 +3498,7 @@ def phase_parallel_ranks(torch, tmp, prep, shapes):
               "conv_gn_silu": 7 * (PAR_TIMED_STEPS + sum(r0["coins"])),
               "flash_attention": PAR_TIMED_STEPS + sum(r0["coins"]),
               "conv_gn_silu_backward": 7 * PAR_TIMED_STEPS,
-              "flash_attention_backward": PAR_TIMED_STEPS}),
+              "flash_attention_backward": PAR_TIMED_STEPS}, model=ATTN16K),
           f"the ranks' launches {r0['batch_launches']} "
           f"{r0['tile_launches']}")
 
@@ -3753,7 +3889,8 @@ def phase_data(torch, tmp):
     out, train_l, train_s = run_counted(
         torch, lambda: train_cli.main(argv),
         {"conv_gn_silu": 7 * (steps + heads),
-         "conv_gn_silu_backward": 7 * steps}, "pn128 streaming train")
+         "conv_gn_silu_backward": 7 * steps}, "pn128 streaming train",
+        model=FLAGSHIP)
     peak = torch.cuda.max_memory_allocated() / 1e9
     with open(log) as fh:
         ends = [r for r in map(json.loads, fh) if r["phase"] == "epoch_end"]
@@ -3782,7 +3919,7 @@ def phase_data(torch, tmp):
             out["checkpoint"], "--outdir", outdir, "--steps",
             str(INFER_STEPS), "--device", "cuda"]),
         {"conv_gn_silu": 7 * forwards, "flash_attention": 0},
-        "pn128 streaming infer cli")
+        "pn128 streaming infer cli", model=FLAGSHIP)
     recon = [f for f in os.listdir(outdir) if f.startswith("recon_ddim")]
     rec_arr = np.load(os.path.join(outdir, recon[0]))
     check(len(recon) == 1 and rec_arr.shape[0]
@@ -3872,7 +4009,8 @@ def phase_tools(torch, tmp, corpus, ckpt, data_paths):
     torch.cuda.reset_peak_memory_stats()
     rec, got, secs = run_counted(
         torch, bp.run, {"conv_gn_silu": 7 * forwards * pops,
-                        "flash_attention": 0}, "bench_population")
+                        "flash_attention": 0}, "bench_population",
+        model=bp.MODEL)
     launches["bench_population"] = got
     print(json.dumps(rec), flush=True)              # the tool's own line
     check(rec["samples_per_sec"] > 0 and rec["batch"] == 256
@@ -3950,7 +4088,7 @@ def phase_tools(torch, tmp, corpus, ckpt, data_paths):
         torch, lambda: glitch_robustness.main(
             ["--input-h5", corpus, "--model", ckpt] + cuts),
         {"conv_gn_silu": 7 * fwd * 4, "flash_attention": 0},
-        "glitch_robustness")
+        "glitch_robustness", model=FLAGSHIP)
     launches["glitch_robustness"] = got
     indices = [r["index"] for r in glitch["levels"][0]["per_sample"]]
     direct = _glitch_level0_direct(torch, corpus, ckpt, indices)
@@ -3973,7 +4111,7 @@ def phase_tools(torch, tmp, corpus, ckpt, data_paths):
         torch, lambda: spin_sensitivity.main(
             ["--input-h5", corpus, "--model", ckpt] + cuts),
         {"conv_gn_silu": 7 * fwd * 2, "flash_attention": 0},
-        "spin_sensitivity")
+        "spin_sensitivity", model=FLAGSHIP)
     launches["spin_sensitivity"] = got
     emit({"phase": "tools_spin_sensitivity", "cuts": {
               "steps": "50 -> 10", "avg_seeds": "4 -> 2"},
@@ -4023,12 +4161,15 @@ class LaunchShapes:
     launch on the host, under the label of the run in progress
     (``run_counted`` sets it; "other" elsewhere).  K1's key is (dtype,
     rows, L, Cin, Cout, groups, epilogue), the epilogue "none", "film" or
-    "cond<K>" (K the conditioning's channels); K1B's (dtype, rows, L, Cin,
-    Cout, groups); K2's and K2B's (dtype, B, H, L, D)."""
+    "cond<K>" (K the conditioning's channels); its decoder route's (dtype,
+    rows, L, C_h, C_s, Cout, groups, epilogue), L the skip's length;
+    K1B's (dtype, rows, L, Cin, Cout, groups); K2's and K2B's (dtype, B, H,
+    L, D)."""
 
     label = "other"
     # kernel -> (its module in ops/kernels, its launch body there)
     KERNELS = {"conv_gn_silu": ("conv_gn_silu", "_launch"),
+               "conv_gn_silu_decoder": ("conv_gn_silu", "_launch_decoder"),
                "flash_attention": ("flash_attention", "_launch"),
                "conv_gn_silu_backward": ("conv_gn_silu", "_launch_backward"),
                "flash_attention_backward": ("flash_attention",
@@ -4052,11 +4193,18 @@ class LaunchShapes:
 
         def launch(*args):
             # hashable as they come, normalised by ``seen``
-            key = ((args[o].dtype, args[o].shape, args[o + 1].shape,
-                    args[o + 5]) if conv
-                   else (args[o].dtype, args[o].shape))
-            if kernel == "conv_gn_silu":     # film and r follow eps
-                film, r = (*args[7:9], None, None)[:2]
+            if kernel == "conv_gn_silu_decoder":   # h, skip, W, ..., groups
+                key = (args[0].dtype, args[0].shape, args[1].shape,
+                       args[2].shape, args[6])
+            elif conv:
+                key = (args[o].dtype, args[o].shape, args[o + 1].shape,
+                       args[o + 5])
+            else:
+                key = (args[o].dtype, args[o].shape)
+            if kernel in ("conv_gn_silu", "conv_gn_silu_decoder"):
+                # film and r follow eps
+                first = 8 if kernel == "conv_gn_silu_decoder" else 7
+                film, r = (*args[first:first + 2], None, None)[:2]
                 key += ("none" if film is None else "film" if r is None
                         else f"cond{r.shape[-1]}",)
             raw.setdefault(key, set()).add(LaunchShapes.label)
@@ -4068,14 +4216,18 @@ class LaunchShapes:
     @staticmethod
     def _norm(kernel, key):
         dname = str(key[0]).split(".")[1]
+        if kernel == "conv_gn_silu_decoder":
+            (B, _, Ch), (_, L, Cs), Cout = key[1], key[2], key[3][2]
+            return (dname, B, L, Ch, Cs, Cout, int(key[4]), key[5])
         return ((dname, *key[1][:2], *key[2][1:], int(key[3]), *key[4:])
                 if kernel.startswith("conv_gn_silu") else (dname, *key[1]))
 
     @property
     def seen(self):
         """{kernel: {key: labels}} with K1's key (dtype, rows, L, Cin, Cout,
-        groups, epilogue), K1B's without the epilogue and K2's (dtype, B, H,
-        L, D), dtype by name."""
+        groups, epilogue), its decoder route's (dtype, rows, L, C_h, C_s,
+        Cout, groups, epilogue), K1B's without the epilogue and K2's (dtype,
+        B, H, L, D), dtype by name."""
         out = {k: {} for k in self.KERNELS}
         for k, raw in self.raw.items():
             for key, labels in raw.items():
@@ -4126,7 +4278,7 @@ def k1_sum(recs):
     return out
 
 
-def phase_launched_shapes(torch, shapes, k1, k2, kb):
+def phase_launched_shapes(torch, shapes, k1, k2, kb, kd):
     """Every shape a kernel was launched at while ``shapes`` recorded (the
     main paths, the small checks against the CPU, the gradient checks, the
     training runs' backward kernels) against the kernel's plain version:
@@ -4139,7 +4291,10 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb):
     key2 = ("dtype", "B", "H", "L", "D")
     done1 = {tuple(r[k] for k in key1 + ("epilogue",)): r for r in k1}
     done2 = {tuple(r[k] for k in key2): r for r in k2}
-    done = {"conv_gn_silu": done1, "flash_attention": done2,
+    keyd = ("dtype", "rows", "L", "Ch", "Cs", "Cout", "groups", "epilogue")
+    doned = {tuple(r[k] for k in keyd): r for r in kd}
+    done = {"conv_gn_silu": done1, "conv_gn_silu_decoder": doned,
+            "flash_attention": done2,
             "conv_gn_silu_backward": {tuple(r[k] for k in key1): r
                                       for r in kb[0]},
             "flash_attention_backward": {tuple(r[k] for k in key2): r
@@ -4169,7 +4324,14 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb):
     for r in phase_kernel_attention(torch, sorted(
             set(seen["flash_attention"]) - set(done2))):
         done2[(r["dtype"], r["B"], r["H"], r["L"], r["D"])] = r
-    by_run = {"conv_gn_silu": {}, "flash_attention": {}}
+    for key in sorted(set(seen["conv_gn_silu_decoder"]) - set(doned)):
+        _, rows, L, Ch, Cs, Cout, G, epilogue = key
+        r, = phase_kernel_decoder(torch, "launched",
+                                  [(f"L{L} {Ch}+{Cs}->{Cout}", L, Ch, Cs,
+                                    Cout)], rows, (epilogue,), reps=0)
+        doned[tuple(r[k] for k in keyd)] = r
+    by_run = {"conv_gn_silu": {}, "conv_gn_silu_decoder": {},
+              "flash_attention": {}}
     for key, labels in seen["conv_gn_silu"].items():
         for label in labels - {"other"}:
             group = by_run["conv_gn_silu"].setdefault(label, {})
@@ -4179,6 +4341,15 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb):
     for label, groups in by_run["conv_gn_silu"].items():
         for name, recs in groups.items():
             groups[name] = k1_sum(recs)
+    for key, labels in seen["conv_gn_silu_decoder"].items():
+        r = doned[key]
+        for label in labels - {"other"}:
+            by_run["conv_gn_silu_decoder"].setdefault(label, {})[
+                " ".join(map(str, key))] = {
+                    k: r.get(k, "not measured") for k in (
+                        "kernel_ms", "materialised_ms", "plain_ms",
+                        "bound_ms", "max_abs_err",
+                        "max_abs_err_vs_materialised")}
     for key, labels in seen["flash_attention"].items():
         r = done2[key]
         for label in labels - {"other"}:
@@ -4272,9 +4443,11 @@ def backward_entries(kb, launches, coverage, pkg):
          "phase": "kernel_backward"}]
 
 
-def kernels_line(k1, k2, kb, launches, by_run, coverage):
+def kernels_line(k1, k2, kb, kd, launches, by_run, coverage):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
-    of each main path at its serving batch, K2 at attn16k's serving shape
+    of each main path at its serving batch as the path launches them (the
+    encoder's and mid's from ``k1``, the decoder's on the decoder route
+    from ``kd``; their sum also apart), K2 at attn16k's serving shape
     (both also at the infer batch of 8 rows and the training batch of 16,
     K2 at the grid's batch, K1 at the bench's shapes and at the streaming
     train's 16 rows at each bucket length; both at every shape the evals,
@@ -4286,15 +4459,31 @@ def kernels_line(k1, k2, kb, launches, by_run, coverage):
     ``entry()``, the parallel runs, the streaming gw-train and its
     gw-infer, bench_population, the bench_kernels sections, the glitch and
     spin harnesses)."""
-    def bf16_at(config, rows):
+    def main_path(config, rows):
+        """K1's records of one forward of ``config`` at ``rows``, with the
+        epilogue the path carries: its decoder blocks on the route."""
+        epilogue = path_epilogue(config)
         return [r for r in k1 if r["config"] == config
                 and r["dtype"] == "bfloat16" and r["rows"] == rows
-                and r["epilogue"] == path_epilogue(config)]
+                and r["epilogue"] == epilogue
+                and not r["block"].startswith("dec")] + [
+            r for r in kd if r["config"] == config and r["rows"] == rows
+            and r["epilogue"] == epilogue]
+
+    def k1_path_sum(config, rows):
+        recs = main_path(config, rows)
+        check(len(recs) == 2 * PATHS[config]["model"]["depth"] + 1,
+              f"K1's records of a {config} forward at {rows} rows: "
+              f"{[r['block'] for r in recs]}")
+        out = k1_sum(recs)
+        out["decoder_route"] = k1_sum([r for r in recs
+                                       if r["kernel"] == DECODER])
+        return out
 
     k1_paths = {}
     for config, path in PATHS.items():
-        recs = bf16_at(config, path["rows"])
-        k1_paths[config] = k1_sum(recs)
+        recs = main_path(config, path["rows"])
+        k1_paths[config] = k1_path_sum(config, path["rows"])
         k1_paths[config]["two_pass_floor_ms"] = sum(
             r["two_pass_floor_ms"] for r in recs)
         k1_paths[config]["ops_bound_ms"] = sum(
@@ -4302,8 +4491,7 @@ def kernels_line(k1, k2, kb, launches, by_run, coverage):
     k1_total = {key: sum(p[key] for p in k1_paths.values())
                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                             "ops_bound_ms", "two_pass_floor_ms")}
-    k1_infer = {config: k1_sum(bf16_at(config, INFER_ROWS))
-                for config in PATHS}
+    k1_infer = {config: k1_path_sum(config, INFER_ROWS) for config in PATHS}
     k1_extra = {config: k1_sum([r for r in k1 if r["config"] == config])
                 for config in [c for c, *_ in K1_EXTRA] + ["bench"]}
     main, infer, train, grid_b = (
@@ -4334,8 +4522,9 @@ def kernels_line(k1, k2, kb, launches, by_run, coverage):
          "bench_population": by_run["conv_gn_silu"].get("bench_population"),
          "launched_shapes": coverage["conv_gn_silu"],
          "shapes": "the 7 ConvBlocks of one forward of each main path, bf16, "
-                   "with the conditioning epilogue they launch: pn128 at 64 "
-                   "rows, attn16k at 32 rows",
+                   "with the conditioning epilogue they launch, the encoder's "
+                   "3 and mid materialised, the decoder's 3 on the decoder "
+                   "route: pn128 at 64 rows, attn16k at 32 rows",
          "phase": "kernel"},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{pkg}_torch/csrc/flash_attention.cu",
@@ -4461,6 +4650,18 @@ def main():
             ("bench", bench.MODEL, bench.L, bench.B)]:
         shapes = convblock_shapes(UNet1D(**model_kw, device="cuda"), L)
         k1 += phase_kernel(torch, config, shapes, ((torch.bfloat16, rows),))
+    # the decoder route at the flagships' serving batch, their cells' rows
+    # (pn128 128, attn16k 64) and the infer batch, with the epilogue the
+    # main paths carry
+    kd = []
+    for config, rows_list in (("pn128", (64, 128, INFER_ROWS)),
+                              ("attn16k", (32, 64, INFER_ROWS))):
+        path = PATHS[config]
+        shapes = decoder_shapes(UNet1D(**path["model"], device="cuda"),
+                                path["L"])
+        for rows in rows_list:
+            kd += phase_kernel_decoder(torch, config, shapes, rows,
+                                       ("none", path_epilogue(config)))
     k2 = phase_kernel_attention(torch)
     lap("kernel")
     kb = phase_kernel_backward(torch)
@@ -4533,11 +4734,11 @@ def main():
                 torch, f"{STREAM_CONFIG} L{L}", train_blocks(FLAGSHIP, L),
                 torch.bfloat16, TRAIN_BATCH, reps=2))
     lap("stream buckets")
-    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2, kb)
+    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2, kb, kd)
     lap("launched_shapes")
     emit({"phase": "seconds", "by_stretch": lap.s,
           "total": sum(lap.s.values())})
-    emit(kernels_line(k1, k2, kb, launches, by_run, coverage))
+    emit(kernels_line(k1, k2, kb, kd, launches, by_run, coverage))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

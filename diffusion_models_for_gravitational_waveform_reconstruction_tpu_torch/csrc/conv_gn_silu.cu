@@ -68,9 +68,160 @@
 //     4.1-4.4 ms without it, and 9.5 ms with the bias and FiLM as separate
 //     PyTorch steps.
 //
-// The device code is in conv_gn_silu.cuh, which the backward
-// (conv_gn_silu_backward.cu) shares.
+// The decoder route (conv_gn_silu_decoder_forward): the U-Net's decoder
+// block, conv3([nearest_up2(h) | skip]) -> GN -> SiLU (+ the epilogue),
+// with h (B, L/2, C_h) and skip (B, L, C_s) read as two sources, so the
+// upsampled and the concatenated tensors are never written.  It is K1's
+// decoder variant of the same Pallas kernel, computing the fold of JAX's
+// DecoderConvBlock (models/unet.py), which the Pallas kernel never takes.
+// What bounds it: the materialised path's conv pass did 6 C_h Cout MACs a
+// row for h's part, on an upsampled input that a repeat and a concatenation
+// wrote and read again (2 bytes a channel for each write and read at full
+// length, more than the conv's own reads); the device-memory rate bound
+// those copies.  The design: conv3_wgmma_decoder_bf16 loads h's rows at
+// half length and skip's rows through two tensor maps; the upsample folds
+// into h's taps (out[2j] = W0 h[j-1] + (W1 + W2) h[j], out[2j+1] = (W0 +
+// W1) h[j] + W2 h[j+1]), 4 C_h Cout MACs a row; a CTA takes 128 output
+// rows of one parity, so both warpgroups share each stage's weight tile
+// (the folded taps differ between the parities) and the ring and its 2
+// CTAs an SM stay the plain route's.  pack_weights_decoder_bf16 sums the
+// folded taps in f32 and rounds them once.  y's rows are stored at stride
+// 2; each warpgroup's partial statistics cover its 64 rows of one parity,
+// and group_stats counts those tiles' rows from L / 2.  The tensor-core
+// rate bounds the conv pass as on the plain route.
+//
+// The device code the backward (conv_gn_silu_backward.cu) shares is in
+// conv_gn_silu.cuh; the decoder route's own kernels and launch follow.
 #include "conv_gn_silu.cuh"
+
+namespace {
+
+// K1's decoder route (DEC above): tmap_h over h (C_h, L/2, B), tmap_s over
+// skip seen as (2 C_s, L/2, B), tmap_w over the decoder pack; L is the
+// output's length, n_tiles = 2 ceil(L / 128) partial tiles a sample.
+template <int TN>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+conv3_wgmma_decoder_bf16(const __grid_constant__ CUtensorMap tmap_h,
+                         const __grid_constant__ CUtensorMap tmap_s,
+                         const __grid_constant__ CUtensorMap tmap_w,
+                         const float* __restrict__ bias, float* __restrict__ y,
+                         float* __restrict__ part_mean,
+                         float* __restrict__ part_m2, int L, int Cout,
+                         int n_chunks_h, int n_chunks_s, int n_tiles) {
+  conv3_wgmma_body<TN, false, true>(&tmap_h, &tmap_s, &tmap_w, bias, y,
+                                    part_mean, part_m2, nullptr, L, Cout,
+                                    n_chunks_h, n_chunks_s, n_tiles);
+}
+
+// The decoder route's pack: W (3, C_h + C_s, Cout) f32 -> Wp [Cout_pad][K]
+// bf16, K = 4 C_h + 3 C_s, K-major: first the four folded taps of the h
+// part, v = 2p + u = W0 | W1 + W2 | W0 + W1 | W2 over W's first C_h rows,
+// each pair summed in f32 and rounded to bf16 once, then the three taps of
+// the skip part (W's last C_s rows).  Rows Cout .. Cout_pad are zeros.  One
+// CTA per 32 x 32 tile of one of the 7 parts, as pack_weights_bf16.
+__global__ void __launch_bounds__(256)
+pack_weights_decoder_bf16(const float* __restrict__ W,
+                          __nv_bfloat16* __restrict__ Wp, int Ch, int Cs,
+                          int Cout) {
+  __shared__ float tile[PACK_TILE][PACK_TILE + 1];
+  const int v = blockIdx.z, ci0 = blockIdx.y * PACK_TILE;
+  const int co0 = blockIdx.x * PACK_TILE;
+  if (ci0 >= (v < 4 ? Ch : Cs)) return;
+  const int Cin = Ch + Cs, K = 4 * Ch + 3 * Cs;
+  // the taps t_lo .. t_hi summed into part v, W's first row of the part,
+  // its K offset
+  const int fold_lo[4] = {0, 1, 0, 2}, fold_hi[4] = {0, 2, 1, 2};
+  const int t_lo = v < 4 ? fold_lo[v] : v - 4;
+  const int t_hi = v < 4 ? fold_hi[v] : v - 4;
+  const int row0 = v < 4 ? 0 : Ch;
+  const int k0 = v < 4 ? v * Ch : 4 * Ch + (v - 4) * Cs;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < PACK_TILE; i += 8) {
+    const int ci = row0 + ci0 + i, co = co0 + tx;
+    float a = 0.f;
+    if (co < Cout)
+      for (int t = t_lo; t <= t_hi; ++t)
+        a += W[((int64_t)t * Cin + ci) * Cout + co];
+    tile[i][tx] = a;
+  }
+  __syncthreads();
+  for (int i = ty; i < PACK_TILE; i += 8) {
+    const int co = co0 + i, ci = ci0 + tx;
+    Wp[(int64_t)co * K + k0 + ci] = __float2bfloat16(tile[tx][i]);
+  }
+}
+
+// The decoder route's conv pass on the tile width TN: the three tensor
+// maps, then conv3_wgmma_decoder_bf16 over 2 ceil(L / 256) parity tiles of
+// 128 rows a sample and Cout / TN channel tiles.
+template <int TN>
+int launch_wgmma_decoder(const __nv_bfloat16* h, const __nv_bfloat16* skip,
+                         const __nv_bfloat16* Wp, const float* bias, float* y,
+                         float* part_mean, float* part_m2, int B, int L,
+                         int Ch, int Cs, int Cout, int n_tiles,
+                         cudaStream_t st) {
+  const int cout_pad = (Cout + KCH - 1) / KCH * KCH;
+  const int K = 4 * Ch + 3 * Cs, Lh = L / 2;
+  CUtensorMap tmh, tms, tmw;
+  const cuuint64_t h_dims[3] = {(cuuint64_t)Ch, (cuuint64_t)Lh, (cuuint64_t)B};
+  const cuuint64_t h_strides[2] = {(cuuint64_t)Ch * 2,
+                                   (cuuint64_t)Lh * Ch * 2};
+  // skip (B, L, C_s) seen as (B, L/2, 2 C_s)
+  const cuuint64_t s_dims[3] = {(cuuint64_t)2 * Cs, (cuuint64_t)Lh,
+                                (cuuint64_t)B};
+  const cuuint64_t s_strides[2] = {(cuuint64_t)4 * Cs,
+                                   (cuuint64_t)Lh * Cs * 4};
+  const cuuint32_t x_box[3] = {KCH, WM, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)K, (cuuint64_t)cout_pad};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t w_box[2] = {KCH, TN};
+  if (!encode_bf16(&tmh, h, 3, h_dims, h_strides, x_box) ||
+      !encode_bf16(&tms, skip, 3, s_dims, s_strides, x_box) ||
+      !encode_bf16(&tmw, Wp, 2, w_dims, w_strides, w_box))
+    return ERR_TENSOR_MAP;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv3_wgmma_decoder_bf16<TN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, WgCfg<TN>::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Cout + TN - 1) / TN, 2 * ((Lh + WM - 1) / WM), B);
+  conv3_wgmma_decoder_bf16<TN><<<grid, WG_THREADS, WgCfg<TN>::SMEM, st>>>(
+      tmh, tms, tmw, bias, y, part_mean, part_m2, L, Cout, Ch / KCH,
+      Cs / KCH, n_tiles);
+  return cudaGetLastError();
+}
+
+// The decoder route's first two passes: the decoder pack into w_packed
+// (Cout_pad, 4 C_h + 3 C_s) bf16, y = conv3([nearest_up2(h) | skip]) + bias
+// in f32 with its partials (h (B, L/2, C_h) and skip (B, L, C_s) bf16,
+// 16-byte aligned, C_h and C_s multiples of 64), then the group statistics
+// over its 2 ceil(L / 128) interleaved tiles.
+inline int decoder_y_stats(const __nv_bfloat16* h, const __nv_bfloat16* skip,
+                           const float* W, const float* bias, float* y,
+                           float* part_mean, float* part_m2, float* g_mean,
+                           float* g_rstd, __nv_bfloat16* Wp, int B, int L,
+                           int Ch, int Cs, int Cout, int groups, float eps,
+                           cudaStream_t st) {
+  const int cout_pad = (Cout + KCH - 1) / KCH * KCH;
+  pack_weights_decoder_bf16<<<dim3(cout_pad / PACK_TILE,
+                                   (Ch > Cs ? Ch : Cs) / PACK_TILE, 7),
+                              256, 0, st>>>(W, Wp, Ch, Cs, Cout);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int n_tiles = 2 * ((L + 2 * BM - 1) / (2 * BM));
+  const int rc =
+      Cout > 64 ? launch_wgmma_decoder<128>(h, skip, Wp, bias, y, part_mean,
+                                            part_m2, B, L, Ch, Cs, Cout,
+                                            n_tiles, st)
+                : launch_wgmma_decoder<64>(h, skip, Wp, bias, y, part_mean,
+                                           part_m2, B, L, Ch, Cs, Cout,
+                                           n_tiles, st);
+  if (rc != 0) return rc;
+  group_stats<<<dim3(groups, B), STATS_THREADS, 0, st>>>(
+      part_mean, part_m2, g_mean, g_rstd, L, Cout, groups, n_tiles, eps, 1);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -113,6 +264,32 @@ int conv_gn_silu_forward(const void* x, const float* W, const float* bias,
     return launch_apply<float>(y, g_mean, g_rstd, gn_scale, gn_bias,
                                static_cast<float*>(out), B, L, Cout, groups,
                                ep, st);
+  return launch_apply<__nv_bfloat16>(y, g_mean, g_rstd, gn_scale, gn_bias,
+                                     static_cast<__nv_bfloat16*>(out), B, L,
+                                     Cout, groups, ep, st);
+}
+
+// The decoder route: out = K1(concat(nearest_up2(h), skip)) without either
+// tensor.  h (B, L/2, Ch) and skip (B, L, Cs) bf16, 16-byte aligned, Ch and
+// Cs multiples of 64; L even; W (3, Ch + Cs, Cout) and the rest as for
+// conv_gn_silu_forward's wgmma route, out (B, L, Cout) bf16, part_mean and
+// part_m2 (B, 2 ceil(L / 128), Cout) f32, w_packed (Cout_pad, 4 Ch + 3 Cs)
+// bf16.  Launches on `stream`, returns the first launch error.
+int conv_gn_silu_decoder_forward(
+    const void* h, const void* skip, const float* W, const float* bias,
+    const float* gn_scale, const float* gn_bias, void* out, float* y,
+    float* part_mean, float* part_m2, float* g_mean, float* g_rstd,
+    void* w_packed, const void* film, const void* r, const float* wc,
+    const float* bc, int B, int L, int Ch, int Cs, int Cout, int groups,
+    int K, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = decoder_y_stats(
+      static_cast<const __nv_bfloat16*>(h),
+      static_cast<const __nv_bfloat16*>(skip), W, bias, y, part_mean,
+      part_m2, g_mean, g_rstd, static_cast<__nv_bfloat16*>(w_packed), B, L,
+      Ch, Cs, Cout, groups, eps, st);
+  if (rc != 0) return rc;
+  const Epilogue ep{film, r, wc, bc, K};
   return launch_apply<__nv_bfloat16>(y, g_mean, g_rstd, gn_scale, gn_bias,
                                      static_cast<__nv_bfloat16*>(out), B, L,
                                      Cout, groups, ep, st);

@@ -310,14 +310,31 @@ __device__ __forceinline__ void store_y2(__nv_bfloat16* row, int c, int Cout,
 // for each 8-column block j, rows 16 q4 + g and 16 q4 + g + 8 at columns
 // 8j + 2q and 8j + 2q + 1 in d[4j .. 4j+3].  DX: no bias, the accumulator
 // to dx in bf16, no statistics.
-template <int TN, bool DX>
-__global__ void __launch_bounds__(WG_THREADS, 2)
-conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
-                 const __grid_constant__ CUtensorMap tmap_w,
-                 const float* __restrict__ bias, float* __restrict__ y,
-                 float* __restrict__ part_mean, float* __restrict__ part_m2,
-                 __nv_bfloat16* __restrict__ dx, int L, int Cout,
-                 int n_chunks, int n_tiles) {
+//
+// DEC, K1's decoder route: y = conv3([nearest_up2(h) | skip]) + bias for h
+// (B, L/2, C_h) and skip (B, L, C_s), both channel counts multiples of 64,
+// without the upsampled or concatenated tensor.  A CTA computes the 128
+// output rows of one parity p (blockIdx.y = 2 * j-tile + p): rows 2j + p
+// for j in j0 .. j0+127, j indexing h's rows.  Its h chunks take the
+// nearest-x2 fold of JAX's DecoderConvBlock, two steps a chunk:
+//   out[2j]   = W0 h[j-1] + (W1 + W2) h[j]
+//   out[2j+1] = (W0 + W1) h[j] + W2 h[j+1],
+// so step u (0, 1) reads h's rows from j0 + p + u - 1 and the folded taps
+// 2p + u of the decoder pack (pack_weights_decoder_bf16); the skip chunks
+// take the three taps of today's conv pass over skip seen as (B, L/2, 2 C_s),
+// whose row j holds [skip[2j] | skip[2j+1]]: tap t reads skip row 2j + s,
+// s = p - 1 + t, i.e. row j + floor(s / 2) at channel offset (s & 1) C_s.
+// Both warpgroups share each stage (one A tile of 128 rows, one B tile), as
+// on the plain route.  The epilogue stores rows at stride 2, and each
+// warpgroup's (mean, M2) covers its 64 rows of one parity: partial
+// 2 (j0 / 64 + w) + p, whose row count group_stats takes from L / 2.
+template <int TN, bool DX, bool DEC>
+__device__ __forceinline__ void conv3_wgmma_body(
+    const CUtensorMap* tmap_x, const CUtensorMap* tmap_s,
+    const CUtensorMap* tmap_w, const float* __restrict__ bias,
+    float* __restrict__ y, float* __restrict__ part_mean,
+    float* __restrict__ part_m2, __nv_bfloat16* __restrict__ dx, int L,
+    int Cout, int n_chunks, int n_chunks_s, int n_tiles) {
   using Cfg = WgCfg<TN>;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -327,9 +344,13 @@ conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
   const uint32_t sBar = sB + STAGES * Cfg::B_BYTES;  // full[s], then empty[s]
   float* red = reinterpret_cast<float*>(smem + Cfg::PIPE + Cfg::BARS);
 
-  const int n0 = blockIdx.x * TN, l0 = blockIdx.y * WM, b = blockIdx.z;
+  // DEC: parity p, and rows count h's rows (j); else rows of x
+  const int p = DEC ? (blockIdx.y & 1) : 0;
+  const int n0 = blockIdx.x * TN, b = blockIdx.z;
+  const int l0 = (DEC ? blockIdx.y >> 1 : blockIdx.y) * WM;
+  const int Lr = DEC ? L >> 1 : L;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_iter = 3 * n_chunks;
+  const int n_iter = DEC ? 2 * n_chunks + 3 * n_chunks_s : 3 * n_chunks;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -343,15 +364,30 @@ conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
   if (warp == 8) {  // producer
     if (lane == 0) {
       for (int i = 0; i < n_iter; ++i) {
-        const int s = i % STAGES, chunk = i / 3, tap = i - 3 * chunk;
+        const int s = i % STAGES;
         mbar_wait(sBar + 8 * (STAGES + s), ((i / STAGES) & 1) ^ 1);
         const uint32_t full = sBar + 8 * s;
         mbar_expect_tx(full, A_BYTES + Cfg::B_BYTES);
-        // x rows l0 - 1 + tap ..; rows -1 and >= L, channels >= Cin: zeros
-        tma_load_3d(sA + s * A_BYTES, &tmap_x, full, chunk * KCH,
-                    l0 - 1 + tap, b);
-        tma_load_2d(sB + s * Cfg::B_BYTES, &tmap_w, full,
-                    (tap * n_chunks + chunk) * KCH, n0);
+        const uint32_t a = sA + s * A_BYTES, bt = sB + s * Cfg::B_BYTES;
+        if (!DEC) {
+          const int chunk = i / 3, tap = i - 3 * chunk;
+          // x rows l0 - 1 + tap ..; rows -1 and >= L, channels >= Cin: zeros
+          tma_load_3d(a, tmap_x, full, chunk * KCH, l0 - 1 + tap, b);
+          tma_load_2d(bt, tmap_w, full, (tap * n_chunks + chunk) * KCH, n0);
+        } else if (i < 2 * n_chunks) {
+          // h rows l0 + p + u - 1 ..; rows -1 and >= L/2: zeros
+          const int chunk = i >> 1, u = i & 1;
+          tma_load_3d(a, tmap_x, full, chunk * KCH, l0 + p + u - 1, b);
+          tma_load_2d(bt, tmap_w, full, ((2 * p + u) * n_chunks + chunk) * KCH,
+                      n0);
+        } else {
+          const int k = i - 2 * n_chunks, chunk = k / 3, tap = k - 3 * chunk;
+          const int s2 = p - 1 + tap;   // skip row 2j + s2
+          tma_load_3d(a, tmap_s, full, ((s2 & 1) * n_chunks_s + chunk) * KCH,
+                      l0 + (s2 >> 1), b);
+          tma_load_2d(bt, tmap_w, full,
+                      (4 * n_chunks + tap * n_chunks_s + chunk) * KCH, n0);
+        }
       }
     }
     return;
@@ -381,12 +417,14 @@ conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
 
   // epilogue: bias, y for rows < L, per-channel (mean, M2) of each 64 rows
   const int wq = warp & 3, g = lane >> 2, q = lane & 3;
-  const int r_lo = l0 + 64 * wg + 16 * wq + g;  // and r_lo + 8
-  const bool v0 = r_lo < L, v1 = r_lo + 8 < L;
+  const int j_lo = l0 + 64 * wg + 16 * wq + g;  // and j_lo + 8
+  const bool v0 = j_lo < Lr, v1 = j_lo + 8 < Lr;
+  const int r_lo = DEC ? 2 * j_lo + p : j_lo;   // y's row
+  const int64_t hi_off = (DEC ? 16 : 8) * (int64_t)Cout;
   const bool pairs = (Cout & 1) == 0;
   if constexpr (DX) {
     __nv_bfloat16* d_lo = dx + ((int64_t)b * L + r_lo) * Cout;
-    __nv_bfloat16* d_hi = d_lo + 8 * (int64_t)Cout;
+    __nv_bfloat16* d_hi = d_lo + hi_off;
 #pragma unroll
     for (int j = 0; j < TN / 8; ++j) {
       const int c = n0 + 8 * j + 2 * q;
@@ -396,7 +434,7 @@ conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
     return;
   }
   float* y_lo = y + ((int64_t)b * L + r_lo) * Cout;
-  float* y_hi = y_lo + 8 * (int64_t)Cout;
+  float* y_hi = y_lo + hi_off;
 #pragma unroll
   for (int j = 0; j < TN / 8; ++j) {
     const int c = n0 + 8 * j + 2 * q;
@@ -410,7 +448,7 @@ conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
     if (v1) store_y2(y_hi, c, Cout, pairs, acc[4 * j + 2], acc[4 * j + 3]);
   }
 
-  const int rows = min(64, L - (l0 + 64 * wg));  // uniform over the warpgroup
+  const int rows = min(64, Lr - (l0 + 64 * wg));  // uniform over the warpgroup
   if (rows <= 0) return;
   float* sums = red + wg * 4 * TN;          // [warp of wg][column]
   float* m2s = red + (8 + wg * 4) * TN;
@@ -450,10 +488,24 @@ conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
         (((sums[t] + sums[TN + t]) + sums[2 * TN + t]) + sums[3 * TN + t]) / fr;
     const float m2 =
         ((m2s[t] + m2s[TN + t]) + m2s[2 * TN + t]) + m2s[3 * TN + t];
-    const int64_t p = ((int64_t)b * n_tiles + (l0 / BM) + wg) * Cout + n0 + t;
-    part_mean[p] = mean;
-    part_m2[p] = m2;
+    const int tile = DEC ? 2 * (l0 / BM + wg) + p : l0 / BM + wg;
+    const int64_t pi = ((int64_t)b * n_tiles + tile) * Cout + n0 + t;
+    part_mean[pi] = mean;
+    part_m2[pi] = m2;
   }
+}
+
+template <int TN, bool DX>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+conv3_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
+                 const __grid_constant__ CUtensorMap tmap_w,
+                 const float* __restrict__ bias, float* __restrict__ y,
+                 float* __restrict__ part_mean, float* __restrict__ part_m2,
+                 __nv_bfloat16* __restrict__ dx, int L, int Cout,
+                 int n_chunks, int n_tiles) {
+  conv3_wgmma_body<TN, DX, false>(&tmap_x, nullptr, &tmap_w, bias, y,
+                                  part_mean, part_m2, dx, L, Cout, n_chunks,
+                                  0, n_tiles);
 }
 
 // W (3, Cin, Cout) f32 -> Wp [Cout_pad][3][Cin_pad] bf16, zero-padded: the
@@ -492,20 +544,23 @@ __device__ __forceinline__ void chan_merge(float& na, float& ma, float& Ma,
 }
 
 // One CTA per (group, sample): merge the per-(tile, channel) partials of the
-// group in a fixed order, then a fixed-shape tree over the threads.
+// group in a fixed order, then a fixed-shape tree over the threads.  A tile
+// holds rows tile * 64 .. of y; with `interleaved` (the decoder route) tile
+// 2k + p holds the rows of parity p among rows 128k .. 128k + 127.
 __global__ void __launch_bounds__(STATS_THREADS)
 group_stats(const float* __restrict__ part_mean,
             const float* __restrict__ part_m2, float* __restrict__ g_mean,
             float* __restrict__ g_rstd, int L, int Cout, int groups,
-            int n_tiles, float eps) {
+            int n_tiles, float eps, int interleaved) {
   const int grp = blockIdx.x, b = blockIdx.y, cg = Cout / groups;
   const int P = n_tiles * cg;
   float n_a = 0.f, m_a = 0.f, M_a = 0.f;
   for (int p = threadIdx.x; p < P; p += STATS_THREADS) {
     const int tile = p / cg, c = grp * cg + p % cg;
     const int64_t q = ((int64_t)b * n_tiles + tile) * Cout + c;
-    chan_merge(n_a, m_a, M_a, (float)min(BM, L - tile * BM), part_mean[q],
-               part_m2[q]);
+    const int rows = interleaved ? min(BM, (L >> 1) - (tile >> 1) * BM)
+                                 : min(BM, L - tile * BM);
+    chan_merge(n_a, m_a, M_a, (float)rows, part_mean[q], part_m2[q]);
   }
   __shared__ float sn[STATS_THREADS], sm[STATS_THREADS], sM[STATS_THREADS];
   sn[threadIdx.x] = n_a;
@@ -792,7 +847,7 @@ inline int conv_y_stats(const void* x, const float* W, const float* bias,
     if (e != cudaSuccess) return e;
   }
   group_stats<<<dim3(groups, B), STATS_THREADS, 0, st>>>(
-      part_mean, part_m2, g_mean, g_rstd, L, Cout, groups, n_tiles, eps);
+      part_mean, part_m2, g_mean, g_rstd, L, Cout, groups, n_tiles, eps, 0);
   return cudaGetLastError();
 }
 

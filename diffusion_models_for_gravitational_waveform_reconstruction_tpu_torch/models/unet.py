@@ -16,6 +16,13 @@ conditioning (counterpart of the JAX package's ``models/unet.py``).
   bias and FiLM go into the block's kernel call (the epilogue of
   :func:`ops.kernels.fused_conv_gn_silu`); with autograd recording, or
   under a model axis, they run as separate steps after the block.
+- on that same path a decoder block whose inputs
+  :func:`ops.kernels.takes_decoder_route` takes (bf16, the skip twice h's
+  length, both channel counts multiples of 64) hands h and the skip to K1's
+  decoder route (``skip=``), which never writes the upsampled or the
+  concatenated tensor; every other decoder block (autograd recording, a
+  model axis, f32, a length that ``_fix_len`` pads or crops, other widths)
+  upsamples and concatenates first.
 - with ``use_attention``, pre-norm multi-head self-attention after the
   bottleneck (:class:`BottleneckAttention`) through
   :func:`ops.kernels.flash_attention`: the Hopper kernel on a GPU at every
@@ -43,7 +50,8 @@ from torch import nn
 
 from ..ops.kernels import (conv3_same, flash_attention,
                            flash_attention_reference, fused_conv_gn_silu,
-                           fused_conv_gn_silu_reference, group_norm)
+                           fused_conv_gn_silu_reference, group_norm,
+                           takes_decoder_route)
 from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.spans import span
@@ -179,51 +187,6 @@ class ConvBlock(nn.Module):
                                conv.bias[sl], norm.scale[sl], norm.bias[sl],
                                self.groups // tp.n_model)
         return pmesh.gather_channels(tp, y)
-
-
-class DecoderConvBlock(nn.Module):
-    """A decoder stage, ``conv3(concat(nearest_up2(h), skip)) -> GroupNorm
-    -> SiLU``, without the upsampled or concatenated tensor (JAX
-    ``DecoderConvBlock``): the conv splits over the concat's two parts, and
-    the nearest x2 upsample folds into the h part as two k=2 convs at half
-    length, interleaved (out[2j] = W0 h[j-1] + (W1 + W2) h[j], out[2j+1] =
-    (W0 + W1) h[j] + W2 h[j+1]).  The same math as the materialised path and
-    the same parameters as a ``ConvBlock`` of c_h + c_s inputs.
-
-    Plain PyTorch (``F.conv1d``), computed in ``dtype`` (float32 when None),
-    with GroupNorm's statistics in float32; ``UNet1D`` does not use it (its
-    decoder goes through the fused kernel, the JAX package's
-    ``use_pallas`` path, which never takes the fold)."""
-
-    def __init__(self, c_h: int, c_s: int, cout: int, dtype=None,
-                 device=None):
-        super().__init__()
-        self.c_h, self.dtype = c_h, dtype
-        self.conv = _ConvParams(c_h + c_s, cout, device)
-        self.norm = _GNParams(cout, device)
-        self.groups = _num_groups(cout)
-
-    def forward(self, h_low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        """h_low (B, L / 2, c_h), skip (B, L, c_s), channels-last; returns
-        (B, L, cout) in ``dtype``."""
-        B, Lh, _ = h_low.shape
-        if skip.shape[1] != 2 * Lh:
-            raise ValueError(f"skip length {skip.shape[1]} is not twice "
-                             f"h's {Lh}")
-        dt = self.dtype or torch.float32
-        W = self.conv.kernel.to(dt)                  # (3, c_h + c_s, cout)
-        hb = h_low.to(dt).transpose(1, 2)
-        y_s = F.conv1d(skip.to(dt).transpose(1, 2),
-                       W[:, self.c_h:].permute(2, 1, 0), padding=1)
-        W_h = W[:, :self.c_h]
-        W_even = torch.stack([W_h[0], W_h[1] + W_h[2]]).permute(2, 1, 0)
-        W_odd = torch.stack([W_h[0] + W_h[1], W_h[2]]).permute(2, 1, 0)
-        y_e = F.conv1d(F.pad(hb, (1, 0)), W_even)
-        y_o = F.conv1d(F.pad(hb, (0, 1)), W_odd)
-        y_h = torch.stack([y_e, y_o], dim=-1).reshape(B, -1, 2 * Lh)
-        h = (y_h + y_s).transpose(1, 2) + self.conv.bias.to(dt)
-        return F.silu(group_norm(h, self.groups, self.norm.scale,
-                                 self.norm.bias).to(dt))
 
 
 class BottleneckAttention(nn.Module):
@@ -453,11 +416,13 @@ class UNet1D(nn.Module):
                                                          length).contiguous()
                 return resized[length]
 
-            def block(h, name):
+            def block(h, name, skip=None):
                 """ConvBlock ``name``, then its conditioning bias
-                (``cond_<name>``) and FiLM (``tproj_<name>``)."""
+                (``cond_<name>``) and FiLM (``tproj_<name>``); with
+                ``skip``, on K1's decoder route (fused path only)."""
                 blk = getattr(self, name)
-                r = None if cond is None else cond_at(h.shape[1])
+                length = h.shape[1] if skip is None else skip.shape[1]
+                r = None if cond is None else cond_at(length)
                 dense = getattr(self, f"cond_{name}", None)
                 if fuse and blk.tp is None:
                     with span("unet/film"):
@@ -467,7 +432,7 @@ class UNet1D(nn.Module):
                             dict(r=r, Wc=dense.kernel, bc=dense.bias))
                     return fused_conv_gn_silu(
                         h, conv.kernel, conv.bias, norm.scale, norm.bias,
-                        blk.groups, film=tv, **bias)
+                        blk.groups, film=tv, skip=skip, **bias)
                 h = blk(h)
                 if r is not None:
                     with span("unet/cond_bias"):
@@ -491,11 +456,15 @@ class UNet1D(nn.Module):
                 h = self.mid_attn(h)
 
             for i in range(self.depth):
+                name, skip = f"dec{i}", skips[-(i + 1)]
+                if (fuse and getattr(self, name).tp is None
+                        and takes_decoder_route(h, skip)):
+                    h = block(h, name, skip)
+                    continue
                 with span("unet/resample"):
-                    skip = skips[-(i + 1)]
                     h = torch.cat([_fix_len(h.repeat_interleave(2, dim=1),
                                             skip.shape[1]), skip], dim=-1)
-                h = block(h, f"dec{i}")
+                h = block(h, name)
 
             h = torch.cat([_fix_len(h, L0), x_t], dim=-1)
             out = conv3_same(h, self.final.kernel.to(cdt),

@@ -34,6 +34,18 @@ counted besides by ``fused_conv_gn_silu.epilogue_launches``.  The plain
 version with those arguments is the U-Net's composition of the three
 steps.  The epilogue has no backward: the U-Net asks for it only where
 autograd does not record.
+
+The U-Net's decoder blocks take K1's decoder route (the wrapper's
+``skip``): x is the half-length h (B, L/2, C_h) and the block is
+``conv3([nearest_up2(h) | skip]) -> GN -> SiLU`` with the ConvBlock's own
+W (3, C_h + C_s, Cout), computed without the upsampled or the concatenated
+tensor (``conv3_wgmma_decoder_bf16``: bf16, C_h and C_s multiples of 64,
+:func:`takes_decoder_route`).  The same op launches it, counted under
+``launches`` and besides by ``fused_conv_gn_silu.decoder_launches``.  Its
+plain version is the materialised composition (:func:`decoder_input`);
+:func:`decoder_conv_passes` is the kernel's conv pass step by step, from
+the folded weights of :func:`pack_decoder_weights_reference`.  It has no
+backward either.
 """
 from __future__ import annotations
 
@@ -74,9 +86,23 @@ def group_norm(y: torch.Tensor, groups: int, scale: torch.Tensor,
     return h * scale.float() + bias.float()
 
 
+def _check_decoder_lengths(h: torch.Tensor, skip: torch.Tensor) -> None:
+    if skip.dim() != 3 or h.dim() != 3 or skip.shape[0] != h.shape[0] \
+            or skip.shape[1] != 2 * h.shape[1]:
+        raise ValueError(f"skip must be (B, 2 L, C_s) for h (B, L, C_h), got "
+                         f"{tuple(skip.shape)} and {tuple(h.shape)}")
+
+
+def decoder_input(h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """The decoder block's materialised input ``[nearest_up2(h) | skip]``
+    of h (B, L/2, C_h) and skip (B, L, C_s): (B, L, C_h + C_s)."""
+    _check_decoder_lengths(h, skip)
+    return torch.cat([h.repeat_interleave(2, dim=1), skip], dim=-1)
+
+
 def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
                                  eps: float = 1e-5, *, film=None, r=None,
-                                 Wc=None, bc=None):
+                                 Wc=None, bc=None, skip=None):
     """Plain version: x (B, L, Cin); W (3, Cin, Cout); b, gn_scale, gn_bias
     (Cout,).  The conv takes its operands in x's dtype and accumulates in f32
     (bf16 values and their products are exact in f32), then GroupNorm over
@@ -86,7 +112,12 @@ def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
     With ``film`` (B, 2 Cout) = [gamma | beta], the U-Net's steps after the
     block follow in its order and dtypes: ``h + (r @ Wc + bc)`` for the
     conditioning r (B, L, K), a Dense computed in x's dtype (none without
-    r), then ``h * (1 + gamma) + beta``."""
+    r), then ``h * (1 + gamma) + beta``.
+
+    With ``skip`` (B, 2 L, C_s), the decoder block: the same on
+    :func:`decoder_input` (x, skip), W being (3, Cin + C_s, Cout)."""
+    if skip is not None:
+        x = decoder_input(x, skip)
     y = conv3_same(x.float(), W.to(x.dtype).float(), b.float())
     h = group_norm(y, groups, gn_scale, gn_bias, eps)
     h = (h * torch.sigmoid(h)).to(x.dtype)
@@ -170,6 +201,69 @@ def pack_dx_weights_reference(W: torch.Tensor) -> torch.Tensor:
     weights: bf16 (Cin_pad, 3, Cout_pad), output channels (Cout)
     contiguous."""
     return pack_weights_reference(W.flip(0).transpose(1, 2))
+
+
+# the decoder pack's parts over h's channels: the taps folded into part
+# v = 2 p + u (p the output row's parity, u the step), W0 | W1 + W2 |
+# W0 + W1 | W2; the skip's three taps follow
+DECODER_FOLD = ((0,), (1, 2), (0, 1), (2,))
+
+
+def takes_decoder_route(h: torch.Tensor, skip: torch.Tensor) -> bool:
+    """Whether K1's decoder route takes h (B, L/2, C_h) and skip (B, L,
+    C_s): both bf16, skip twice h's length, C_h and C_s multiples of 64."""
+    return (h.dtype == skip.dtype == torch.bfloat16
+            and h.dim() == skip.dim() == 3
+            and skip.shape[1] == 2 * h.shape[1]
+            and h.shape[-1] % PACK_CHUNK == 0
+            and skip.shape[-1] % PACK_CHUNK == 0)
+
+
+def pack_decoder_weights_reference(W: torch.Tensor, Ch: int,
+                                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the decoder route's pack: W (3, C_h + C_s, Cout)
+    f32 -> (Cout_pad, 4 C_h + 3 C_s) in ``dtype``, K-major: the four folded
+    taps of :data:`DECODER_FOLD` over W's first C_h rows, each sum taken in
+    f32 and rounded once, then W's three taps over its last C_s rows; rows
+    past Cout zero."""
+    Cout = W.shape[2]
+    parts = [W[list(taps), :Ch].sum(dim=0) for taps in DECODER_FOLD]
+    parts += [W[t, Ch:] for t in range(3)]
+    packed = torch.cat(parts).transpose(0, 1)
+    Wp = torch.zeros((-(-Cout // PACK_CHUNK) * PACK_CHUNK, packed.shape[1]),
+                     dtype=dtype, device=W.device)
+    Wp[:Cout] = packed.to(dtype)
+    return Wp
+
+
+def decoder_conv_passes(h, skip, W, b, dtype=torch.bfloat16):
+    """The decoder route's conv pass in plain PyTorch, as the kernel walks
+    it: y (B, L, Cout) f32 = conv3([nearest_up2(h) | skip]) + b from the
+    decoder pack (:func:`pack_decoder_weights_reference` in ``dtype``) and
+    operands in ``dtype``.  Output row 2j + p sums, over h's two steps u,
+    h's row j + p + u - 1 times the folded part 2p + u, and over the skip's
+    taps t, the row j + floor(s / 2) of skip seen as (B, L/2, 2 C_s) at
+    channel offset (s mod 2) C_s, s = p - 1 + t, times tap t; rows outside
+    either tensor are zeros."""
+    _check_decoder_lengths(h, skip)
+    B, Lh, Ch = h.shape
+    Cs = skip.shape[-1]
+    Cout = W.shape[2]
+    Wp = pack_decoder_weights_reference(W, Ch, dtype)[:Cout].float()
+    hf = F.pad(h.to(dtype).float(), (0, 0, 1, 1))      # rows -1 .. Lh
+    sv = F.pad(skip.to(dtype).float().reshape(B, Lh, 2 * Cs), (0, 0, 1, 1))
+    y = torch.zeros((B, Lh, 2, Cout), dtype=torch.float32, device=h.device)
+    for p in range(2):
+        for u in range(2):
+            off, k0 = p + u - 1, (2 * p + u) * Ch
+            y[:, :, p] += hf[:, 1 + off:1 + off + Lh] @ Wp[:, k0:k0 + Ch].T
+        for t in range(3):
+            s = p - 1 + t
+            rows = sv[:, 1 + (s >> 1):1 + (s >> 1) + Lh,
+                      (s & 1) * Cs:(s & 1) * Cs + Cs]
+            k0 = 4 * Ch + t * Cs
+            y[:, :, p] += rows @ Wp[:, k0:k0 + Cs].T
+    return y.reshape(B, 2 * Lh, Cout) + b.float()
 
 
 # K1B's tiling, which the plain step-by-step version repeats: rows per
@@ -302,11 +396,17 @@ _ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
+_DEC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_gn_silu")
     if lib.conv_gn_silu_forward.argtypes is None:
         lib.conv_gn_silu_forward.argtypes = _ARGTYPES
         lib.conv_gn_silu_forward.restype = ctypes.c_int
+        lib.conv_gn_silu_decoder_forward.argtypes = _DEC_ARGTYPES
+        lib.conv_gn_silu_decoder_forward.restype = ctypes.c_int
         for fn in (lib.conv_gn_silu_rows_per_tile,
                    lib.conv_gn_silu_pack_chunk):
             fn.argtypes = []
@@ -363,10 +463,33 @@ def dw_route(x: torch.Tensor, Cout: int) -> str:
     return "mma_sync"
 
 
-def _check(x, W, b, gn_scale, gn_bias, groups):
+def _check_skip(x, skip):
+    """The decoder route's sources: x (B, L/2, C_h) and skip (B, L, C_s),
+    both bf16 and contiguous on one device, C_h and C_s multiples of 64
+    (their 16-byte alignment is checked in the op's body, which alone sees
+    real data pointers when ``torch.export`` traces the wrapper)."""
+    if skip.dim() != 3 or skip.shape[0] != x.shape[0] \
+            or skip.shape[1] != 2 * x.shape[1]:
+        raise ValueError(f"skip must be ({x.shape[0]}, {2 * x.shape[1]}, "
+                         f"C_s), got {tuple(skip.shape)}")
+    if not takes_decoder_route(x, skip):
+        raise ValueError("the decoder route takes bf16 x and skip whose "
+                         "channels are multiples of 64, got "
+                         f"{x.dtype} {x.shape[-1]} and {skip.dtype} "
+                         f"{skip.shape[-1]}")
+    if skip.device != x.device:
+        raise ValueError(f"skip is on {skip.device}, x on {x.device}")
+    if not skip.is_contiguous():
+        raise ValueError("skip must be contiguous")
+
+
+def _check(x, W, b, gn_scale, gn_bias, groups, skip=None):
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, Cin), got shape {tuple(x.shape)}")
     B, L, Cin = x.shape
+    if skip is not None:
+        _check_skip(x, skip)
+        L, Cin = skip.shape[1], Cin + skip.shape[-1]
     if W.dim() != 3 or W.shape[0] != 3 or W.shape[1] != Cin:
         raise ValueError(f"W must be (3, {Cin}, Cout), got {tuple(W.shape)}")
     Cout = W.shape[2]
@@ -391,11 +514,13 @@ def _check(x, W, b, gn_scale, gn_bias, groups):
             raise TypeError(f"{name} must be float32, got {v.dtype}")
 
 
-def _check_film(x, W, film, r, Wc, bc):
+def _check_film(x, W, film, r, Wc, bc, L=None):
     """The epilogue's inputs: ``film`` (B, 2 Cout) and ``r`` (B, L, K) in
-    x's dtype, ``Wc`` (K, Cout) and ``bc`` (Cout,) float32, all three or
-    none of r, Wc and bc, each contiguous on x's device."""
-    B, L, _ = x.shape
+    x's dtype (L the output's length, x's unless given), ``Wc`` (K, Cout)
+    and ``bc`` (Cout,) float32, all three or none of r, Wc and bc, each
+    contiguous on x's device."""
+    B = x.shape[0]
+    L = x.shape[1] if L is None else L
     Cout = W.shape[2]
     cond = (r, Wc, bc)
     if any(v is None for v in cond) and any(v is not None for v in cond):
@@ -452,6 +577,47 @@ def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float, film=None,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("conv_gn_silu launch failed: "
+                           + lib.conv_gn_silu_error_string(rc).decode())
+    return out
+
+
+def _launch_decoder(h, skip, W, b, gn_scale, gn_bias, groups: int,
+                    eps: float, film=None, r=None, Wc=None, bc=None):
+    """Allocate the output and scratch and launch K1's decoder route on h
+    (B, L/2, C_h) and skip (B, L, C_s), with the epilogue that ``film``
+    and ``r`` ask for; raises if the launch fails."""
+    if h.data_ptr() % 16 or skip.data_ptr() % 16:
+        raise ValueError("the decoder route needs h and skip 16-byte aligned")
+    B, L, Cs = skip.shape
+    Ch, Cout = h.shape[-1], W.shape[2]
+    lib = _lib()
+    n_tiles = 2 * -(-L // (2 * lib.conv_gn_silu_rows_per_tile()))
+    dev = h.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    w_packed = torch.empty((-(-Cout // PACK_CHUNK) * PACK_CHUNK,
+                            4 * Ch + 3 * Cs), dtype=torch.bfloat16,
+                           device=dev)
+    out = torch.empty((B, L, Cout), dtype=h.dtype, device=dev)
+    y = torch.empty((B, L, Cout), **f32)
+    part_mean = torch.empty((B, n_tiles, Cout), **f32)
+    part_m2 = torch.empty((B, n_tiles, Cout), **f32)
+    g_mean = torch.empty((B, groups), **f32)
+    g_rstd = torch.empty((B, groups), **f32)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = lib.conv_gn_silu_decoder_forward(
+            h.data_ptr(), skip.data_ptr(), W.data_ptr(), b.data_ptr(),
+            gn_scale.data_ptr(), gn_bias.data_ptr(), out.data_ptr(),
+            y.data_ptr(), part_mean.data_ptr(), part_m2.data_ptr(),
+            g_mean.data_ptr(), g_rstd.data_ptr(), w_packed.data_ptr(),
+            ptr(film), ptr(r), ptr(Wc), ptr(bc), B, L, Ch, Cs, Cout, groups,
+            0 if r is None else r.shape[-1], float(eps),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("conv_gn_silu decoder launch failed: "
                            + lib.conv_gn_silu_error_string(rc).decode())
     return out
 
@@ -562,34 +728,46 @@ def conv_gn_silu_op(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                     film: Optional[torch.Tensor] = None,
                     r: Optional[torch.Tensor] = None,
                     Wc: Optional[torch.Tensor] = None,
-                    bc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bc: Optional[torch.Tensor] = None,
+                    skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel as a registered op (CUDA only): one launch, counted, and
-    counted as the epilogue's too when ``film`` is given."""
-    out = _launch(x, W, b, gn_scale, gn_bias, groups, eps, film, r, Wc, bc)
+    counted as the epilogue's too when ``film`` is given and as the decoder
+    route's when ``skip`` is."""
+    if skip is None:
+        out = _launch(x, W, b, gn_scale, gn_bias, groups, eps, film, r, Wc,
+                      bc)
+    else:
+        out = _launch_decoder(x, skip, W, b, gn_scale, gn_bias, groups, eps,
+                              film, r, Wc, bc)
     fused_conv_gn_silu.launches += 1
     fused_conv_gn_silu.epilogue_launches += film is not None
+    fused_conv_gn_silu.decoder_launches += skip is not None
     return out
 
 
 @conv_gn_silu_op.register_fake
 def _(x, W, b, gn_scale, gn_bias, groups, eps, film=None, r=None, Wc=None,
-      bc=None):
-    return x.new_empty((x.shape[0], x.shape[1], W.shape[2]))
+      bc=None, skip=None):
+    L = x.shape[1] if skip is None else skip.shape[1]
+    return x.new_empty((x.shape[0], L, W.shape[2]))
 
 
 def _setup_context(ctx, inputs, output):
     x, W, b, gn_scale, gn_bias, groups, eps, film = inputs[:8]
     ctx.save_for_backward(x, W, b, gn_scale, gn_bias)
-    ctx.groups, ctx.eps, ctx.epilogue = groups, eps, film is not None
+    ctx.groups, ctx.eps = groups, eps
+    ctx.epilogue = film is not None
+    ctx.decoder = len(inputs) > 11 and inputs[11] is not None
 
 
 def _backward(ctx, dout):
-    if ctx.epilogue:
-        raise RuntimeError("conv_gn_silu's epilogue has no backward")
+    if ctx.epilogue or ctx.decoder:
+        raise RuntimeError("conv_gn_silu's epilogue and decoder route have "
+                           "no backward")
     with torch.profiler.record_function(f"{NAMESPACE}::conv_gn_silu_backward"):
         grads = fused_conv_gn_silu_grad(dout, *ctx.saved_tensors, ctx.groups,
                                         ctx.eps)
-    return (*grads, None, None, None, None, None, None)
+    return (*grads, None, None, None, None, None, None, None)
 
 
 conv_gn_silu_op.register_autograd(_backward, setup_context=_setup_context)
@@ -601,7 +779,8 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                        film: Optional[torch.Tensor] = None,
                        r: Optional[torch.Tensor] = None,
                        Wc: Optional[torch.Tensor] = None,
-                       bc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       bc: Optional[torch.Tensor] = None,
+                       skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole ConvBlock (conv k=3 SAME + GN + SiLU): x (B, L, Cin) f32 or
     bf16, W (3, Cin, Cout) in flax layout, b / gn_scale / gn_bias (Cout,) f32;
     returns (B, L, Cout) in x's dtype.  CPU tensors take the plain version;
@@ -614,29 +793,40 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     Cout) and ``bc`` (Cout,) f32, the kernel's last pass also adds
     ``r @ Wc + bc`` and applies ``* (1 + gamma) + beta``, as the plain
     version says, in f32, rounded once.  That epilogue has no backward: a
-    caller whose autograd records takes the steps apart."""
+    caller whose autograd records takes the steps apart.
+
+    With ``skip`` (B, 2 L, C_s), the decoder block on x = h (B, L, C_h):
+    the block of :func:`decoder_input` (h, skip), W (3, C_h + C_s, Cout),
+    returning (B, 2 L, Cout).  On CUDA tensors it takes K1's decoder route
+    (:func:`takes_decoder_route` must hold, and x and skip be 16-byte
+    aligned), with or without the epilogue (r then (B, 2 L, K)); it has no
+    backward."""
     if x.device.type == "cpu":
         return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
                                             groups, eps, film=film, r=r,
-                                            Wc=Wc, bc=bc)
+                                            Wc=Wc, bc=bc, skip=skip)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_gn_silu runs on cpu or cuda, not "
                          f"{x.device}")
-    _check(x, W, b, gn_scale, gn_bias, groups)
-    if film is None:
-        if any(v is not None for v in (r, Wc, bc)):
-            raise ValueError("r, Wc and bc need film")
+    _check(x, W, b, gn_scale, gn_bias, groups, skip)
+    if film is None and any(v is not None for v in (r, Wc, bc)):
+        raise ValueError("r, Wc and bc need film")
+    if film is None and skip is None:
         return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups,
                                float(eps))
-    _check_film(x, W, film, r, Wc, bc)
+    if film is not None:
+        _check_film(x, W, film, r, Wc, bc,
+                    None if skip is None else skip.shape[1])
     if torch.is_grad_enabled() and any(
             v is not None and v.requires_grad
-            for v in (x, W, b, gn_scale, gn_bias, film, r, Wc, bc)):
-        raise RuntimeError("fused_conv_gn_silu's epilogue has no backward: "
-                           "pass film where autograd does not record")
+            for v in (x, W, b, gn_scale, gn_bias, film, r, Wc, bc, skip)):
+        raise RuntimeError("fused_conv_gn_silu's epilogue and decoder route "
+                           "have no backward: pass film or skip where "
+                           "autograd does not record")
     return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps),
-                           film, r, Wc, bc)
+                           film, r, Wc, bc, skip)
 
 
 fused_conv_gn_silu.launches = 0
 fused_conv_gn_silu.epilogue_launches = 0
+fused_conv_gn_silu.decoder_launches = 0

@@ -10,12 +10,13 @@ Sections, at the root tool's shapes:
 - ``conv`` / ``conv_bf16``: K1, the fused ConvBlock (``ops/kernels``
   ``fused_conv_gn_silu``), f32 and bf16, at (B, L, Cin, Cout) = (64, 4096,
   64, 64), (64, 2048, 64, 128), (64, 1024, 128, 256), (64, 1024, 512, 256);
-- ``decoder``: ``models/unet.py::DecoderConvBlock`` (upsample and concat
-  folded into the conv, plain PyTorch) against the materialised upsample ->
-  concat -> ConvBlock through K1, at the three decoder stages of the
-  reference-default U-Net (B 64, bf16; and in f32 for the error); the
-  whole-model fast-decoder rows are not run: the port's ``UNet1D`` has no
-  fast-decoder path until K1 has a decoder variant;
+- ``decoder``: K1's decoder route (``fused_conv_gn_silu(h, ..., skip=)``,
+  upsample and concat folded into the conv pass) at the decoder stages of
+  the benchmark's cells (pn128 at 128 rows, attn16k at 64, bf16) beside
+  the materialised upsample -> concat -> K1, the concatenation alone, the
+  plain fold (``decoder_f32``, the route's arithmetic) and the plain
+  version; then the attention U-Net of ``unet`` forward with its decoder
+  on the route and materialised;
 - ``attn``: K2, flash attention, at (B, H, L, D) = (8, 4, 2048, 64), (4, 4,
   4096, 64), (2, 4, 8192, 64) in f32 (the FMA route) and bf16 (``wgmma``);
 - ``unet``: the attention U-Net (base_ch 64, depth 3, bf16) at B 64, L 4096
@@ -55,6 +56,7 @@ import torch.nn.functional as F
 
 from ..models import unet
 from ..ops.kernels import (attention_route, conv3_same, conv_route,
+                           decoder_conv_passes, decoder_input,
                            flash_attention, flash_attention_backward,
                            flash_attention_grad, flash_attention_reference,
                            fused_conv_gn_silu, fused_conv_gn_silu_backward,
@@ -67,10 +69,11 @@ from ..utils.roofline import bound_ms, peak_for
 
 CONV_SHAPES = [(64, 4096, 64, 64), (64, 2048, 64, 128),
                (64, 1024, 128, 256), (64, 1024, 512, 256)]
-# (L_skip, C_h, C_s, Cout) of the reference-default U-Net's decoder stages
-DECODER_STAGES = [(1024, 256, 256, 256), (2048, 256, 128, 128),
-                  (4096, 128, 64, 64)]
-DECODER_B = 64
+# (rows, L_skip, C_h, C_s, Cout) of the decoder stages of the benchmark's
+# cells: pn128 at 128 rows a forward, attn16k at 64
+DECODER_STAGES = [(128, 1024, 512, 512, 512), (128, 2048, 512, 256, 256),
+                  (128, 4096, 256, 128, 128), (64, 8192, 256, 256, 256),
+                  (64, 16384, 256, 128, 128), (64, 32768, 128, 64, 64)]
 ATTN_SHAPES = [(8, 4, 2048, 64), (4, 4, 4096, 64), (2, 4, 8192, 64)]
 UNET_B, UNET_L = 64, 4096
 UNET_MODEL = dict(in_ch=7, base_ch=64, time_dim=128, depth=3, cond_in_ch=5,
@@ -93,6 +96,13 @@ TOL = {("conv_gn_silu", "float32"): (1e-4, 2e-5),
 # bar; bf16: within 2^-6 of the gradient's largest element (the kernel
 # rounds dy, P and dS to bf16 for its products)
 GRAD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (0.0, 2 ** -6)}
+# K1's decoder route against the materialised upsample -> concat -> K1,
+# (rtol, atol): the route rounds each folded pair of taps (W1 + W2, W0 +
+# W1) to bf16 once where the materialised path rounds each tap, so the
+# conv before the norm differs by about 2^-9 of its size on the h half:
+# within four bf16 ulps (2^-5) of the output, and 2^-6 near zero.  Against
+# its own arithmetic in plain PyTorch the route is held to ``TOL``.
+DECODER_MAT_TOL = (2 ** -5, 2 ** -6)
 REPS = 20
 
 
@@ -410,56 +420,145 @@ def bench_conv_bf16(device=None, shapes=CONV_SHAPES, reps: int = REPS) -> list:
     return bench_conv(device, torch.bfloat16, shapes, reps)
 
 
-def _materialised(block: unet.ConvBlock, h, skip):
-    u = unet._fix_len(h.repeat_interleave(2, dim=1), skip.shape[1])
-    return block(torch.cat([u, skip], dim=-1))
+@contextlib.contextmanager
+def _materialised_decoder():
+    """Inside the block ``UNet1D`` upsamples and concatenates before every
+    decoder block, as where K1's decoder route does not apply."""
+    route = unet.takes_decoder_route
+    unet.takes_decoder_route = lambda h, skip: False
+    try:
+        yield
+    finally:
+        unet.takes_decoder_route = route
 
 
-def bench_fast_decoder(device=None, stages=DECODER_STAGES, B: int = DECODER_B,
-                       reps: int = REPS) -> list:
-    """Per stage, ``DecoderConvBlock`` (bf16) against the materialised
-    upsample -> concat -> ``ConvBlock`` through K1 with the same
-    parameters; the difference of the two in f32 too.  Then the
-    whole-model rows' status."""
+def decoder_f32(h, skip, W, b, s, bb, G: int, film=None, r=None, Wc=None,
+                bc=None):
+    """K1's decoder route's arithmetic in plain PyTorch: its conv pass
+    (``decoder_conv_passes``, the folded taps rounded once to bf16), then
+    GroupNorm, affine, SiLU and the epilogue in f32, as the kernel rounds
+    them once."""
+    y = group_norm(decoder_conv_passes(h, skip, W, b), G, s, bb)
+    y = y * torch.sigmoid(y)
+    if film is None:
+        return y
+    if r is not None:
+        y = y + (r.float() @ Wc + bc)
+    gamma, beta = (a[:, None, :] for a in film.float().chunk(2, dim=-1))
+    return y * (1.0 + gamma) + beta
+
+
+def decoder_row(h, skip, block: unet.ConvBlock, reps: int = REPS,
+                plain_reps: int = REPS // 4, **epi) -> dict:
+    """K1's decoder route on h (B, L/2, C_h) and skip (B, L, C_s) bf16 with
+    ``block``'s parameters (and the epilogue ``epi``, as the U-Net launches
+    it), against its own arithmetic (``decoder_f32``, at ``TOL``; on the
+    CPU, where the route is the materialised plain version, against that) and
+    against the materialised upsample -> concat -> K1 (``DECODER_MAT_TOL``;
+    with the epilogue, three times its atol).  With ``reps`` the times of
+    the route (``kernel_ms``), of the materialised path and of its
+    concatenation alone, of the plain fold (``decoder_f32``), of the plain
+    version and of the library
+    (the concatenation, then cuDNN ``conv1d`` -> ``group_norm`` ->
+    ``silu``); the bound from the fold's FLOPs (2 C_h + 3 C_s MACs a row and
+    output channel) and bytes (h, skip, W, output)."""
+    dev = h.device
+    B, Ls, Cs = skip.shape
+    Ch = h.shape[-1]
+    W, b = block.conv.kernel, block.conv.bias
+    s, bb, G = block.norm.scale, block.norm.bias, block.groups
+    Co = W.shape[-1]
+    with torch.no_grad():
+        def route():
+            return fused_conv_gn_silu(h, W, b, s, bb, G, skip=skip, **epi)
+
+        def materialised():
+            return fused_conv_gn_silu(decoder_input(h, skip), W, b, s, bb, G,
+                                      **epi)
+
+        out = route().float()
+        if dev.type == "cuda":
+            alg = decoder_f32(h, skip, W, b, s, bb, G, **epi)
+        else:   # the route's CPU path is the materialised plain version
+            alg = fused_conv_gn_silu_reference(h, W, b, s, bb, G, skip=skip,
+                                               **epi)
+        err = _against(out.bfloat16(), alg, "conv_gn_silu")
+        del alg
+        mat = materialised().float()
+        rtol, atol = DECODER_MAT_TOL
+        diff = (out - mat).abs()
+        err["max_abs_err_vs_materialised"] = float(diff.max())
+        err["n_outside_materialised_tol"] = int(
+            (diff > rtol * mat.abs() + (3 if epi else 1) * atol).sum())
+        del out, mat, diff
+        row = {"dtype": "bfloat16", "epilogue": "none" if not epi else
+               "film" if epi.get("r") is None else f"cond{epi['r'].shape[-1]}",
+               **err, "within_tol": (err["n_outside_tol"] == 0 and
+                                     err["n_outside_materialised_tol"] == 0)}
+        if reps < 1:
+            return row
+        Wl = W.permute(2, 1, 0).bfloat16().contiguous()
+        bl, sl, bbl = (v.bfloat16() for v in (b, s, bb))
+
+        def library():
+            xc = decoder_input(h, skip).transpose(1, 2)
+            return F.silu(F.group_norm(F.conv1d(xc, Wl, bl, padding=1), G,
+                                       sl, bbl, 1e-5))
+
+        row.update(
+            kernel_ms=time_ms(route, dev, reps),
+            materialised_ms=time_ms(materialised, dev, reps),
+            concat_ms=time_ms(lambda: decoder_input(h, skip), dev, reps),
+            plain_fold_ms=time_ms(lambda: decoder_f32(h, skip, W, b, s, bb,
+                                                      G, **epi), dev, reps),
+            plain_ms=time_ms(lambda: fused_conv_gn_silu_reference(
+                h, W, b, s, bb, G, skip=skip, **epi), dev, max(1, plain_reps)),
+            library_ms=time_ms(library, dev, reps))
+    row["speedup_vs_materialised"] = row["materialised_ms"] / row["kernel_ms"]
+    flops = 2.0 * B * Ls * (2 * Ch + 3 * Cs) * Co
+    nbytes = (h.numel() + skip.numel() + B * Ls * Co) * 2 + W.numel() * 4
+    row.update(_bound(flops, nbytes, dev, "bfloat16"), gflop=flops / 1e9,
+               mbytes=nbytes / 1e6)
+    return row
+
+
+def bench_fast_decoder(device=None, stages=DECODER_STAGES,
+                       reps: int = REPS, unet_rows: int = UNET_B,
+                       unet_L: int = UNET_L) -> list:
+    """Per stage (bf16, seeded inputs and weights), ``decoder_row``; then
+    the attention U-Net's forward at ``unet_rows`` x ``unet_L`` with its
+    decoder on the route and materialised."""
+    from ..utils.weights import randomize_
+
     dev = resolve_device(device)
     rows = []
-    for (Ls, Ch, Cs, Co) in stages:
+    for (B, Ls, Ch, Cs, Co) in stages:
         g = torch.Generator(device=dev).manual_seed(0)
-        h = torch.randn(B, Ls // 2, Ch, generator=g, device=dev)
-        skip = torch.randn(B, Ls, Cs, generator=g, device=dev)
-        fast = {dt: unet.DecoderConvBlock(Ch, Cs, Co, dtype=dt, device=dev)
-                for dt in (torch.float32, torch.bfloat16)}
-        fast[torch.bfloat16].load_state_dict(
-            fast[torch.float32].state_dict())
+        h = torch.randn(B, Ls // 2, Ch, generator=g, device=dev).bfloat16()
+        skip = torch.randn(B, Ls, Cs, generator=g, device=dev).bfloat16()
         block = unet.ConvBlock(Ch + Cs, Co, dev)
-        block.load_state_dict(fast[torch.float32].state_dict())
-        with torch.no_grad():
-            want = _materialised(block, h, skip)
-            got = fast[torch.float32](h, skip)
-            _sync(dev)
-            err = _against(got, want, "conv_gn_silu")
-            hb, sb = h.to(torch.bfloat16), skip.to(torch.bfloat16)
-            err_bf16 = float((fast[torch.bfloat16](hb, sb).float()
-                              - _materialised(block, hb, sb).float())
-                             .abs().max())
-            t_mat = time_ms(lambda: _materialised(block, hb, sb), dev, reps)
-            t_fast = time_ms(lambda: fast[torch.bfloat16](hb, sb), dev, reps)
-        rows.append({"kernel": "decoder_stage_fast_vs_plain_bf16",
+        randomize_(block, 1)
+        rows.append({"kernel": "conv_gn_silu_decoder_bf16",
                      "shape": [B, Ls, Ch, Cs, Co],
-                     "plain_ms": t_mat, "fast_ms": t_fast,
-                     "speedup": t_mat / t_fast,
-                     "plain": "upsample -> concat -> ConvBlock through K1",
-                     "fast": "DecoderConvBlock, F.conv1d",
-                     "max_abs_err_f32": err.pop("max_abs_err"), **err,
-                     "within_tol": err["n_outside_tol"] == 0,
-                     "max_abs_err_bf16": err_bf16})
-    for fastdec in (False, True):
-        rows.append({"kernel": f"unet_fwd_fast_decoder={fastdec}",
-                     "shape": [UNET_B, 7, UNET_L],
-                     "status": "not run: the port's UNet1D has no "
-                               "fast-decoder path; it waits for a decoder "
-                               "variant of K1 (ROADMAP.md Queue 2, open "
-                               "work 9)"})
+                     **decoder_row(h, skip, block, reps)})
+        del h, skip
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(unet_rows, UNET_MODEL["in_ch"], unet_L, generator=g,
+                    device=dev)
+    t = torch.zeros((unet_rows,), dtype=torch.int64, device=dev)
+    model = unet.UNet1D(**UNET_MODEL, dtype=torch.bfloat16, device=dev)
+    randomize_(model, 1)
+    outs = {}
+    for on in (False, True):
+        with torch.no_grad(), (contextlib.nullcontext() if on
+                               else _materialised_decoder()):
+            outs[on] = model(x, t)
+            ms = time_ms(lambda: model(x, t), dev, max(1, reps // 2))
+        rows.append({"kernel": f"unet_fwd_decoder_route={on}",
+                     "shape": [unet_rows, UNET_MODEL["in_ch"], unet_L],
+                     "ms": ms, "fwd_per_sec": 1e3 / ms})
+    rows[-1]["max_rel_err_vs_materialised"] = float(
+        (outs[True] - outs[False]).abs().max() / outs[False].abs().max())
     return rows
 
 

@@ -3,9 +3,11 @@
 
 ``unet_flops_per_sample`` is the JAX package's closed form unchanged:
 conv, conditioning-bias Dense and attention FLOPs (a MAC counts 2);
-GroupNorm, SiLU, FiLM, resizes and the time MLP are left out.  The port has
-no folded decoder, so its callers pass ``fast_decoder=False``: each decoder
-ConvBlock convolves the concatenated (h, skip) input, as the port runs it.
+GroupNorm, SiLU, FiLM, resizes and the time MLP are left out.  Its
+callers pass ``fast_decoder=False``: each decoder ConvBlock convolves the
+concatenated (h, skip) input, the work of the materialised path, which
+training runs; at inference K1's decoder route folds the upsample into the
+h half's taps and does 2 where that count has 3.
 """
 from __future__ import annotations
 

@@ -48,6 +48,9 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.sc
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.utils.weights import (
+    randomize_,
+)
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
     attention_route,
     conv_route,
@@ -58,8 +61,13 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
     fused_conv_gn_silu_grad,
     fused_conv_gn_silu_reference,
 )
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+    decoder_input,
+)
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+    DECODER_MAT_TOL,
     EPILOGUE_PLAIN_REL,
+    decoder_f32,
     attention_backward_row,
     conv_backward_row,
     epilogue_f32,
@@ -80,13 +88,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _counts(k1=0, k2=0, k1b=0, k2b=0, epilogue=0):
+def _counts(k1=0, k2=0, k1b=0, k2b=0, epilogue=0, decoder=0):
     """``launch_counts()`` after k1 / k2 forward and k1b / k2b backward
     kernel launches, ``epilogue`` of the k1 with the conditioning
-    epilogue (the U-Net's forwards that autograd does not record)."""
+    epilogue (the U-Net's forwards that autograd does not record) and
+    ``decoder`` of them on K1's decoder route (none at these tests' widths
+    under 64 channels)."""
     return {"conv_gn_silu": k1, "flash_attention": k2,
             "conv_gn_silu_backward": k1b, "flash_attention_backward": k2b,
-            "conv_gn_silu_epilogue": epilogue}
+            "conv_gn_silu_epilogue": epilogue,
+            "conv_gn_silu_decoder": decoder}
 
 
 # bf16: the kernel and the plain version round the same f32 values, which
@@ -280,6 +291,114 @@ def test_epilogue_rejects_what_it_does_not_take(cuda):
                            r=r, Wc=Wc, bc=bc)
 
 
+def _decoder_inputs(device, B, Lh, Ch, Cs, Cout, seed=0):
+    """bf16 h (B, Lh, Ch) and skip (B, 2 Lh, Cs), the ConvBlock's f32
+    parameters for Ch + Cs inputs, and the epilogue's r (B, 2 Lh, 5), Wc,
+    bc and film."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn(B, Lh, Ch, generator=g, device=device).bfloat16()
+    skip = torch.randn(B, 2 * Lh, Cs, generator=g, device=device).bfloat16()
+    W = (torch.randn(3, Ch + Cs, Cout, generator=g, device=device)
+         / (3 * (Ch + Cs)) ** 0.5)
+    b, s, bb = (0.1 * torch.randn(Cout, generator=g, device=device)
+                for _ in range(3))
+    r = torch.randn(B, 2 * Lh, 5, generator=g, device=device).bfloat16()
+    Wc = torch.randn(5, Cout, generator=g, device=device) / 5 ** 0.5
+    bc = 0.1 * torch.randn(Cout, generator=g, device=device)
+    film = (0.3 * torch.randn(B, 2 * Cout, generator=g,
+                              device=device)).bfloat16()
+    return h, skip, W, b, s + 1.0, bb, dict(film=film, r=r, Wc=Wc, bc=bc)
+
+
+# (B, L/2, C_h, C_s, Cout): the decoder stages of pn128 at its 128 rows and
+# of attn16k at its 64, attn16k's tiles of L 16880 at 128 rows (ragged
+# against the 128-row tile at every stage), and the tiling's edges (L 2,
+# 130, 666; Cout 24, 136, 200 across the N tiles; C_s 192 against C_h 64)
+DECODER_SHAPES = [
+    (128, 512, 512, 512, 512), (128, 1024, 512, 256, 256),
+    (128, 2048, 256, 128, 128), (64, 4096, 256, 256, 256),
+    (64, 8192, 256, 128, 128), (64, 16384, 128, 64, 64),
+    (128, 2110, 256, 256, 256), (128, 4220, 256, 128, 128),
+    (128, 8440, 128, 64, 64), (2, 333, 64, 64, 64), (3, 65, 64, 128, 24),
+    (1, 1, 64, 64, 200), (2, 64, 64, 192, 136)]
+
+
+@pytest.mark.parametrize("B,Lh,Ch,Cs,Cout", DECODER_SHAPES)
+def test_decoder_route_matches_plain_versions(cuda, B, Lh, Ch, Cs, Cout):
+    """K1's decoder route: one launch, counted as K1's and the decoder
+    route's; within K1's bf16 bars of its own arithmetic in plain PyTorch;
+    and against the materialised upsample -> concat -> K1 within
+    ``DECODER_MAT_TOL`` (the route rounds each folded pair of taps to bf16
+    once, the materialised path each tap apart)."""
+    h, skip, W, b, s, bb, _ = _decoder_inputs(cuda, B, Lh, Ch, Cs, Cout)
+    G = 8 if Cout % 8 == 0 else 4
+    before = launch_counts()
+    with torch.no_grad():
+        out = fused_conv_gn_silu(h, W, b, s, bb, G, skip=skip)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert [after[k] - before[k] for k in (
+        "conv_gn_silu", "conv_gn_silu_decoder", "conv_gn_silu_epilogue")] \
+        == [1, 1, 0]
+    assert out.dtype == torch.bfloat16 and out.shape == (B, 2 * Lh, Cout)
+    torch.testing.assert_close(out.float(),
+                               decoder_f32(h, skip, W, b, s, bb, G),
+                               **TOL[torch.bfloat16])
+    mat = fused_conv_gn_silu(decoder_input(h, skip), W, b, s, bb, G).float()
+    rtol, atol = DECODER_MAT_TOL
+    assert bool(((out.float() - mat).abs() <= rtol * mat.abs() + atol).all())
+
+
+@pytest.mark.parametrize("B,Lh,Ch,Cs,Cout", [
+    (128, 2048, 256, 128, 128), (64, 16384, 128, 64, 64),
+    (128, 8440, 128, 64, 64), (3, 65, 64, 128, 24)])
+def test_decoder_route_with_the_epilogue(cuda, B, Lh, Ch, Cs, Cout):
+    """The route with the conditioning bias and FiLM in its apply pass, as
+    the U-Net launches it: counted as the epilogue's too; within K1's bf16
+    bars of its arithmetic in f32 rounded once; and within
+    ``DECODER_MAT_TOL`` of the materialised path through K1 with the same
+    epilogue, three times its atol (FiLM scales the block's difference by
+    1 + gamma and adds the conditioning's terms)."""
+    h, skip, W, b, s, bb, epi = _decoder_inputs(cuda, B, Lh, Ch, Cs, Cout, 3)
+    G = 8 if Cout % 8 == 0 else 4
+    before = launch_counts()
+    with torch.no_grad():
+        out = fused_conv_gn_silu(h, W, b, s, bb, G, skip=skip, **epi)
+        mat = fused_conv_gn_silu(decoder_input(h, skip), W, b, s, bb, G,
+                                 **epi).float()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert [after[k] - before[k] for k in (
+        "conv_gn_silu", "conv_gn_silu_decoder", "conv_gn_silu_epilogue")] \
+        == [2, 1, 2]
+    torch.testing.assert_close(out.float(),
+                               decoder_f32(h, skip, W, b, s, bb, G, **epi),
+                               **TOL[torch.bfloat16])
+    rtol, atol = DECODER_MAT_TOL
+    assert bool(((out.float() - mat).abs()
+                 <= rtol * mat.abs() + 3 * atol).all())
+
+
+def test_decoder_route_rejects_what_it_does_not_take(cuda):
+    h, skip, W, b, s, bb, _ = _decoder_inputs(cuda, 2, 64, 64, 64, 64)
+    buf = torch.empty(h.numel() + 2, dtype=h.dtype, device=cuda)
+    h_off = buf[2:].view(h.shape).copy_(h)     # 4 bytes off 16
+    wrong = [
+        (h.float(), skip.float(), W),                          # f32
+        (h, skip[:, :127].contiguous(), W),                    # not 2 L
+        (h[:, :, :48].contiguous(), skip, W[:, 16:].contiguous()),  # C_h 48
+        (h, skip[:, :, :32].contiguous(), W[:, :96].contiguous()),  # C_s 32
+        (h, skip.transpose(1, 2).contiguous().transpose(1, 2), W),  # strided
+        (h_off, skip, W)]                                      # unaligned
+    with torch.no_grad():
+        for hw, sw, Ww in wrong:
+            with pytest.raises(ValueError):
+                fused_conv_gn_silu(hw, Ww, b, s, bb, 8, skip=sw)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_conv_gn_silu(h, W.clone().requires_grad_(), b, s, bb, 8,
+                           skip=skip)
+
+
 def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
     model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
                         cond_in_ch=5, use_selfcond=True, device=cuda)
@@ -304,6 +423,53 @@ def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
     assert err.item() <= 1e-4   # f32: summation order through five blocks
     err = (recorded.detach() - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4
+
+
+# the flagships' models (gwbench/configs), their length, the rows of a
+# forward here, and the limit of their cell's rel_err
+FLAGSHIP_FORWARDS = {
+    "pn128": (dict(in_ch=7, cond_in_ch=5, use_selfcond=True, base_ch=128,
+                   depth=3, time_dim=128), 4096, 128, 0.036),
+    "attn16k": (dict(in_ch=7, cond_in_ch=5, use_selfcond=True, base_ch=64,
+                     depth=3, time_dim=128, use_attention=True), 32768, 16,
+                0.022)}
+
+
+@pytest.mark.parametrize("config", ["pn128", "attn16k"])
+def test_unet_decoder_route_matches_plain_path(cuda, monkeypatch, config):
+    """A bf16 forward of each flagship at full width: its three decoder
+    blocks on K1's decoder route (3 of 7 K1 launches), against the same
+    forward with them materialised and against the plain path.  Each row's
+    relative L2 error from the plain path stays under half the limit that
+    the cell holds a whole 200- or 50-step sampling run to (seen: 0.0067 at
+    attn16k), and the route's within the materialised forward's error plus
+    an eighth of the limit: the route rounds each folded pair of taps
+    once, the plain path, like the materialised one, each tap apart."""
+    kw, L, rows, limit = FLAGSHIP_FORWARDS[config]
+    attn = int(kw.get("use_attention", False))
+    model = unet.UNet1D(**kw, dtype=torch.bfloat16, device=cuda)
+    randomize_(model, 1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(rows, 7, L, generator=g, device=cuda)
+    t = torch.randint(0, 1000, (rows,), generator=g, device=cuda)
+    with torch.no_grad():
+        reset_launch_counts()
+        got = model(x, t)
+        assert launch_counts() == _counts(7, attn, epilogue=7, decoder=3)
+        monkeypatch.setattr(unet, "takes_decoder_route", lambda h, s: False)
+        mat = model(x, t)
+        assert launch_counts() == _counts(14, 2 * attn, epilogue=14,
+                                          decoder=3)
+        with unet.plain_kernels():
+            want = model(x, t)
+
+    def rel(a):
+        return ((a - want).flatten(1).norm(dim=1)
+                / want.flatten(1).norm(dim=1)).max().item()
+
+    errs = (rel(got), rel(mat))
+    assert errs[0] <= limit / 2 and errs[1] <= limit / 2, errs
+    assert errs[0] <= errs[1] + limit / 8, errs
 
 
 # flash attention, kernel against plain version.  f32: the same sums in
