@@ -547,7 +547,7 @@ def phase_kernel_decoder(torch, config, shapes, rows, epilogues=("none",),
         skip = torch.randn(rows, L, Cs, generator=g, device="cuda").bfloat16()
         block = ConvBlock(Ch + Cs, Cout, "cuda")
         randomize_(block, L + Cout)
-        block.requires_grad_(False)      # the route has no backward
+        block.requires_grad_(False)      # a recorded call leaves the route
         epi = epilogue_args(torch, epilogue, rows, L, Cout, torch.bfloat16, g)
         row = decoder_row(h, skip, block, reps=reps, plain_reps=3, **epi)
         rec = {"phase": "kernel_decoder", "kernel": "conv_gn_silu_decoder",
@@ -729,15 +729,22 @@ def phase_kernel_backward(torch):
 
 def decoder_routes(model):
     """The decoder blocks of ``model`` that take K1's decoder route in a
-    forward autograd does not record: in bf16, those whose h and skip
-    channel counts are both multiples of 64 (every length here is even at
-    every stage, so the skip is always twice h's length)."""
-    if str(model.dtype) != "torch.bfloat16":
-        return 0
+    forward autograd does not record, as ``takes_decoder_route`` answers
+    for each block's h and skip (meta tensors in the model's dtype; every
+    length here halves evenly at every stage)."""
+    import torch
+
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+        takes_decoder_route,
+    )
+
+    dtype = model.dtype or torch.float32
     routes = 0
     for i in range(model.depth):
         _, cin, cout = getattr(model, f"dec{i}").conv.kernel.shape
-        routes += (cin - cout) % 64 == 0 and cout % 64 == 0
+        h = torch.empty((1, 1, cin - cout), dtype=dtype, device="meta")
+        skip = torch.empty((1, 2, cout), dtype=dtype, device="meta")
+        routes += takes_decoder_route(h, skip)
     return routes
 
 

@@ -3,26 +3,20 @@ conditioning (counterpart of the JAX package's ``models/unet.py``).
 
 - input channels ``[x_t | cond_0..K-1 | (optional) selfcond]`` with the
   legacy ``in_ch=3`` rule (:meth:`UNet1D._layout`);
-- every ConvBlock (conv k=3 SAME -> GroupNorm(gcd(8, C)) -> SiLU) is one
-  call of :func:`ops.kernels.fused_conv_gn_silu`: the Hopper kernel on a GPU,
-  its plain version on the CPU;
+- every ConvBlock (conv k=3 SAME -> GroupNorm(gcd(8, C)) -> SiLU), with
+  the conditioning bias and FiLM after it, is one call of
+  :func:`ops.kernels.fused_conv_gn_silu`: the Hopper kernel on a GPU, its
+  plain version on the CPU;
 - FiLM ``h*(1+gamma)+beta`` from ``Dense(silu(t_ctx))`` where
   ``t_ctx = silu(Dense(t_emb))`` (SiLU twice, as in the JAX model);
 - conditioning bias: cond channels linearly resized to the stage length
   (once a forward for each length), then a 1x1 projection; downsample
   avg-pool 2, decoder nearest x2 -> pad/crop -> skip concat -> ConvBlock;
   zero-initialised final conv on ``[h | x_t]``.
-- where autograd does not record (inference), each ConvBlock's conditioning
-  bias and FiLM go into the block's kernel call (the epilogue of
-  :func:`ops.kernels.fused_conv_gn_silu`); with autograd recording, or
-  under a model axis, they run as separate steps after the block.
-- on that same path a decoder block whose inputs
-  :func:`ops.kernels.takes_decoder_route` takes (bf16, the skip twice h's
-  length, both channel counts multiples of 64) hands h and the skip to K1's
-  decoder route (``skip=``), which never writes the upsampled or the
-  concatenated tensor; every other decoder block (autograd recording, a
-  model axis, f32, a length that ``_fix_len`` pads or crops, other widths)
-  upsamples and concatenates first.
+- a decoder block hands the half-length h and the skip to the same call
+  (``skip=``).  How each call runs (the bias and FiLM in K1's epilogue or
+  as separate steps, the decoder block on K1's decoder route or on its
+  materialised input) the wrapper decides from its inputs, not the model.
 - with ``use_attention``, pre-norm multi-head self-attention after the
   bottleneck (:class:`BottleneckAttention`) through
   :func:`ops.kernels.flash_attention`: the Hopper kernel on a GPU at every
@@ -48,10 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import (conv3_same, flash_attention,
-                           flash_attention_reference, fused_conv_gn_silu,
-                           fused_conv_gn_silu_reference, group_norm,
-                           takes_decoder_route)
+from ..ops.kernels import (conv3_same, decoder_input, epilogue, fix_len,
+                           flash_attention, flash_attention_reference,
+                           fused_conv_gn_silu, fused_conv_gn_silu_reference,
+                           group_norm)
 from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.spans import span
@@ -151,11 +145,14 @@ class _GNParams(nn.Module):
 
 class ConvBlock(nn.Module):
     """Conv1d(k=3, SAME) -> GroupNorm(gcd(8, C), eps 1e-5) -> SiLU on a
-    contiguous (B, L, Cin) tensor, as one fused-kernel call.
+    contiguous (B, L, Cin) tensor, then the epilogue ``film``, ``r``,
+    ``Wc`` and ``bc`` ask for; with ``skip``, the decoder block on the
+    half-length h.  One call of :func:`fused_conv_gn_silu`.
 
     With ``tp`` set (a mesh, by :meth:`UNet1D.tensor_parallel`) model rank
-    m runs the kernel on output channels [m C/n, (m+1) C/n) with G/n whole
-    groups, and the ranks gather the channels."""
+    m runs the kernel on the materialised input's output channels
+    [m C/n, (m+1) C/n) with G/n whole groups, the ranks gather the
+    channels, and the epilogue follows as separate steps."""
 
     # the parameters whose gradient a model rank computes only in part
     TP_PARTIAL = ("conv.kernel", "conv.bias", "norm.scale", "norm.bias")
@@ -175,18 +172,22 @@ class ConvBlock(nn.Module):
                                  self.conv.kernel.shape, n_model)
                 and self.groups % n_model == 0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, film=None, r=None, Wc=None, bc=None,
+                skip=None) -> torch.Tensor:
         conv, norm, tp = self.conv, self.norm, self.tp
         if tp is None:
             return fused_conv_gn_silu(x, conv.kernel, conv.bias, norm.scale,
-                                      norm.bias, self.groups)
+                                      norm.bias, self.groups, film=film, r=r,
+                                      Wc=Wc, bc=bc, skip=skip)
+        if skip is not None:
+            x = decoder_input(x, skip)
         c = conv.kernel.shape[-1] // tp.n_model
         sl = slice(tp.model_rank * c, (tp.model_rank + 1) * c)
-        y = fused_conv_gn_silu(pmesh.copy_to_model(tp, x),
-                               conv.kernel[:, :, sl].contiguous(),
-                               conv.bias[sl], norm.scale[sl], norm.bias[sl],
-                               self.groups // tp.n_model)
-        return pmesh.gather_channels(tp, y)
+        y = pmesh.gather_channels(tp, fused_conv_gn_silu(
+            pmesh.copy_to_model(tp, x), conv.kernel[:, :, sl].contiguous(),
+            conv.bias[sl], norm.scale[sl], norm.bias[sl],
+            self.groups // tp.n_model))
+        return y if film is None else epilogue(y, film, r, Wc, bc)
 
 
 class BottleneckAttention(nn.Module):
@@ -280,16 +281,6 @@ def _resize_linear(x: torch.Tensor, new_len: int) -> torch.Tensor:
     hi = (lo + 1).clamp(max=L - 1)
     w = (src - lo.float())[None, :, None].to(x.dtype)
     return x[:, lo, :] * (1.0 - w) + x[:, hi, :] * w
-
-
-def _fix_len(h: torch.Tensor, target_len: int) -> torch.Tensor:
-    """Right zero-pad or crop along axis 1."""
-    L = h.shape[1]
-    if L == target_len:
-        return h
-    if L < target_len:
-        return F.pad(h, (0, 0, 0, target_len - L))
-    return h[:, :target_len, :]
 
 
 class UNet1D(nn.Module):
@@ -386,12 +377,6 @@ class UNet1D(nn.Module):
             for name in split:
                 getattr(self, name).tp = None
 
-    def _records(self, x: torch.Tensor) -> bool:
-        """Whether autograd records a forward of ``x``: grad mode is on and
-        the input or a parameter requires grad."""
-        return torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters()))
-
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, L); t: (B,) integer timesteps.  Returns the
         single-channel prediction (B, 1, L), float32."""
@@ -405,7 +390,6 @@ class UNet1D(nn.Module):
             t_ctx = F.silu(self.time_dense(t_emb))
             x_t = x[:, :, :1]
             cond = x[:, :, 1:1 + cond_ch] if cond_ch > 0 else None
-            fuse = not self._records(x)
             resized = {}
 
             def cond_at(length):
@@ -417,30 +401,18 @@ class UNet1D(nn.Module):
                 return resized[length]
 
             def block(h, name, skip=None):
-                """ConvBlock ``name``, then its conditioning bias
+                """ConvBlock ``name`` with its conditioning bias
                 (``cond_<name>``) and FiLM (``tproj_<name>``); with
-                ``skip``, on K1's decoder route (fused path only)."""
-                blk = getattr(self, name)
-                length = h.shape[1] if skip is None else skip.shape[1]
-                r = None if cond is None else cond_at(length)
-                dense = getattr(self, f"cond_{name}", None)
-                if fuse and blk.tp is None:
-                    with span("unet/film"):
-                        tv = getattr(self, f"tproj_{name}")(F.silu(t_ctx))
-                    conv, norm = blk.conv, blk.norm
-                    bias = ({} if r is None else
-                            dict(r=r, Wc=dense.kernel, bc=dense.bias))
-                    return fused_conv_gn_silu(
-                        h, conv.kernel, conv.bias, norm.scale, norm.bias,
-                        blk.groups, film=tv, skip=skip, **bias)
-                h = blk(h)
-                if r is not None:
-                    with span("unet/cond_bias"):
-                        h = h + dense(r)
+                ``skip``, a decoder block on the half-length h."""
+                r = Wc = bc = None
+                if cond is not None:
+                    dense = getattr(self, f"cond_{name}")
+                    r = cond_at(h.shape[1] if skip is None else skip.shape[1])
+                    Wc, bc = dense.kernel, dense.bias
                 with span("unet/film"):
                     tv = getattr(self, f"tproj_{name}")(F.silu(t_ctx))
-                    gamma, beta = tv.chunk(2, dim=-1)
-                    return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
+                return getattr(self, name)(h, film=tv, r=r, Wc=Wc, bc=bc,
+                                           skip=skip)
 
             skips = []
             h = x
@@ -456,17 +428,9 @@ class UNet1D(nn.Module):
                 h = self.mid_attn(h)
 
             for i in range(self.depth):
-                name, skip = f"dec{i}", skips[-(i + 1)]
-                if (fuse and getattr(self, name).tp is None
-                        and takes_decoder_route(h, skip)):
-                    h = block(h, name, skip)
-                    continue
-                with span("unet/resample"):
-                    h = torch.cat([_fix_len(h.repeat_interleave(2, dim=1),
-                                            skip.shape[1]), skip], dim=-1)
-                h = block(h, name)
+                h = block(h, f"dec{i}", skips[-(i + 1)])
 
-            h = torch.cat([_fix_len(h, L0), x_t], dim=-1)
+            h = torch.cat([fix_len(h, L0), x_t], dim=-1)
             out = conv3_same(h, self.final.kernel.to(cdt),
                              self.final.bias.to(cdt))
             return out.to(torch.float32).transpose(1, 2)

@@ -14,6 +14,8 @@ from .conv_gn_silu import (
     conv_route,
     decoder_conv_passes,
     decoder_input,
+    epilogue,
+    fix_len,
     fused_conv_gn_silu,
     fused_conv_gn_silu_backward,
     fused_conv_gn_silu_grad,
@@ -52,10 +54,11 @@ def launch_counts() -> dict:
 
 
 __all__ = ["attention_route", "conv3_same", "conv_route",
-           "decoder_conv_passes", "decoder_input", "flash_attention",
-           "flash_attention_backward", "flash_attention_grad",
-           "flash_attention_reference", "fused_conv_gn_silu",
-           "fused_conv_gn_silu_backward", "fused_conv_gn_silu_grad",
-           "fused_conv_gn_silu_reference", "group_norm", "launch_counts",
-           "pack_decoder_weights_reference", "pack_weights_reference",
-           "reset_launch_counts", "takes_decoder_route"]
+           "decoder_conv_passes", "decoder_input", "epilogue", "fix_len",
+           "flash_attention", "flash_attention_backward",
+           "flash_attention_grad", "flash_attention_reference",
+           "fused_conv_gn_silu", "fused_conv_gn_silu_backward",
+           "fused_conv_gn_silu_grad", "fused_conv_gn_silu_reference",
+           "group_norm", "launch_counts", "pack_decoder_weights_reference",
+           "pack_weights_reference", "reset_launch_counts",
+           "takes_decoder_route"]

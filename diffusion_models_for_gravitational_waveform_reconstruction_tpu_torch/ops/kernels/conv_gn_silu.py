@@ -27,25 +27,26 @@ from weights packed once per call (:func:`pack_weights_reference` is the
 pack's plain version); other bf16 inputs run on ``mma.sync``; f32 runs on
 the FMA units.  All three are the same kernel and count as its launches.
 
-At inference the U-Net hands each ConvBlock's conditioning bias and FiLM to
-the kernel's last pass (the wrapper's ``film``, ``r``, ``Wc`` and ``bc``):
-the same launch of K1, counted under ``conv_gn_silu``, with an epilogue,
-counted besides by ``fused_conv_gn_silu.epilogue_launches``.  The plain
-version with those arguments is the U-Net's composition of the three
-steps.  The epilogue has no backward: the U-Net asks for it only where
-autograd does not record.
+The U-Net hands every ConvBlock to the wrapper with what follows it: its
+conditioning bias and FiLM (``film``, ``r``, ``Wc``, ``bc``) and, for a
+decoder block, the half-length h as x and the skip (``skip``).  The wrapper
+alone picks how that runs, the same way on the CPU and on the card:
 
-The U-Net's decoder blocks take K1's decoder route (the wrapper's
-``skip``): x is the half-length h (B, L/2, C_h) and the block is
-``conv3([nearest_up2(h) | skip]) -> GN -> SiLU`` with the ConvBlock's own
-W (3, C_h + C_s, Cout), computed without the upsampled or the concatenated
-tensor (``conv3_wgmma_decoder_bf16``: bf16, C_h and C_s multiples of 64,
-:func:`takes_decoder_route`).  The same op launches it, counted under
-``launches`` and besides by ``fused_conv_gn_silu.decoder_launches``.  Its
-plain version is the materialised composition (:func:`decoder_input`);
-:func:`decoder_conv_passes` is the kernel's conv pass step by step, from
-the folded weights of :func:`pack_decoder_weights_reference`.  It has no
-backward either.
+- where autograd records a call, K1 alone (on :func:`decoder_input` for a
+  decoder block), then the bias and FiLM as plain steps (:func:`epilogue`);
+- otherwise the bias and FiLM go into K1's last pass, the same launch,
+  counted besides by ``fused_conv_gn_silu.epilogue_launches``;
+- a decoder block whose inputs :func:`takes_decoder_route` takes (bf16, the
+  skip twice h's length, C_h and C_s multiples of 64) runs on K1's decoder
+  route, ``conv3_wgmma_decoder_bf16``, which computes ``conv3([nearest_up2(h)
+  | skip]) -> GN -> SiLU`` without the upsampled or the concatenated
+  tensor, counted besides by ``fused_conv_gn_silu.decoder_launches``; any
+  other decoder block runs on its materialised input.
+
+The plain version with those arguments is the U-Net's composition of the
+steps; :func:`decoder_conv_passes` is the route's conv pass step by step,
+from the folded weights of :func:`pack_decoder_weights_reference`.  Neither
+the epilogue nor the route has a backward.
 """
 from __future__ import annotations
 
@@ -93,11 +94,35 @@ def _check_decoder_lengths(h: torch.Tensor, skip: torch.Tensor) -> None:
                          f"{tuple(skip.shape)} and {tuple(h.shape)}")
 
 
+def fix_len(h: torch.Tensor, length: int) -> torch.Tensor:
+    """Right zero-pad or crop of ``h (B, L, C)`` to ``length`` rows."""
+    L = h.shape[1]
+    if L == length:
+        return h
+    if L < length:
+        return F.pad(h, (0, 0, 0, length - L))
+    return h[:, :length, :]
+
+
 def decoder_input(h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     """The decoder block's materialised input ``[nearest_up2(h) | skip]``
-    of h (B, L/2, C_h) and skip (B, L, C_s): (B, L, C_h + C_s)."""
-    _check_decoder_lengths(h, skip)
-    return torch.cat([h.repeat_interleave(2, dim=1), skip], dim=-1)
+    of h (B, L_h, C_h) and skip (B, L, C_s), the upsampled h zero-padded or
+    cropped on the right to L: (B, L, C_h + C_s)."""
+    return torch.cat([fix_len(h.repeat_interleave(2, dim=1), skip.shape[1]),
+                      skip], dim=-1)
+
+
+def epilogue(h: torch.Tensor, film: torch.Tensor, r=None, Wc=None,
+             bc=None) -> torch.Tensor:
+    """The U-Net's steps after a ConvBlock, in its order and in h's dtype:
+    ``h + (r @ Wc + bc)`` for the conditioning r (B, L, K), a Dense (none
+    without r), then FiLM ``h * (1 + gamma) + beta`` of ``film`` (B, 2 Cout)
+    = [gamma | beta]."""
+    dt = h.dtype
+    if r is not None:
+        h = h + (r.to(dt) @ Wc.to(dt) + bc.to(dt))
+    gamma, beta = film.chunk(2, dim=-1)
+    return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
 
 
 def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
@@ -110,24 +135,16 @@ def fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias, groups: int,
     (JAX ``fused_conv_gn_silu_reference``).
 
     With ``film`` (B, 2 Cout) = [gamma | beta], the U-Net's steps after the
-    block follow in its order and dtypes: ``h + (r @ Wc + bc)`` for the
-    conditioning r (B, L, K), a Dense computed in x's dtype (none without
-    r), then ``h * (1 + gamma) + beta``.
+    block follow (:func:`epilogue`, with ``r``, ``Wc`` and ``bc``).
 
-    With ``skip`` (B, 2 L, C_s), the decoder block: the same on
+    With ``skip`` (B, L_s, C_s), the decoder block: the same on
     :func:`decoder_input` (x, skip), W being (3, Cin + C_s, Cout)."""
     if skip is not None:
         x = decoder_input(x, skip)
     y = conv3_same(x.float(), W.to(x.dtype).float(), b.float())
     h = group_norm(y, groups, gn_scale, gn_bias, eps)
     h = (h * torch.sigmoid(h)).to(x.dtype)
-    if film is None:
-        return h
-    dt = h.dtype
-    if r is not None:
-        h = h + (r.to(dt) @ Wc.to(dt) + bc.to(dt))
-    gamma, beta = film.chunk(2, dim=-1)
-    return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
+    return h if film is None else epilogue(h, film, r, Wc, bc)
 
 
 def fused_conv_gn_silu_backward(dout, x, W, b, gn_scale, gn_bias,
@@ -463,32 +480,18 @@ def dw_route(x: torch.Tensor, Cout: int) -> str:
     return "mma_sync"
 
 
-def _check_skip(x, skip):
-    """The decoder route's sources: x (B, L/2, C_h) and skip (B, L, C_s),
-    both bf16 and contiguous on one device, C_h and C_s multiples of 64
-    (their 16-byte alignment is checked in the op's body, which alone sees
-    real data pointers when ``torch.export`` traces the wrapper)."""
-    if skip.dim() != 3 or skip.shape[0] != x.shape[0] \
-            or skip.shape[1] != 2 * x.shape[1]:
-        raise ValueError(f"skip must be ({x.shape[0]}, {2 * x.shape[1]}, "
-                         f"C_s), got {tuple(skip.shape)}")
-    if not takes_decoder_route(x, skip):
-        raise ValueError("the decoder route takes bf16 x and skip whose "
-                         "channels are multiples of 64, got "
-                         f"{x.dtype} {x.shape[-1]} and {skip.dtype} "
-                         f"{skip.shape[-1]}")
-    if skip.device != x.device:
-        raise ValueError(f"skip is on {skip.device}, x on {x.device}")
-    if not skip.is_contiguous():
-        raise ValueError("skip must be contiguous")
-
-
 def _check(x, W, b, gn_scale, gn_bias, groups, skip=None):
+    """What the kernel takes; with ``skip``, on the decoder route, whose
+    rule (:func:`takes_decoder_route`) the wrapper has checked.  The
+    sources' 16-byte alignment is checked in the op's body, which alone
+    sees real data pointers when ``torch.export`` traces the wrapper."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, Cin), got shape {tuple(x.shape)}")
     B, L, Cin = x.shape
     if skip is not None:
-        _check_skip(x, skip)
+        if skip.shape[0] != B:
+            raise ValueError(f"skip must be ({B}, {2 * L}, C_s), got "
+                             f"{tuple(skip.shape)}")
         L, Cin = skip.shape[1], Cin + skip.shape[-1]
     if W.dim() != 3 or W.shape[0] != 3 or W.shape[1] != Cin:
         raise ValueError(f"W must be (3, {Cin}, Cout), got {tuple(W.shape)}")
@@ -504,13 +507,15 @@ def _check(x, W, b, gn_scale, gn_bias, groups, skip=None):
         raise ValueError(f"L={L} is longer than the kernel takes ({MAX_L})")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    for name, v in (("x", x), ("W", W), ("b", b), ("gn_scale", gn_scale),
-                    ("gn_bias", gn_bias)):
+    for name, v in (("x", x), ("skip", skip), ("W", W), ("b", b),
+                    ("gn_scale", gn_scale), ("gn_bias", gn_bias)):
+        if v is None:
+            continue
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name != "x" and v.dtype != torch.float32:
+        if name not in ("x", "skip") and v.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {v.dtype}")
 
 
@@ -542,6 +547,24 @@ def _check_film(x, W, film, r, Wc, bc, L=None):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _ptr(v):
+    return None if v is None else v.data_ptr()
+
+
+def _forward_scratch(x, L: int, Cout: int, groups: int, n_tiles: int):
+    """K1's forward buffers on x's device: the output (B, L, Cout) in x's
+    dtype, then in f32 y (B, L, Cout), the two per-tile partials (B,
+    n_tiles, Cout) and the group means and reciprocal deviations (B,
+    groups).  K1B recomputes the forward into the same buffers, with its dy
+    in the output's place."""
+    B = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((B, L, Cout), dtype=x.dtype, device=x.device),
+            torch.empty((B, L, Cout), **f32),
+            *(torch.empty((B, n_tiles, Cout), **f32) for _ in range(2)),
+            *(torch.empty((B, groups), **f32) for _ in range(2)))
+
+
 def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float, film=None,
             r=None, Wc=None, bc=None):
     """Allocate the output and scratch and launch the kernel on the route
@@ -550,35 +573,22 @@ def _launch(x, W, b, gn_scale, gn_bias, groups: int, eps: float, film=None,
     B, L, Cin = x.shape
     Cout = W.shape[2]
     lib = _lib()
-    rows = lib.conv_gn_silu_rows_per_tile()
-    n_tiles = -(-L // rows)
     route = conv_route(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
     w_packed = (torch.empty(pack_shape(Cin, Cout), dtype=torch.bfloat16,
                             device=x.device) if route == "wgmma" else None)
-    out = torch.empty((B, L, Cout), dtype=x.dtype, device=x.device)
-    y = torch.empty((B, L, Cout), **f32)
-    part_mean = torch.empty((B, n_tiles, Cout), **f32)
-    part_m2 = torch.empty((B, n_tiles, Cout), **f32)
-    g_mean = torch.empty((B, groups), **f32)
-    g_rstd = torch.empty((B, groups), **f32)
-
-    def ptr(v):
-        return None if v is None else v.data_ptr()
-
+    bufs = _forward_scratch(x, L, Cout, groups,
+                            -(-L // lib.conv_gn_silu_rows_per_tile()))
     with torch.cuda.device(x.device):
         rc = lib.conv_gn_silu_forward(
-            x.data_ptr(), W.data_ptr(), b.data_ptr(), gn_scale.data_ptr(),
-            gn_bias.data_ptr(), out.data_ptr(), y.data_ptr(),
-            part_mean.data_ptr(), part_m2.data_ptr(), g_mean.data_ptr(),
-            g_rstd.data_ptr(), ptr(w_packed), ptr(film), ptr(r), ptr(Wc),
-            ptr(bc), B, L, Cin, Cout, groups,
-            0 if r is None else r.shape[-1], float(eps), ROUTES[route],
+            *map(_ptr, (x, W, b, gn_scale, gn_bias, *bufs, w_packed, film, r,
+                        Wc, bc)),
+            B, L, Cin, Cout, groups, 0 if r is None else r.shape[-1],
+            float(eps), ROUTES[route],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("conv_gn_silu launch failed: "
                            + lib.conv_gn_silu_error_string(rc).decode())
-    return out
+    return bufs[0]
 
 
 def _launch_decoder(h, skip, W, b, gn_scale, gn_bias, groups: int,
@@ -591,35 +601,21 @@ def _launch_decoder(h, skip, W, b, gn_scale, gn_bias, groups: int,
     B, L, Cs = skip.shape
     Ch, Cout = h.shape[-1], W.shape[2]
     lib = _lib()
-    n_tiles = 2 * -(-L // (2 * lib.conv_gn_silu_rows_per_tile()))
-    dev = h.device
-    f32 = dict(dtype=torch.float32, device=dev)
     w_packed = torch.empty((-(-Cout // PACK_CHUNK) * PACK_CHUNK,
                             4 * Ch + 3 * Cs), dtype=torch.bfloat16,
-                           device=dev)
-    out = torch.empty((B, L, Cout), dtype=h.dtype, device=dev)
-    y = torch.empty((B, L, Cout), **f32)
-    part_mean = torch.empty((B, n_tiles, Cout), **f32)
-    part_m2 = torch.empty((B, n_tiles, Cout), **f32)
-    g_mean = torch.empty((B, groups), **f32)
-    g_rstd = torch.empty((B, groups), **f32)
-
-    def ptr(v):
-        return None if v is None else v.data_ptr()
-
-    with torch.cuda.device(dev):
+                           device=h.device)
+    bufs = _forward_scratch(h, L, Cout, groups, 2 * -(
+        -L // (2 * lib.conv_gn_silu_rows_per_tile())))
+    with torch.cuda.device(h.device):
         rc = lib.conv_gn_silu_decoder_forward(
-            h.data_ptr(), skip.data_ptr(), W.data_ptr(), b.data_ptr(),
-            gn_scale.data_ptr(), gn_bias.data_ptr(), out.data_ptr(),
-            y.data_ptr(), part_mean.data_ptr(), part_m2.data_ptr(),
-            g_mean.data_ptr(), g_rstd.data_ptr(), w_packed.data_ptr(),
-            ptr(film), ptr(r), ptr(Wc), ptr(bc), B, L, Ch, Cs, Cout, groups,
-            0 if r is None else r.shape[-1], float(eps),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *map(_ptr, (h, skip, W, b, gn_scale, gn_bias, *bufs, w_packed,
+                        film, r, Wc, bc)),
+            B, L, Ch, Cs, Cout, groups, 0 if r is None else r.shape[-1],
+            float(eps), torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("conv_gn_silu decoder launch failed: "
                            + lib.conv_gn_silu_error_string(rc).decode())
-    return out
+    return bufs[0]
 
 
 def _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups: int,
@@ -629,7 +625,6 @@ def _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups: int,
     B, L, Cin = x.shape
     Cout = W.shape[2]
     lib = _bwd_lib()
-    n_tiles = -(-L // BACKWARD_TILE)
     route, route_dx = conv_route(x), dx_route(x, Cout)
     run = dw_run(B, L, Cin, Cout)
     dev = x.device
@@ -638,13 +633,10 @@ def _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups: int,
     dx = torch.empty_like(x)
     dW = torch.empty((3, Cin, Cout), **f32)
     db, dscale, dbias = (torch.empty((Cout,), **f32) for _ in range(3))
-    y = torch.empty((B, L, Cout), **f32)
-    part_a, part_b = (torch.empty((B, n_tiles, Cout), **f32)
-                      for _ in range(2))
-    g_mean, g_rstd = (torch.empty((B, groups), **f32) for _ in range(2))
+    dy, y, part_a, part_b, g_mean, g_rstd = _forward_scratch(
+        x, L, Cout, groups, -(-L // BACKWARD_TILE))
     sums = torch.empty((3, B, Cout), **f32)
     coef = torch.empty((2, B, groups), **f32)
-    dy = torch.empty((B, L, Cout), dtype=x.dtype, device=dev)
     w_t = torch.empty((3, Cout, Cin), **f32)
     w_packed = (torch.empty(pack_shape(Cin, Cout), **bf)
                 if route == "wgmma" else None)
@@ -653,15 +645,10 @@ def _launch_backward(dout, x, W, b, gn_scale, gn_bias, groups: int,
     dw_part = torch.empty((dw_runs(B, L, Cin, Cout), 3, Cin, Cout), **f32)
     with torch.cuda.device(dev):
         rc = lib.conv_gn_silu_backward(
-            dout.data_ptr(), x.data_ptr(), W.data_ptr(), b.data_ptr(),
-            gn_scale.data_ptr(), gn_bias.data_ptr(), dx.data_ptr(),
-            dW.data_ptr(), db.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), y.data_ptr(), part_a.data_ptr(),
-            part_b.data_ptr(), g_mean.data_ptr(), g_rstd.data_ptr(),
-            sums.data_ptr(), coef.data_ptr(), dy.data_ptr(), w_t.data_ptr(),
-            None if w_packed is None else w_packed.data_ptr(),
-            None if wt_packed is None else wt_packed.data_ptr(),
-            dw_part.data_ptr(), B, L, Cin, Cout, groups, float(eps),
+            *map(_ptr, (dout, x, W, b, gn_scale, gn_bias, dx, dW, db, dscale,
+                        dbias, y, part_a, part_b, g_mean, g_rstd, sums, coef,
+                        dy, w_t, w_packed, wt_packed, dw_part)),
+            B, L, Cin, Cout, groups, float(eps),
             ROUTES[route], ROUTES[route_dx], run,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -773,6 +760,34 @@ def _backward(ctx, dout):
 conv_gn_silu_op.register_autograd(_backward, setup_context=_setup_context)
 
 
+def _records(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        v is not None and v.requires_grad for v in tensors)
+
+
+def _block(x, W, b, gn_scale, gn_bias, groups, eps, film=None, r=None,
+           Wc=None, bc=None, skip=None):
+    """K1 as the wrapper planned it: the plain version on the CPU, one
+    launch of ``gwport::conv_gn_silu`` on the card."""
+    if x.device.type == "cpu":
+        return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
+                                            groups, eps, film=film, r=r,
+                                            Wc=Wc, bc=bc, skip=skip)
+    _check(x, W, b, gn_scale, gn_bias, groups, skip)
+    if film is None and any(v is not None for v in (r, Wc, bc)):
+        raise ValueError("r, Wc and bc need film")
+    if film is None and skip is None:
+        return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups,
+                               float(eps))
+    if film is not None:
+        _check_film(x, W, film, r, Wc, bc,
+                    None if skip is None else skip.shape[1])
+    return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps),
+                           film, r, Wc, bc, skip)
+
+
 def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                        gn_scale: torch.Tensor, gn_bias: torch.Tensor,
                        groups: int, eps: float = 1e-5, *,
@@ -790,41 +805,30 @@ def fused_conv_gn_silu(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
 
     With ``film`` (B, 2 Cout) = [gamma | beta] in x's dtype, and optionally
     the conditioning r (B, L, K) in x's dtype with its Dense's ``Wc`` (K,
-    Cout) and ``bc`` (Cout,) f32, the kernel's last pass also adds
-    ``r @ Wc + bc`` and applies ``* (1 + gamma) + beta``, as the plain
-    version says, in f32, rounded once.  That epilogue has no backward: a
-    caller whose autograd records takes the steps apart.
+    Cout) and ``bc`` (Cout,) f32, the block is followed by ``r @ Wc + bc``
+    and ``* (1 + gamma) + beta`` (:func:`epilogue`).  With ``skip`` (B, L_s,
+    C_s), the decoder block on x = h (B, L_h, C_h): the block of
+    :func:`decoder_input` (h, skip), W (3, C_h + C_s, Cout), returning (B,
+    L_s, Cout) (r then (B, L_s, K)).
 
-    With ``skip`` (B, 2 L, C_s), the decoder block on x = h (B, L, C_h):
-    the block of :func:`decoder_input` (h, skip), W (3, C_h + C_s, Cout),
-    returning (B, 2 L, Cout).  On CUDA tensors it takes K1's decoder route
-    (:func:`takes_decoder_route` must hold, and x and skip be 16-byte
-    aligned), with or without the epilogue (r then (B, 2 L, K)); it has no
-    backward."""
-    if x.device.type == "cpu":
-        return fused_conv_gn_silu_reference(x, W, b, gn_scale, gn_bias,
-                                            groups, eps, film=film, r=r,
-                                            Wc=Wc, bc=bc, skip=skip)
-    if x.device.type != "cuda":
+    The wrapper picks how that runs, before it looks at the device.  Where
+    autograd records the call, K1 runs alone (on the materialised decoder
+    input) and :func:`epilogue` follows as plain steps.  Otherwise the
+    epilogue goes into K1's last pass, in f32, rounded once; a decoder block
+    takes K1's decoder route where :func:`takes_decoder_route` holds (on
+    CUDA tensors h and skip must then be contiguous and 16-byte aligned),
+    and runs on its materialised input where it does not."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv_gn_silu runs on cpu or cuda, not "
                          f"{x.device}")
-    _check(x, W, b, gn_scale, gn_bias, groups, skip)
-    if film is None and any(v is not None for v in (r, Wc, bc)):
-        raise ValueError("r, Wc and bc need film")
-    if film is None and skip is None:
-        return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups,
-                               float(eps))
-    if film is not None:
-        _check_film(x, W, film, r, Wc, bc,
-                    None if skip is None else skip.shape[1])
-    if torch.is_grad_enabled() and any(
-            v is not None and v.requires_grad
-            for v in (x, W, b, gn_scale, gn_bias, film, r, Wc, bc, skip)):
-        raise RuntimeError("fused_conv_gn_silu's epilogue and decoder route "
-                           "have no backward: pass film or skip where "
-                           "autograd does not record")
-    return conv_gn_silu_op(x, W, b, gn_scale, gn_bias, groups, float(eps),
-                           film, r, Wc, bc, skip)
+    records = _records(x, W, b, gn_scale, gn_bias, film, r, Wc, bc, skip)
+    if skip is not None and (records or not takes_decoder_route(x, skip)):
+        x, skip = decoder_input(x, skip), None
+    if records and film is not None:
+        return epilogue(_block(x, W, b, gn_scale, gn_bias, groups, eps),
+                        film, r, Wc, bc)
+    return _block(x, W, b, gn_scale, gn_bias, groups, eps, film, r, Wc, bc,
+                  skip)
 
 
 fused_conv_gn_silu.launches = 0

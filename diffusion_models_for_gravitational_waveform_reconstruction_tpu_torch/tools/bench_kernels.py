@@ -62,6 +62,7 @@ from ..ops.kernels import (attention_route, conv3_same, conv_route,
                            fused_conv_gn_silu, fused_conv_gn_silu_backward,
                            fused_conv_gn_silu_grad,
                            fused_conv_gn_silu_reference, group_norm)
+from ..ops.kernels import conv_gn_silu
 from ..ops.kernels.conv_gn_silu import dw_route, dx_route
 from ..ops.kernels.flash_attention import backward_route
 from ..utils.device import resolve_device
@@ -422,14 +423,14 @@ def bench_conv_bf16(device=None, shapes=CONV_SHAPES, reps: int = REPS) -> list:
 
 @contextlib.contextmanager
 def _materialised_decoder():
-    """Inside the block ``UNet1D`` upsamples and concatenates before every
-    decoder block, as where K1's decoder route does not apply."""
-    route = unet.takes_decoder_route
-    unet.takes_decoder_route = lambda h, skip: False
+    """Inside the block K1's wrapper runs every decoder block on its
+    materialised input, as where K1's decoder route does not apply."""
+    route = conv_gn_silu.takes_decoder_route
+    conv_gn_silu.takes_decoder_route = lambda h, skip: False
     try:
         yield
     finally:
-        unet.takes_decoder_route = route
+        conv_gn_silu.takes_decoder_route = route
 
 
 def decoder_f32(h, skip, W, b, s, bb, G: int, film=None, r=None, Wc=None,

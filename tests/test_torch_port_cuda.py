@@ -64,6 +64,7 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
     decoder_input,
 )
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import conv_gn_silu as k1_module
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
     DECODER_MAT_TOL,
     EPILOGUE_PLAIN_REL,
@@ -286,9 +287,26 @@ def test_epilogue_rejects_what_it_does_not_take(cuda):
             fused_conv_gn_silu(x, W, b, s, bb, 8, film=film, r=r, Wc=Wc)
         with pytest.raises(ValueError, match="need film"):
             fused_conv_gn_silu(x, W, b, s, bb, 8, r=r, Wc=Wc, bc=bc)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_conv_gn_silu(x, W.requires_grad_(), b, s, bb, 8, film=film,
-                           r=r, Wc=Wc, bc=bc)
+    _recorded_against_plain(x, W, b, s, bb, 8, film=film, r=r, Wc=Wc, bc=bc)
+
+
+def _recorded_against_plain(x, W, b, s, bb, G, **kw):
+    """A call that autograd records (every input requiring grad): K1 alone,
+    one launch without the epilogue or the decoder route, the rest as
+    plain steps, and one K1B launch for the gradients; every input's
+    gradient within K1's gradient bars (``GRAD_TOL``) of autograd through
+    the plain composition."""
+    ins, ref = (_requires_grad(x, W, b, s, bb, *kw.values())
+                for _ in range(2))
+    before = launch_counts()
+    out = fused_conv_gn_silu(*ins[:5], G, **dict(zip(kw, ins[5:])))
+    dout = torch.randn(out.shape, device=out.device).to(out.dtype)
+    got = torch.autograd.grad(out, ins, dout)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == _counts(1, k1b=1)
+    want = torch.autograd.grad(fused_conv_gn_silu_reference(
+        *ref[:5], G, **dict(zip(kw, ref[5:]))), ref, dout)
+    assert grads_against(got, want, str(x.dtype)[6:])["n_outside_tol"] == 0
 
 
 def _decoder_inputs(device, B, Lh, Ch, Cs, Cout, seed=0):
@@ -380,23 +398,47 @@ def test_decoder_route_with_the_epilogue(cuda, B, Lh, Ch, Cs, Cout):
 
 
 def test_decoder_route_rejects_what_it_does_not_take(cuda):
+    """Sources the route would take but cannot read, a strided skip and an
+    h off 16 bytes, raise; a recorded decoder block runs K1 alone on its
+    materialised input (``_recorded_against_plain``)."""
     h, skip, W, b, s, bb, _ = _decoder_inputs(cuda, 2, 64, 64, 64, 64)
     buf = torch.empty(h.numel() + 2, dtype=h.dtype, device=cuda)
     h_off = buf[2:].view(h.shape).copy_(h)     # 4 bytes off 16
     wrong = [
-        (h.float(), skip.float(), W),                          # f32
-        (h, skip[:, :127].contiguous(), W),                    # not 2 L
-        (h[:, :, :48].contiguous(), skip, W[:, 16:].contiguous()),  # C_h 48
-        (h, skip[:, :, :32].contiguous(), W[:, :96].contiguous()),  # C_s 32
-        (h, skip.transpose(1, 2).contiguous().transpose(1, 2), W),  # strided
-        (h_off, skip, W)]                                      # unaligned
+        (h, skip.transpose(1, 2).contiguous().transpose(1, 2)),  # strided
+        (h_off, skip)]                                           # unaligned
     with torch.no_grad():
-        for hw, sw, Ww in wrong:
+        for hw, sw in wrong:
             with pytest.raises(ValueError):
-                fused_conv_gn_silu(hw, Ww, b, s, bb, 8, skip=sw)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_conv_gn_silu(h, W.clone().requires_grad_(), b, s, bb, 8,
-                           skip=skip)
+                fused_conv_gn_silu(hw, W, b, s, bb, 8, skip=sw)
+    _recorded_against_plain(h, W, b, s, bb, 8, skip=skip)
+
+
+@pytest.mark.parametrize("case", ["f32", "not_2L", "C_h_48", "C_s_32"])
+def test_decoder_blocks_off_the_route_run_materialised(cuda, case):
+    """A decoder block the route does not take (f32, a skip not twice h's
+    length, C_h or C_s not a multiple of 64) is one K1 launch with the
+    epilogue on the materialised input, bit-equal to K1 called on it."""
+    h, skip, W, b, s, bb, epi = _decoder_inputs(cuda, 2, 64, 64, 64, 64)
+    if case == "f32":
+        h, skip = h.float(), skip.float()
+        epi = dict(epi, film=epi["film"].float(), r=epi["r"].float())
+    elif case == "not_2L":
+        skip, epi["r"] = skip[:, :127].contiguous(), epi["r"][:, :127]
+    elif case == "C_h_48":
+        h, W = h[:, :, :48].contiguous(), W[:, 16:].contiguous()
+    else:
+        skip, W = skip[:, :, :32].contiguous(), W[:, :96].contiguous()
+    epi["r"] = epi["r"].contiguous()
+    before = launch_counts()
+    with torch.no_grad():
+        got = fused_conv_gn_silu(h, W, b, s, bb, 8, skip=skip, **epi)
+        after = launch_counts()
+        want = fused_conv_gn_silu(decoder_input(h, skip), W, b, s, bb, 8,
+                                  **epi)
+    assert {k: after[k] - before[k] for k in after} == _counts(1, epilogue=1)
+    assert got.shape == (2, skip.shape[1], 64)
+    assert torch.equal(got, want)
 
 
 def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
@@ -456,7 +498,8 @@ def test_unet_decoder_route_matches_plain_path(cuda, monkeypatch, config):
         reset_launch_counts()
         got = model(x, t)
         assert launch_counts() == _counts(7, attn, epilogue=7, decoder=3)
-        monkeypatch.setattr(unet, "takes_decoder_route", lambda h, s: False)
+        monkeypatch.setattr(k1_module, "takes_decoder_route",
+                            lambda h, s: False)
         mat = model(x, t)
         assert launch_counts() == _counts(14, 2 * attn, epilogue=14,
                                           decoder=3)

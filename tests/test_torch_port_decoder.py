@@ -4,13 +4,15 @@ the half-length h and the skip as two sources.
 
 Its CPU path is the materialised composition, so it equals the plain
 version on the concatenated input bit for bit, with and without the
-conditioning epilogue.  The kernel's own arithmetic
+conditioning epilogue; a skip of another length than twice h's pads or
+crops the upsampled h, as the U-Net does.  The kernel's own arithmetic
 (``decoder_conv_passes`` from ``pack_decoder_weights_reference``: the
 nearest-x2 fold of JAX's ``DecoderConvBlock``, the skip read as (B, L/2,
 2 C_s)) agrees with JAX's ``DecoderConvBlock`` in f32 within ``REL_TOL``.
-``UNet1D`` takes the route where autograd does not record, in bf16, for
-a skip twice h's length and both channel counts multiples of 64, and
-nowhere else; with it the forward is bit-equal to the materialised one.
+The wrapper takes the route for the U-Net's decoder blocks where autograd
+does not record, in bf16, for a skip twice h's length and both channel
+counts multiples of 64, and nowhere else; with it the forward is bit-equal
+to the materialised one.
 The kernel itself runs only on the card (``test_torch_port_cuda.py``).
 """
 import jax
@@ -21,9 +23,11 @@ import torch
 
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu.models import unet as jax_unet
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import conv_gn_silu as k1
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
     decoder_conv_passes,
     decoder_input,
+    fix_len,
     fused_conv_gn_silu,
     fused_conv_gn_silu_reference,
     group_norm,
@@ -60,7 +64,7 @@ def test_two_source_plain_version_is_the_materialised_block(dtype,
     kw = {"none": {}, "film": dict(film=epi["film"]), "cond_film": epi}[
         epilogue]
     got = fused_conv_gn_silu(h, W, b, s, bb, 4, skip=skip, **kw)
-    x = torch.cat([unet._fix_len(h.repeat_interleave(2, dim=1), 66), skip],
+    x = torch.cat([fix_len(h.repeat_interleave(2, dim=1), 66), skip],
                   dim=-1)
     want = fused_conv_gn_silu_reference(x, W, b, s, bb, 4, **kw)
     assert got.dtype == dtype and got.shape == (2, 66, 24)
@@ -69,11 +73,23 @@ def test_two_source_plain_version_is_the_materialised_block(dtype,
 
 
 def test_two_source_plain_version_refuses_other_lengths():
+    """A skip of odd length: the upsampled h cropped (65 rows) or
+    zero-padded (67) to it, as the U-Net's odd stage lengths need; the
+    route's own arithmetic takes exactly twice h's length and refuses
+    others."""
     h, skip, W, b, s, bb, _ = _inputs(2, 33, 64, 64, 24)
-    with pytest.raises(ValueError, match="2 L"):
-        fused_conv_gn_silu(h, W, b, s, bb, 4, skip=skip[:, :65])
-    with pytest.raises(ValueError, match="2 L"):
-        decoder_conv_passes(h, skip[:, :65], W, b, torch.float32)
+    up = h.repeat_interleave(2, dim=1)
+    for odd, up_odd in (
+            (skip[:, :65], up[:, :65]),
+            (torch.cat([skip, skip[:, :1]], dim=1),
+             torch.cat([up, torch.zeros_like(up[:, :1])], dim=1))):
+        x = torch.cat([up_odd, odd], dim=-1)
+        assert torch.equal(decoder_input(h, odd), x)
+        got = fused_conv_gn_silu(h, W, b, s, bb, 4, skip=odd)
+        assert torch.equal(got, fused_conv_gn_silu_reference(x, W, b, s, bb,
+                                                             4))
+        with pytest.raises(ValueError, match="2 L"):
+            decoder_conv_passes(h, odd, W, b, torch.float32)
 
 
 @pytest.mark.parametrize("Lh,Ch,Cs,Co", [(32, 64, 64, 64), (21, 128, 64, 24),
@@ -127,22 +143,22 @@ def _model(base_ch=64, depth=3, dtype=torch.bfloat16):
 
 
 def _routes(monkeypatch, model, L, *, grad=False):
-    """The forward's output and, per K1 call, whether it took the decoder
-    route."""
+    """The forward's output and, per K1 call that the wrapper issues (to
+    the plain version, on the CPU), whether it took the decoder route."""
     calls = []
-    k1 = unet.fused_conv_gn_silu
+    plain = k1.fused_conv_gn_silu_reference
 
     def spy(*a, **kw):
         calls.append(kw.get("skip") is not None)
-        return k1(*a, **kw)
+        return plain(*a, **kw)
 
-    monkeypatch.setattr(unet, "fused_conv_gn_silu", spy)
+    monkeypatch.setattr(k1, "fused_conv_gn_silu_reference", spy)
     g = torch.Generator().manual_seed(3)
     x = torch.randn(2, 7, L, generator=g)
     t = torch.tensor([5, 700])
     with torch.set_grad_enabled(grad):
         out = model(x, t)
-    monkeypatch.setattr(unet, "fused_conv_gn_silu", k1)
+    monkeypatch.setattr(k1, "fused_conv_gn_silu_reference", plain)
     return out, calls
 
 
@@ -153,7 +169,7 @@ def test_unet_route_gives_the_materialised_forward(monkeypatch):
     model = _model()
     got, calls = _routes(monkeypatch, model, 64)
     assert calls == [False] * 4 + [True] * 3
-    monkeypatch.setattr(unet, "takes_decoder_route", lambda h, s: False)
+    monkeypatch.setattr(k1, "takes_decoder_route", lambda h, s: False)
     want, calls = _routes(monkeypatch, model, 64)
     assert calls == [False] * 7
     assert torch.equal(got, want)
@@ -167,8 +183,8 @@ def test_unet_route_gives_the_materialised_forward(monkeypatch):
     ("width_32", [False] * 3 + [True, False]),    # C_s 32 at dec1
     ("width_48", [False] * 5)])                   # C_h, C_s 96
 def test_unet_route_is_taken_only_where_it_applies(monkeypatch, case, want):
-    """Per K1 call of the fused path, whether it took the decoder route, for
-    inputs the route does not take: a stage length that ``_fix_len`` pads,
+    """Per K1 call the wrapper issues, whether it took the decoder route,
+    for inputs the route does not take: a stage length that ``fix_len`` pads,
     autograd recording, decoder blocks on a model axis, f32, and channel
     counts that are not multiples of 64.  Each forward equals the
     materialised one."""
@@ -185,7 +201,7 @@ def test_unet_route_is_taken_only_where_it_applies(monkeypatch, case, want):
             getattr(model, name).tp = pmesh.Mesh(1)
     got, calls = _routes(monkeypatch, model, L, grad=case == "autograd")
     assert calls == want
-    monkeypatch.setattr(unet, "takes_decoder_route", lambda h, s: False)
+    monkeypatch.setattr(k1, "takes_decoder_route", lambda h, s: False)
     ref, _ = _routes(monkeypatch, model, L, grad=case == "autograd")
     assert torch.equal(got, ref)
 

@@ -1,8 +1,9 @@
 """K1's conditioning epilogue on the CPU: ``fused_conv_gn_silu``'s plain
 version with ``film`` against the U-Net's composition of a ConvBlock, its
 conditioning bias and FiLM; the checks of what the kernel takes; the
-U-Net's choice of path by grad mode, and its answers and gradients on
-either path; the op's refusal of a backward through the epilogue; and the
+wrapper's choice of path by grad mode, and the U-Net's answers and
+gradients on either path; the op's refusal of a backward through the
+epilogue; and the
 export's count of the op with the epilogue as K1.  The kernel itself is
 held against the plain version on the card (``tests/test_torch_port_cuda.py``)."""
 from types import SimpleNamespace
@@ -17,6 +18,7 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
     fused_conv_gn_silu_reference,
     launch_counts,
 )
+from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import conv_gn_silu as k1
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels.conv_gn_silu import (
     _backward,
     _check_film,
@@ -160,27 +162,37 @@ def test_no_grad_forward_equals_the_separate_steps(kw):
     assert torch.equal(fused, separate.detach())
 
 
-def _spy(monkeypatch):
-    """Count the U-Net's calls of K1 alone and of K1 with the epilogue."""
+def _spy(monkeypatch, module=unet, name="fused_conv_gn_silu"):
+    """Count the calls of K1 alone and of K1 with the epilogue: by default
+    the U-Net's calls of the wrapper; with ``module=k1``, the calls that the
+    wrapper issues to K1's plain version, which it runs on the CPU as
+    planned."""
     calls = {"plain": 0, "epilogue": 0}
-    fn = unet.fused_conv_gn_silu
+    fn = getattr(module, name)
 
     def call(*a, **kw):
         calls["plain" if kw.get("film") is None else "epilogue"] += 1
         return fn(*a, **kw)
 
-    monkeypatch.setattr(unet, "fused_conv_gn_silu", call)
+    monkeypatch.setattr(module, name, call)
     return calls
+
+
+def _issued(monkeypatch):
+    return _spy(monkeypatch, k1, "fused_conv_gn_silu_reference")
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "frozen",
                                   "grad", "input_grad"])
 def test_path_follows_grad_mode(mode, monkeypatch):
-    """The epilogue where autograd does not record (no grad mode, or
-    nothing that requires grad), K1 and the separate steps where it does."""
+    """The wrapper issues K1 with the epilogue where autograd does not
+    record (no grad mode, or nothing that requires grad), K1 alone and the
+    separate steps where it does; the U-Net calls it the same way in every
+    mode."""
     model = _model()
     x, t = _xt()
-    calls = _spy(monkeypatch)
+    asked = _spy(monkeypatch)
+    calls = _issued(monkeypatch)
     if mode == "no_grad":
         with torch.no_grad():
             model(x, t)
@@ -198,6 +210,7 @@ def test_path_follows_grad_mode(mode, monkeypatch):
     records = mode in ("grad", "input_grad")
     assert calls == {"plain": BLOCKS if records else 0,
                      "epilogue": 0 if records else BLOCKS}
+    assert asked == {"plain": 0, "epilogue": BLOCKS}
 
 
 def test_a_tensor_parallel_block_keeps_the_separate_steps(monkeypatch):
@@ -217,9 +230,10 @@ def test_a_tensor_parallel_block_keeps_the_separate_steps(monkeypatch):
 
 
 def test_recorded_gradients_equal_the_epilogues_composition(monkeypatch):
-    """With grad on the U-Net takes the separate steps; its parameters'
+    """With grad on the wrapper takes the separate steps; the parameters'
     gradients equal those through the epilogue's plain version (the same
-    function, which on the CPU autograd can differentiate)."""
+    function, which on the CPU autograd can differentiate), issued when the
+    wrapper's choice is forced to the no-record one."""
     x, t = _xt()
     model = _model(use_attention=True)
 
@@ -229,8 +243,8 @@ def test_recorded_gradients_equal_the_epilogues_composition(monkeypatch):
         return {n: p.grad.clone() for n, p in model.named_parameters()}
 
     separate = grads()
-    monkeypatch.setattr(unet.UNet1D, "_records", lambda self, x: False)
-    calls = _spy(monkeypatch)
+    monkeypatch.setattr(k1, "_records", lambda *tensors: False)
+    calls = _issued(monkeypatch)
     fused = grads()
     assert calls == {"plain": 0, "epilogue": BLOCKS}
     for name in ("enc0.conv.kernel", "cond_enc0.kernel", "tproj_mid.bias",
