@@ -40,6 +40,13 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              and against the materialised upsample -> concat -> K1, timed
              beside that path, the concatenation, the plain fold, the plain
              version and the library (``tools.bench_kernels.decoder_row``).
+             The U-Net's head kernel at each flagship's head (bf16 at its
+             serving batch, its cell's rows and the infer batch; pn128's
+             cell rows in f32) against its plain version at the
+             ``tools.bench_kernels.TOL`` bars and, in bf16, against the
+             composition it replaced, timed between CUDA events and on the
+             device beside both, with the bound
+             (``tools.bench_kernels.head_row``).
 3b. kernel_backward - K1B and K2B, the backward kernels, against their
              plain backwards on the inputs in f32 at every training path's
              shapes in bf16 (attn16k's 7 ConvBlocks at 16 rows and its
@@ -216,15 +223,17 @@ bottleneck attention, L 32768).  Phases, each printing JSON lines:
              and on the CPU (the mismatch table within 1e-6); and
              ``tools.merge_h5`` over the data phase's two corpora,
              byte-equal to gw-merge's file.
-17. launched_shapes - every shape each kernel (K1B and K2B too) was
+17. launched_shapes - every shape each kernel (K1B, K2B and the head too) was
              launched at from phase 4 on (recorded by wrapping the ops' launch bodies; the
              op_overhead phase and the attention model's monolithic
              forward of phase 14, whose K2 shape has no plain version that
              fits the card, are not recorded) that phase 3 did not check, held against its plain
              version in the same way; the coverage, and K1's time summed
              over the blocks of each forward shape (rows and length) of
-             each evals, distill, parallel, data and tools run.
-18. kernels - one ``{"kernels": [...]}`` line, then the last line
+             each evals, distill, parallel, data and tools run; the
+             head's per shape and run.
+18. kernels - one ``{"kernels": [...]}`` line (K1, K2, the head, K1B,
+             K2B, each with its launches by main path), then the last line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA
@@ -575,6 +584,63 @@ def phase_kernel_decoder(torch, config, shapes, rows, epilogues=("none",),
     return results
 
 
+def head_shape(model, L):
+    """(L_h, C, L0, C_in) of ``model``'s head at input length L: the last
+    decoder block's output and the network input, of one length."""
+    return L, model.final.kernel.shape[1] - 1, L, model.in_ch
+
+
+def phase_kernel_head(torch, config, key, reps=5):
+    """The head kernel at ``key`` (dtype, rows, L_h, C, L0, C_in), seeded
+    inputs and weights: the row of ``tools.bench_kernels.head_row`` (the
+    kernel against its plain version at the ``TOL`` bars and, in bf16,
+    against the composition it replaced; with ``reps``, its time between
+    CUDA events and on the device beside the plain version's and the
+    composition's, and the bound from these inputs)."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
+        head_row,
+    )
+
+    dname, rows, Lh, C, L0, Cin = key
+    g = torch.Generator(device="cuda").manual_seed(rows + Lh + C)
+    dtype = getattr(torch, dname)
+    h = torch.randn(rows, Lh, C, generator=g, device="cuda").to(dtype)
+    x = torch.randn(rows, L0, Cin, generator=g, device="cuda").to(dtype)
+    W = torch.randn(3, C + 1, 1, generator=g, device="cuda") / (3 * (C + 1)) ** 0.5
+    b = 0.1 * torch.randn(1, generator=g, device="cuda")
+    row = head_row(h, x, W, b, reps=reps, plain_reps=3)
+    rec = {"phase": "kernel_head", "kernel": HEAD, "config": config,
+           "rows": rows, "Lh": Lh, "C": C, "L0": L0, "Cin": Cin, **row}
+    emit(rec)
+    check(row["within_tol"],
+          f"unet_head {config} {key}: {row['n_outside_tol']} outputs "
+          f"outside rtol={row['rtol']} atol={row['atol']}, "
+          f"{row.get('n_outside_composition_tol', 0)} outside the "
+          f"composition's bar")
+    del h, x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernel_heads(torch):
+    """``phase_kernel_head`` at the flagships' serving batch, their cells'
+    rows (pn128 128, attn16k 64) and the infer batch in bf16, and at
+    pn128's cell rows in f32."""
+    from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models.unet import UNet1D
+
+    kh = []
+    for config, dtypes_rows in (
+            ("pn128", (("bfloat16", 64), ("bfloat16", 128),
+                       ("bfloat16", INFER_ROWS), ("float32", 128))),
+            ("attn16k", (("bfloat16", 32), ("bfloat16", 64),
+                         ("bfloat16", INFER_ROWS)))):
+        path = PATHS[config]
+        shape = head_shape(UNet1D(**path["model"], device="cuda"), path["L"])
+        kh += [phase_kernel_head(torch, config, (dname, rows, *shape))
+               for dname, rows in dtypes_rows]
+    return kh
+
+
 def phase_kernel_attention(torch, shapes=K2_SHAPES):
     """K2 at each (dtype, B, H, L, D): the row of
     ``tools.bench_kernels.attention_row``."""
@@ -777,7 +843,8 @@ def expected_launches(model, forwards, backwards=0):
             "flash_attention_backward": (backwards if model.use_attention
                                          else 0),
             EPILOGUE: blocks * (forwards - backwards),
-            DECODER: decoder_routes(model) * (forwards - backwards)}
+            DECODER: decoder_routes(model) * (forwards - backwards),
+            HEAD: forwards - backwards}
 
 
 KERNEL_NAMES = ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
@@ -787,6 +854,8 @@ KERNEL_NAMES = ("conv_gn_silu", "flash_attention", "conv_gn_silu_backward",
 # their own)
 EPILOGUE = "conv_gn_silu_epilogue"
 DECODER = "conv_gn_silu_decoder"
+# the U-Net's head kernel: once a forward that autograd does not record
+HEAD = "unet_head"
 
 
 def all_counts(want, model=None):
@@ -799,12 +868,18 @@ def all_counts(want, model=None):
     it does not name the decoder route's, it is the epilogue's count times
     ``route_share`` of ``model`` (the keyword arguments of the run's bf16
     U-Net; None: no launch on the route): the route is taken on the same
-    forwards, by the model's decoder blocks whose widths it takes."""
+    forwards, by the model's decoder blocks whose widths it takes.  Where
+    it does not name the head's, it is the forwards without a backward:
+    K1's launches less K1B's over the ConvBlocks of ``model`` (None: of
+    ``FLAGSHIP``, whose depth every run that names no model shares)."""
     out = {**dict.fromkeys(KERNEL_NAMES, 0), **want}
     out.setdefault(EPILOGUE, out["conv_gn_silu"]
                    - out["conv_gn_silu_backward"])
-    routes, blocks = (0, 1) if model is None else route_share(model)
+    routes = 0 if model is None else route_share(model)[0]
+    blocks = 2 * (model or FLAGSHIP)["depth"] + 1
     out.setdefault(DECODER, out[EPILOGUE] * routes // blocks)
+    out.setdefault(HEAD, (out["conv_gn_silu"] - out["conv_gn_silu_backward"])
+                   // blocks)
     return out
 
 
@@ -2383,7 +2458,7 @@ def phase_evals_small(torch, tmp):
                             dc_weight=0.0, eta=0.0)
         n = ladder_len(3, sweep._sampler_config(combo, 3, schedule, ck,
                                                 True).start_t)
-        want = {"conv_gn_silu": 5 * n, "flash_attention": 0}
+        want = {"conv_gn_silu": 5 * n, "flash_attention": 0, HEAD: n}
         r, got, _ = run_counted(
             torch, lambda: sweep.eval_combo(model, schedule, ck, preps, combo,
                                             3, draws, device=dev),
@@ -2397,7 +2472,8 @@ def phase_evals_small(torch, tmp):
             torch, lambda: grid.eval_indices(args, model, schedule, ck, preps,
                                              draws, device=dev),
             {"conv_gn_silu": 5 * ladder_len(3, 999) * 2,
-             "flash_attention": 0} if dev == "cuda" else None,
+             "flash_attention": 0, HEAD: ladder_len(3, 999) * 2}
+            if dev == "cuda" else None,
             "small eval_indices")
         out[dev] = (r, rows, got, got2)
     (rg, rows_g, lg, lg2), (rc, rows_c, _, _) = out["cuda"], out["cpu"]
@@ -4171,7 +4247,7 @@ class LaunchShapes:
     "cond<K>" (K the conditioning's channels); its decoder route's (dtype,
     rows, L, C_h, C_s, Cout, groups, epilogue), L the skip's length;
     K1B's (dtype, rows, L, Cin, Cout, groups); K2's and K2B's (dtype, B, H,
-    L, D)."""
+    L, D); the head's (dtype, rows, L_h, C, L0, C_in)."""
 
     label = "other"
     # kernel -> (its module in ops/kernels, its launch body there)
@@ -4180,7 +4256,8 @@ class LaunchShapes:
                "flash_attention": ("flash_attention", "_launch"),
                "conv_gn_silu_backward": ("conv_gn_silu", "_launch_backward"),
                "flash_attention_backward": ("flash_attention",
-                                            "_launch_backward")}
+                                            "_launch_backward"),
+               HEAD: ("unet_head", "_launch")}
 
     def __init__(self):
         import importlib
@@ -4203,6 +4280,8 @@ class LaunchShapes:
             if kernel == "conv_gn_silu_decoder":   # h, skip, W, ..., groups
                 key = (args[0].dtype, args[0].shape, args[1].shape,
                        args[2].shape, args[6])
+            elif kernel == HEAD:                   # h, x, W, b
+                key = (args[0].dtype, args[0].shape, args[1].shape)
             elif conv:
                 key = (args[o].dtype, args[o].shape, args[o + 1].shape,
                        args[o + 5])
@@ -4226,6 +4305,8 @@ class LaunchShapes:
         if kernel == "conv_gn_silu_decoder":
             (B, _, Ch), (_, L, Cs), Cout = key[1], key[2], key[3][2]
             return (dname, B, L, Ch, Cs, Cout, int(key[4]), key[5])
+        if kernel == HEAD:
+            return (dname, *key[1], *key[2][1:])
         return ((dname, *key[1][:2], *key[2][1:], int(key[3]), *key[4:])
                 if kernel.startswith("conv_gn_silu") else (dname, *key[1]))
 
@@ -4233,8 +4314,9 @@ class LaunchShapes:
     def seen(self):
         """{kernel: {key: labels}} with K1's key (dtype, rows, L, Cin, Cout,
         groups, epilogue), its decoder route's (dtype, rows, L, C_h, C_s,
-        Cout, groups, epilogue), K1B's without the epilogue and K2's (dtype,
-        B, H, L, D), dtype by name."""
+        Cout, groups, epilogue), K1B's without the epilogue, K2's (dtype,
+        B, H, L, D) and the head's (dtype, rows, L_h, C, L0, C_in), dtype
+        by name."""
         out = {k: {} for k in self.KERNELS}
         for k, raw in self.raw.items():
             for key, labels in raw.items():
@@ -4285,14 +4367,14 @@ def k1_sum(recs):
     return out
 
 
-def phase_launched_shapes(torch, shapes, k1, k2, kb, kd):
+def phase_launched_shapes(torch, shapes, k1, k2, kb, kd, kh):
     """Every shape a kernel was launched at while ``shapes`` recorded (the
     main paths, the small checks against the CPU, the gradient checks, the
     training runs' backward kernels) against the kernel's plain version:
     the shapes no check of the kernel phases covered, one by one, at the
-    tolerances of the kernel phases (K1B and K2B without timing).  Returns
-    K1's and K2's records of every launched shape by run label, and the
-    coverage."""
+    tolerances of the kernel phases (K1B, K2B and the head without
+    timing).  Returns K1's, its decoder route's, K2's and the head's
+    records of every launched shape by run label, and the coverage."""
     seen = shapes.seen
     key1 = ("dtype", "rows", "L", "Cin", "Cout", "groups")
     key2 = ("dtype", "B", "H", "L", "D")
@@ -4300,8 +4382,10 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb, kd):
     done2 = {tuple(r[k] for k in key2): r for r in k2}
     keyd = ("dtype", "rows", "L", "Ch", "Cs", "Cout", "groups", "epilogue")
     doned = {tuple(r[k] for k in keyd): r for r in kd}
+    keyh = ("dtype", "rows", "Lh", "C", "L0", "Cin")
+    doneh = {tuple(r[k] for k in keyh): r for r in kh}
     done = {"conv_gn_silu": done1, "conv_gn_silu_decoder": doned,
-            "flash_attention": done2,
+            "flash_attention": done2, HEAD: doneh,
             "conv_gn_silu_backward": {tuple(r[k] for k in key1): r
                                       for r in kb[0]},
             "flash_attention_backward": {tuple(r[k] for k in key2): r
@@ -4337,8 +4421,10 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb, kd):
                                   [(f"L{L} {Ch}+{Cs}->{Cout}", L, Ch, Cs,
                                     Cout)], rows, (epilogue,), reps=0)
         doned[tuple(r[k] for k in keyd)] = r
+    for key in sorted(set(seen[HEAD]) - set(doneh)):
+        doneh[key] = phase_kernel_head(torch, "launched", key, reps=0)
     by_run = {"conv_gn_silu": {}, "conv_gn_silu_decoder": {},
-              "flash_attention": {}}
+              "flash_attention": {}, HEAD: {}}
     for key, labels in seen["conv_gn_silu"].items():
         for label in labels - {"other"}:
             group = by_run["conv_gn_silu"].setdefault(label, {})
@@ -4357,6 +4443,14 @@ def phase_launched_shapes(torch, shapes, k1, k2, kb, kd):
                         "kernel_ms", "materialised_ms", "plain_ms",
                         "bound_ms", "max_abs_err",
                         "max_abs_err_vs_materialised")}
+    for key, labels in seen[HEAD].items():
+        r = doneh[key]
+        for label in labels - {"other"}:
+            by_run[HEAD].setdefault(label, {})[" ".join(map(str, key))] = {
+                k: r.get(k, "not measured") for k in (
+                    "kernel_dev_ms", "kernel_ms", "plain_ms",
+                    "composition_ms", "bound_ms", "max_abs_err",
+                    "max_abs_err_vs_composition", "route")}
     for key, labels in seen["flash_attention"].items():
         r = done2[key]
         for label in labels - {"other"}:
@@ -4450,7 +4544,50 @@ def backward_entries(kb, launches, coverage, pkg):
          "phase": "kernel_backward"}]
 
 
-def kernels_line(k1, k2, kb, kd, launches, by_run, coverage):
+def head_entry(kh, launches, by_run, coverage, pkg):
+    """The head kernel's ``kernels`` record: summed over one forward of
+    each main path at its serving batch, bf16 (``ms``: device time from the
+    profiler; ``event_ms``: between CUDA events, the wrapper's host time
+    included); also at the benchmark's cells' rows, the infer batch, f32,
+    and every shape the runs launched, by run; launches summed over the
+    main-path runs."""
+    def rec(config, rows, dtype="bfloat16"):
+        return next(r for r in kh if r["config"] == config
+                    and r["rows"] == rows and r["dtype"] == dtype)
+
+    keys = ("kernel_dev_ms", "kernel_ms", "plain_ms", "composition_ms",
+            "bound_ms", "dev_share_of_bound", "max_abs_err",
+            "max_abs_err_vs_composition", "route", "rows", "Lh", "C", "Cin")
+    by = {f"{r['config']} {r['dtype']} {r['rows']} rows": {
+        k: r.get(k, "not measured") for k in keys}
+        for r in kh if r["config"] != "launched"}
+    main = [rec(config, path["rows"]) for config, path in PATHS.items()]
+    dev = [r["kernel_dev_ms"] for r in main]
+    return {"name": HEAD, "route": "cuda",
+            "source": f"{pkg}_torch/csrc/unet_head.cu",
+            "replaces": f"{pkg}/models/unet.py:396",
+            "replaces_note": "no Pallas kernel: the JAX model's final conv "
+                             "on [h | x_t] (models/unet.py:396-401), left "
+                             "to XLA",
+            "launches": sum(n.get(HEAD, 0) for n in launches.values()),
+            "launches_by_path": {c: n.get(HEAD, 0)
+                                 for c, n in launches.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in kh),
+            "ms": (sum(dev) if all(dev) else "not measured"),
+            "event_ms": sum(r["kernel_ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "library_ms": sum(r["composition_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": "bytes",
+            "by_shape": by, "by_eval_run": by_run[HEAD],
+            "launched_shapes": coverage[HEAD],
+            "shapes": "the head of one forward of each main path, bf16: "
+                      "pn128 64 rows (L 4096, C 128), attn16k 32 rows "
+                      "(L 32768, C 64)",
+            "phase": "kernel_head"}
+
+
+def kernels_line(k1, k2, kb, kd, kh, launches, by_run, coverage):
     """The ``kernels`` record: K1 summed over the 7 ConvBlocks of one forward
     of each main path at its serving batch as the path launches them (the
     encoder's and mid's from ``k1``, the decoder's on the decoder route
@@ -4557,7 +4694,9 @@ def kernels_line(k1, k2, kb, kd, launches, by_run, coverage):
              "bench_kernels unet"),
          "launched_shapes": coverage["flash_attention"],
          "shapes": "attn16k's bottleneck (32, 4, 4096, 64), bf16",
-         "phase": "kernel"}] + backward_entries(kb, launches, coverage, pkg)}
+         "phase": "kernel"},
+        head_entry(kh, launches, by_run, coverage, pkg)]
+        + backward_entries(kb, launches, coverage, pkg)}
 
 
 SASS_OPS = ("HGMMA", "UTMALDG")
@@ -4669,6 +4808,7 @@ def main():
         for rows in rows_list:
             kd += phase_kernel_decoder(torch, config, shapes, rows,
                                        ("none", path_epilogue(config)))
+    kh = phase_kernel_heads(torch)
     k2 = phase_kernel_attention(torch)
     lap("kernel")
     kb = phase_kernel_backward(torch)
@@ -4741,11 +4881,12 @@ def main():
                 torch, f"{STREAM_CONFIG} L{L}", train_blocks(FLAGSHIP, L),
                 torch.bfloat16, TRAIN_BATCH, reps=2))
     lap("stream buckets")
-    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2, kb, kd)
+    by_run, coverage = phase_launched_shapes(torch, shapes, k1, k2, kb, kd,
+                                             kh)
     lap("launched_shapes")
     emit({"phase": "seconds", "by_stretch": lap.s,
           "total": sum(lap.s.values())})
-    emit(kernels_line(k1, k2, kb, kd, launches, by_run, coverage))
+    emit(kernels_line(k1, k2, kb, kd, kh, launches, by_run, coverage))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,7 +12,9 @@ conditioning (counterpart of the JAX package's ``models/unet.py``).
 - conditioning bias: cond channels linearly resized to the stage length
   (once a forward for each length), then a 1x1 projection; downsample
   avg-pool 2, decoder nearest x2 -> pad/crop -> skip concat -> ConvBlock;
-  zero-initialised final conv on ``[h | x_t]``.
+  zero-initialised final conv on ``[h | x_t]``, the head
+  (:func:`ops.kernels.unet_head`: its Hopper kernel reads h and x_t in
+  place on a GPU where autograd does not record).
 - a decoder block hands the half-length h and the skip to the same call
   (``skip=``).  How each call runs (the bias and FiLM in K1's epilogue or
   as separate steps, the decoder block on K1's decoder route or on its
@@ -42,10 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import (conv3_same, decoder_input, epilogue, fix_len,
-                           flash_attention, flash_attention_reference,
-                           fused_conv_gn_silu, fused_conv_gn_silu_reference,
-                           group_norm)
+from ..ops.kernels import (decoder_input, epilogue, flash_attention,
+                           flash_attention_reference, fused_conv_gn_silu,
+                           fused_conv_gn_silu_reference, group_norm,
+                           unet_head, unet_head_plain)
 from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.spans import span
@@ -56,14 +58,15 @@ def plain_kernels():
     """Inside the block every module of this file runs through the
     kernels' plain versions, on any device (forward and backward): the
     plain path that the kernel path is held against on the card."""
-    global fused_conv_gn_silu, flash_attention
-    kernels = fused_conv_gn_silu, flash_attention
+    global fused_conv_gn_silu, flash_attention, unet_head
+    kernels = fused_conv_gn_silu, flash_attention, unet_head
     fused_conv_gn_silu = fused_conv_gn_silu_reference
     flash_attention = flash_attention_reference
+    unet_head = unet_head_plain
     try:
         yield
     finally:
-        fused_conv_gn_silu, flash_attention = kernels
+        fused_conv_gn_silu, flash_attention, unet_head = kernels
 
 
 def _lecun_normal_(p: torch.Tensor, fan_in: int) -> None:
@@ -384,11 +387,9 @@ class UNet1D(nn.Module):
             _, cond_ch = self._layout()
             cdt = self.dtype or torch.float32
             x = x.transpose(1, 2).to(cdt).contiguous()
-            L0 = x.shape[1]
 
             t_emb = self.time_embedding(t).to(cdt)
             t_ctx = F.silu(self.time_dense(t_emb))
-            x_t = x[:, :, :1]
             cond = x[:, :, 1:1 + cond_ch] if cond_ch > 0 else None
             resized = {}
 
@@ -430,10 +431,7 @@ class UNet1D(nn.Module):
             for i in range(self.depth):
                 h = block(h, f"dec{i}", skips[-(i + 1)])
 
-            h = torch.cat([fix_len(h, L0), x_t], dim=-1)
-            out = conv3_same(h, self.final.kernel.to(cdt),
-                             self.final.bias.to(cdt))
-            return out.to(torch.float32).transpose(1, 2)
+            return unet_head(h, x, self.final.kernel, self.final.bias)
 
 
 def build_net_input(x_t: torch.Tensor, cond_stack: Optional[torch.Tensor],

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain version:
-K1 (the fused ConvBlock) and K2 (flash attention), and their backwards K1B
-and K2B.
+K1 (the fused ConvBlock) and K2 (flash attention), their backwards K1B
+and K2B, and the U-Net's head.
 
 Each wrapper carries a plain integer ``launches`` that its registered op
 raises by one each time it launches the kernel (never for the plain
@@ -32,6 +32,13 @@ from .flash_attention import (
     flash_attention_grad,
     flash_attention_reference,
 )
+from .unet_head import (
+    head_route,
+    unet_head,
+    unet_head_composition,
+    unet_head_plain,
+    unet_head_reference,
+)
 
 # counter -> (the wrapper that carries it, its attribute)
 _COUNTERS = {"conv_gn_silu": (fused_conv_gn_silu, "launches"),
@@ -41,7 +48,8 @@ _COUNTERS = {"conv_gn_silu": (fused_conv_gn_silu, "launches"),
              "conv_gn_silu_epilogue": (fused_conv_gn_silu,
                                        "epilogue_launches"),
              "conv_gn_silu_decoder": (fused_conv_gn_silu,
-                                      "decoder_launches")}
+                                      "decoder_launches"),
+             "unet_head": (unet_head, "launches")}
 
 
 def reset_launch_counts() -> None:
@@ -59,6 +67,7 @@ __all__ = ["attention_route", "conv3_same", "conv_route",
            "flash_attention_grad", "flash_attention_reference",
            "fused_conv_gn_silu", "fused_conv_gn_silu_backward",
            "fused_conv_gn_silu_grad", "fused_conv_gn_silu_reference",
-           "group_norm", "launch_counts", "pack_decoder_weights_reference",
-           "pack_weights_reference", "reset_launch_counts",
-           "takes_decoder_route"]
+           "group_norm", "head_route", "launch_counts",
+           "pack_decoder_weights_reference", "pack_weights_reference",
+           "reset_launch_counts", "takes_decoder_route", "unet_head",
+           "unet_head_composition", "unet_head_plain", "unet_head_reference"]

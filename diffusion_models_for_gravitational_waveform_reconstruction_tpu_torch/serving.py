@@ -42,6 +42,7 @@ from .inference import apply_distilled_defaults, load_model, resolve_start_t
 from .parallel import mesh as pmesh
 from .ops.kernels.conv_gn_silu import conv_gn_silu_op
 from .ops.kernels.flash_attention import flash_attention_op
+from .ops.kernels.unet_head import unet_head_op
 from .ops.sampling import (SAMPLERS, RankNoise, SamplerConfig, SeededNoise,
                            aggregate_seeds, seeded_normal,
                            sample_with_refinement)
@@ -220,6 +221,7 @@ def _op_counts(ep) -> dict:
     program's graphs hold (no-grad regions are graphs of their own)."""
     ops = {"conv_gn_silu": conv_gn_silu_op,
            "flash_attention": flash_attention_op,
+           "unet_head": unet_head_op,
            "seeded_normal": seeded_normal}
     targets = {op._opoverload: name for name, op in ops.items()}
     counts = dict.fromkeys(ops, 0)
@@ -247,7 +249,7 @@ def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
     the static shapes ``cond_stack (batch, cond_in_ch, length) f32``,
     ``sigmas (batch,) f32``, ``seed () int32`` (on the CPU), with its
     weights inside the program.  Trace where you serve: a CUDA export holds
-    the kernels' ops (checked here: K1, and K2 for an attention
+    the kernels' ops (checked here: K1, the head, and K2 for an attention
     checkpoint), a CPU export their plain versions.  Knobs resolve as in
     :func:`resolve_serving_config`.
 
@@ -283,8 +285,8 @@ def export_sampler(ckpt_path: str, out_path: str, *, batch: int, length: int,
     ep = torch.export.export(served, example, strict=False)
     counts = _op_counts(ep)
     if dev.type == "cuda":
-        want = ["conv_gn_silu"] + (["flash_attention"] if model.use_attention
-                                   else [])
+        want = ["conv_gn_silu", "unet_head"] + (
+            ["flash_attention"] if model.use_attention else [])
         missing = [name for name in want if counts[name] == 0]
         if missing:
             raise RuntimeError(f"the CUDA export holds no {missing} op: "

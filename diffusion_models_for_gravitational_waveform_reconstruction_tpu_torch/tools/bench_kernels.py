@@ -3,7 +3,7 @@ against its plain PyTorch version; the port's twin of the root
 ``tools/bench_kernels.py``.
 
     python -m diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels \
-        [conv|conv_bf16|decoder|attn|unet|hbm] [--device cpu]
+        [conv|conv_bf16|decoder|head|attn|unet|hbm] [--device cpu]
 
 Sections, at the root tool's shapes:
 
@@ -23,6 +23,11 @@ Sections, at the root tool's shapes:
   through the kernels against the same module through the plain versions
   (``models/unet.py::plain_kernels``), timed in bf16, its error in bf16 and
   f32; its bottleneck runs K2 at (64, 4, 512, 64);
+- ``head``: the U-Net's head kernel (``ops/kernels`` ``unet_head``) at
+  the benchmark's cells' heads (pn128: 128 rows, L 4096, C 128; attn16k:
+  64 rows, L 32768, C 64; bf16, x with 7 channels) beside its plain
+  version and the U-Net's composition it replaces (concatenation, im2col
+  and matrix-vector product: ``composition_ms``, the library yardstick);
 - ``hbm``: 64 dependent saxpy passes over a 256 MB float32 buffer, plain
   PyTorch: the device-memory rate the card delivers against its peak.
 
@@ -62,7 +67,8 @@ from ..ops.kernels import (attention_route, conv3_same, conv_route,
                            fused_conv_gn_silu, fused_conv_gn_silu_backward,
                            fused_conv_gn_silu_grad,
                            fused_conv_gn_silu_reference, group_norm)
-from ..ops.kernels import conv_gn_silu
+from ..ops.kernels import (conv_gn_silu, head_route, unet_head,
+                           unet_head_composition, unet_head_reference)
 from ..ops.kernels.conv_gn_silu import dw_route, dx_route
 from ..ops.kernels.flash_attention import backward_route
 from ..utils.device import resolve_device
@@ -75,6 +81,8 @@ CONV_SHAPES = [(64, 4096, 64, 64), (64, 2048, 64, 128),
 DECODER_STAGES = [(128, 1024, 512, 512, 512), (128, 2048, 512, 256, 256),
                   (128, 4096, 256, 128, 128), (64, 8192, 256, 256, 256),
                   (64, 16384, 256, 128, 128), (64, 32768, 128, 64, 64)]
+# (rows, L, C, C_in) of the benchmark's cells' heads: pn128, attn16k
+HEAD_SHAPES = [(128, 4096, 128, 7), (64, 32768, 64, 7)]
 ATTN_SHAPES = [(8, 4, 2048, 64), (4, 4, 4096, 64), (2, 4, 8192, 64)]
 UNET_B, UNET_L = 64, 4096
 UNET_MODEL = dict(in_ch=7, base_ch=64, time_dim=128, depth=3, cond_in_ch=5,
@@ -87,6 +95,8 @@ HBM_N, HBM_ITERS = 64 * 1024 * 1024, 64
 # plain version after) and the output, a few ulps of 2^-8 apart
 TOL = {("conv_gn_silu", "float32"): (1e-4, 2e-5),
        ("conv_gn_silu", "bfloat16"): (2 ** -7, 1e-3),
+       ("unet_head", "float32"): (1e-4, 1e-5),
+       ("unet_head", "bfloat16"): (2 ** -7, 1e-3),
        ("flash_attention", "float32"): (1e-4, 1e-5),
        ("flash_attention", "bfloat16"): (2 ** -6, 2e-3)}
 # K1B and K2B (the backward kernels), gradient by gradient, against the
@@ -143,10 +153,31 @@ def _bound(flops, nbytes, device, dtype) -> dict:
             {"bound_ms": None, "bound_by": None})
 
 
-def _against(got, want, kernel) -> dict:
+def device_ms(fn, device, key: str, reps: int = REPS):
+    """Mean device ms a call of ``fn`` spends in kernels whose name holds
+    ``key``, from ``torch.profiler`` over ``reps`` calls after a warm-up;
+    None on the CPU or where the profiler saw no such kernel."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync(device)
+    us = sum((getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if key in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _against(got, want, kernel, dname=None) -> dict:
     """The largest difference of ``got`` from ``want`` and the count of
-    outputs outside ``kernel``'s bars in ``TOL``."""
-    dname = str(got.dtype).split(".")[1]
+    outputs outside ``kernel``'s bars in ``TOL`` for ``dname`` (default:
+    ``got``'s dtype)."""
+    dname = dname or str(got.dtype).split(".")[1]
     rtol, atol = TOL[(kernel, dname)]
     diff = (got.float() - want.float()).abs()
     bad = int((diff > atol + rtol * want.float().abs()).sum())
@@ -563,6 +594,75 @@ def bench_fast_decoder(device=None, stages=DECODER_STAGES,
     return rows
 
 
+def head_row(h, x, W, b, reps: int = REPS,
+             plain_reps: int = REPS // 4) -> dict:
+    """The U-Net's head kernel on h (B, L, C) and x (B, L, C_in) against
+    its plain version (``TOL``) and, in bf16, the U-Net's composition
+    (``DECODER_MAT_TOL``: it rounds its product and its bias add); with
+    ``reps`` the kernel's, the plain version's and the composition's times
+    (``kernel_ms`` between CUDA events includes the wrapper's host time,
+    which exceeds the kernel's at these shapes; ``kernel_dev_ms`` is the
+    kernel's device time from the profiler) and the bound: h, x_t, W and b
+    read once, the f32 output written once; 2 x 3 (C + 1) FLOPs a row."""
+    dev = h.device
+    dname = str(h.dtype).split(".")[1]
+    B, L, C = h.shape
+    with torch.no_grad():
+        out = unet_head(h, x, W, b)
+        want = unet_head_reference(h, x, W, b)
+        _sync(dev)
+        err = _against(out, want, "unet_head", dname)
+        ok = err["n_outside_tol"] == 0
+        if dname == "bfloat16":
+            rtol, atol = DECODER_MAT_TOL
+            comp = unet_head_composition(h, x, W, b)
+            diff = (out - comp).abs()
+            err["max_abs_err_vs_composition"] = float(diff.max())
+            err["n_outside_composition_tol"] = int(
+                (diff > rtol * comp.abs() + atol).sum())
+            ok = ok and err["n_outside_composition_tol"] == 0
+            del comp, diff
+        del out, want
+        row = {"route": head_route(h), "dtype": dname, **err,
+               "within_tol": ok}
+        if reps < 1:
+            return row
+        row.update(
+            kernel_ms=time_ms(lambda: unet_head(h, x, W, b), dev, reps),
+            kernel_dev_ms=device_ms(lambda: unet_head(h, x, W, b), dev,
+                                    "unet_head_", reps),
+            plain_ms=time_ms(lambda: unet_head_reference(h, x, W, b), dev,
+                             max(1, plain_reps)),
+            composition_ms=time_ms(
+                lambda: unet_head_composition(h, x, W, b), dev, reps))
+    row["speedup_vs_composition"] = row["composition_ms"] / row["kernel_ms"]
+    flops = 2.0 * B * L * 3 * (C + 1)
+    nbytes = (B * L * (C + 1) * h.element_size() + (W.numel() + 1) * 4
+              + B * L * 4)
+    row.update(_bound(flops, nbytes, dev, dname), gflop=flops / 1e9,
+               mbytes=nbytes / 1e6)
+    if row["bound_ms"] and row["kernel_dev_ms"]:
+        row["dev_share_of_bound"] = row["bound_ms"] / row["kernel_dev_ms"]
+    return row
+
+
+def bench_head(device=None, shapes=HEAD_SHAPES, reps: int = REPS) -> list:
+    """Per shape (bf16, seeded inputs and weights), ``head_row``."""
+    dev = resolve_device(device)
+    rows = []
+    for (B, L, C, Cin) in shapes:
+        g = torch.Generator(device=dev).manual_seed(0)
+        h = torch.randn(B, L, C, generator=g, device=dev).bfloat16()
+        x = torch.randn(B, L, Cin, generator=g, device=dev).bfloat16()
+        W = torch.randn(3, C + 1, 1, generator=g, device=dev) \
+            / (3 * (C + 1)) ** 0.5
+        b = 0.1 * torch.randn(1, generator=g, device=dev)
+        rows.append({"kernel": "unet_head_bf16", "shape": [B, L, C, Cin],
+                     **head_row(h, x, W, b, reps)})
+        del h, x
+    return rows
+
+
 def _exact_attention(q, k, v):
     """f32 attention of bf16 inputs and sum_i p_i |v_i|, over chunks of B
     so that the scores stay near 2 GB."""
@@ -683,7 +783,8 @@ def bench_hbm_stream(device=None, n: int = HBM_N, iters: int = HBM_ITERS,
 
 
 SECTIONS = {"conv": bench_conv, "conv_bf16": bench_conv_bf16,
-            "decoder": bench_fast_decoder, "attn": bench_attention,
+            "decoder": bench_fast_decoder, "head": bench_head,
+            "attn": bench_attention,
             "unet": bench_unet, "hbm": bench_hbm_stream}
 
 

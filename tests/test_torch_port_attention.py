@@ -104,13 +104,13 @@ def test_launch_counts_cover_every_wrapper():
                                     "conv_gn_silu_backward",
                                     "flash_attention_backward",
                                     "conv_gn_silu_epilogue",
-                                    "conv_gn_silu_decoder"}
+                                    "conv_gn_silu_decoder", "unet_head"}
     reset_launch_counts()
     assert launch_counts() == {"conv_gn_silu": 0, "flash_attention": 0,
                                "conv_gn_silu_backward": 0,
                                "flash_attention_backward": 0,
                                "conv_gn_silu_epilogue": 0,
-                               "conv_gn_silu_decoder": 0}
+                               "conv_gn_silu_decoder": 0, "unet_head": 0}
 
 
 def test_build_all_starts_one_nvcc_per_unbuilt_source(tmp_path, monkeypatch):

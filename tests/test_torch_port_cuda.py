@@ -1,7 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the fused
-ConvBlock kernel (with and without its conditioning epilogue) and the
-flash-attention kernel (each of its routes) against their plain versions on
-the card, the U-Net's kernel path against its
+ConvBlock kernel (with and without its conditioning epilogue), the U-Net's
+head kernel and the flash-attention kernel (each of its routes) against
+their plain versions on the card, the U-Net's kernel path against its
 plain path, a checkpoint written and loaded on the card, the infer CLI on
 the card, the serving artifact traced on the card (its ops, its replay
 against the live function), a grad-enabled forward launching both kernels
@@ -63,6 +63,11 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
 )
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
     decoder_input,
+    head_route,
+    unet_head,
+    unet_head_composition,
+    unet_head_plain,
+    unet_head_reference,
 )
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import conv_gn_silu as k1_module
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.tools.bench_kernels import (
@@ -89,16 +94,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _counts(k1=0, k2=0, k1b=0, k2b=0, epilogue=0, decoder=0):
+def _counts(k1=0, k2=0, k1b=0, k2b=0, epilogue=0, decoder=0, head=0):
     """``launch_counts()`` after k1 / k2 forward and k1b / k2b backward
     kernel launches, ``epilogue`` of the k1 with the conditioning
-    epilogue (the U-Net's forwards that autograd does not record) and
+    epilogue (the U-Net's forwards that autograd does not record),
     ``decoder`` of them on K1's decoder route (none at these tests' widths
-    under 64 channels)."""
+    under 64 channels) and ``head`` launches of the U-Net's head kernel
+    (one a forward that autograd does not record)."""
     return {"conv_gn_silu": k1, "flash_attention": k2,
             "conv_gn_silu_backward": k1b, "flash_attention_backward": k2b,
             "conv_gn_silu_epilogue": epilogue,
-            "conv_gn_silu_decoder": decoder}
+            "conv_gn_silu_decoder": decoder, "unet_head": head}
 
 
 # bf16: the kernel and the plain version round the same f32 values, which
@@ -453,7 +459,7 @@ def test_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
         reset_launch_counts()
         got = model(x, t)
         # no grad: every ConvBlock's bias and FiLM in K1's epilogue
-        assert launch_counts() == _counts(5, epilogue=5)
+        assert launch_counts() == _counts(5, epilogue=5, head=1)
     reset_launch_counts()
     recorded = model(x, t)
     assert launch_counts() == _counts(5)    # with grad: the separate steps
@@ -497,12 +503,13 @@ def test_unet_decoder_route_matches_plain_path(cuda, monkeypatch, config):
     with torch.no_grad():
         reset_launch_counts()
         got = model(x, t)
-        assert launch_counts() == _counts(7, attn, epilogue=7, decoder=3)
+        assert launch_counts() == _counts(7, attn, epilogue=7, decoder=3,
+                                          head=1)
         monkeypatch.setattr(k1_module, "takes_decoder_route",
                             lambda h, s: False)
         mat = model(x, t)
         assert launch_counts() == _counts(14, 2 * attn, epilogue=14,
-                                          decoder=3)
+                                          decoder=3, head=2)
         with unet.plain_kernels():
             want = model(x, t)
 
@@ -513,6 +520,120 @@ def test_unet_decoder_route_matches_plain_path(cuda, monkeypatch, config):
     errs = (rel(got), rel(mat))
     assert errs[0] <= limit / 2 and errs[1] <= limit / 2, errs
     assert errs[0] <= errs[1] + limit / 8, errs
+
+
+# the U-Net's head kernel: (B, L_h, C, L0) and the route it reads h on.
+# The cells' heads with rows cut (pn128: 128 rows, L 4096, C 128; attn16k:
+# 64 rows, L 32768, C 64); L_h below L0 (fix_len's pad), above it (its
+# crop) and L0 off the 510-row tile; C ragged, one channel, wide; h off
+# 16-byte alignment
+HEAD_SHAPES = [((16, 4096, 128, 4096), "vector"),
+               ((2, 32768, 64, 32768), "vector"),
+               ((3, 990, 64, 1000), "vector"),
+               ((3, 1010, 64, 1000), "vector"),
+               ((2, 5, 16, 5), "vector"),
+               ((2, 1000, 13, 1000), "scalar"),
+               ((2, 700, 129, 700), "scalar"),
+               ((2, 700, 1, 700), "scalar"),
+               ((2, 300, 512, 300), "vector")]
+
+
+def _head_inputs(device, B, Lh, C, L0, dtype, misaligned=False, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = B * Lh * C
+    flat = torch.randn(n + 1, generator=g, device=device).to(dtype)
+    h = (flat[1:] if misaligned else flat[:n]).view(B, Lh, C)
+    x = torch.randn(B, L0, 7, generator=g, device=device).to(dtype)
+    W = torch.randn(3, C + 1, 1, generator=g, device=device) \
+        / (3 * (C + 1)) ** 0.5
+    b = 0.1 * torch.randn(1, generator=g, device=device)
+    return h, x, W, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,route", HEAD_SHAPES,
+                         ids=["x".join(map(str, s)) for s, _ in HEAD_SHAPES])
+def test_head_kernel_matches_plain_version(cuda, shape, route, dtype):
+    """One launch; against the plain version (the same arithmetic: W
+    rounded to the compute dtype, f32 sums, one rounding) within K1's bars
+    (``TOL``: an output may flip by one bf16 ulp, the sums' order
+    differing), and in bf16 against the U-Net's composition
+    (``conv3_same`` on the materialised ``[fix_len(h) | x_t]``, which
+    rounds its product and its bias add) within ``DECODER_MAT_TOL``."""
+    h, x, W, b = _head_inputs(cuda, *shape, dtype)
+    esize = torch.empty((), dtype=dtype).element_size()
+    if route == "vector" and shape[2] % (16 // esize):
+        route = "scalar"
+    assert head_route(h) == route
+    before = launch_counts()["unet_head"]
+    with torch.no_grad():
+        got = unet_head(h, x, W, b)
+        torch.cuda.synchronize()
+        assert launch_counts()["unet_head"] == before + 1
+        want = unet_head_reference(h, x, W, b)
+        assert got.shape == (shape[0], 1, shape[3])
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **TOL[dtype])
+        if dtype == torch.bfloat16:
+            rtol, atol = DECODER_MAT_TOL
+            torch.testing.assert_close(got, unet_head_composition(h, x, W, b),
+                                       rtol=rtol, atol=atol)
+
+
+def test_head_kernel_reads_misaligned_h_on_the_scalar_route(cuda):
+    h, x, W, b = _head_inputs(cuda, 2, 1000, 64, 1000, torch.bfloat16,
+                              misaligned=True)
+    assert h.is_contiguous() and h.data_ptr() % 16 and \
+        head_route(h) == "scalar"
+    with torch.no_grad():
+        got = unet_head(h, x, W, b)
+        torch.testing.assert_close(got, unet_head_reference(h, x, W, b),
+                                   **TOL[torch.bfloat16])
+
+
+def test_head_kernel_refuses_a_c_wider_than_it_takes(cuda):
+    """Element loads cover up to 256 channels (32 lanes x 8 loads): a
+    ragged C above that raises before any launch."""
+    h, x, W, b = _head_inputs(cuda, 1, 64, 300, 64, torch.bfloat16)
+    before = launch_counts()["unet_head"]
+    with torch.no_grad(), pytest.raises(ValueError, match="wider"):
+        unet_head(h, x, W, b)
+    assert launch_counts()["unet_head"] == before
+
+
+def test_unet_head_launches_once_a_no_grad_forward(cuda, monkeypatch):
+    """A bf16 U-Net forward that autograd does not record launches the
+    head kernel once; a recorded one launches it never, and its gradients
+    are those of the plain composition, which ``plain_kernels`` runs
+    there too."""
+    model = unet.UNet1D(in_ch=7, base_ch=16, time_dim=32, depth=2,
+                        cond_in_ch=5, use_selfcond=True,
+                        dtype=torch.bfloat16, device=cuda)
+    randomize_(model, 4)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 7, 512, generator=g, device=cuda)
+    t = torch.tensor([10, 900], device=cuda)
+    with torch.no_grad():
+        reset_launch_counts()
+        got = model(x, t)
+        assert launch_counts() == _counts(5, epilogue=5, head=1)
+        with unet.plain_kernels():
+            want = model(x, t)
+    assert (got - want).abs().max() <= 0.05 * want.abs().max()
+
+    def grads():
+        model.zero_grad()
+        model(x, t).square().mean().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    reset_launch_counts()
+    got = grads()
+    assert launch_counts()["unet_head"] == 0
+    monkeypatch.setattr(unet, "unet_head", unet_head_plain)
+    want = grads()
+    for n in got:
+        assert torch.equal(got[n], want[n]), n
 
 
 # flash attention, kernel against plain version.  f32: the same sums in
@@ -666,7 +787,7 @@ def test_attention_unet_kernel_path_matches_plain_path(cuda, monkeypatch):
         t = torch.tensor([10, 900], device=cuda)
         reset_launch_counts()
         got = model(x, t)
-        assert launch_counts() == _counts(5, 1, epilogue=5)
+        assert launch_counts() == _counts(5, 1, epilogue=5, head=1)
     reset_launch_counts()
     recorded = model(x, t)
     assert launch_counts() == _counts(5, 1)  # with grad: the separate steps
@@ -722,7 +843,8 @@ def test_checkpoint_loads_on_the_card(cuda, tmp_path, use_attention):
     with torch.no_grad():
         got = m_gpu(x.to(cuda), t.to(cuda)).cpu()
         want = m_cpu(x, t)
-    assert launch_counts() == _counts(5, int(use_attention), epilogue=5)
+    assert launch_counts() == _counts(5, int(use_attention), epilogue=5,
+                                      head=1)
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= 1e-4   # f32: summation order through five blocks
 
@@ -742,7 +864,7 @@ def test_infer_cli_on_the_card(cuda, tmp_path):
                 "--amp-calib", "mf", "--log-jsonl", str(log),
                 "--device", "cuda"])
     n = len(build_t_schedule(1000, 3, None))
-    assert launch_counts() == _counts(5 * n, epilogue=5 * n)
+    assert launch_counts() == _counts(5 * n, epilogue=5 * n, head=n)
     files = sorted(os.listdir(out))
     assert [f.split("_")[0] for f in files] == [
         "measurement", "metrics", "recon", "recon"]
@@ -786,12 +908,12 @@ def test_cuda_artifact_holds_the_ops_and_counts_on_replay(cuda_artifact):
     assert contract["platforms"] == ["cuda"]
     # one node per launch: 5 ConvBlocks and one attention per forward
     assert contract["ops"] == {"conv_gn_silu": 5 * n, "flash_attention": n,
-                               "seeded_normal": 1}
+                               "unet_head": n, "seeded_normal": 1}
     call, _ = serving.load_exported(art)
     reset_launch_counts()
     out = call(cond, sig, 3)
     torch.cuda.synchronize()
-    assert launch_counts() == _counts(5 * n, n, epilogue=5 * n)
+    assert launch_counts() == _counts(5 * n, n, epilogue=5 * n, head=n)
     assert out.shape == (2, 512) and bool(torch.isfinite(out).all())
 
 
@@ -995,7 +1117,8 @@ def test_train_step_on_the_card(cuda, tmp_path):
     reset_launch_counts()
     out = tt.train(cfg, dataset=ds, device="cuda")
     # the self-conditioning forwards take K1's epilogue
-    assert launch_counts() == _counts(4 * 10, 4 * 2, 4 * 5, 4, 4 * 5)
+    assert launch_counts() == _counts(4 * 10, 4 * 2, 4 * 5, 4, 4 * 5,
+                                      head=4)
     assert all(np.isfinite(h["avg_per_sample"]) for h in out["history"])
     assert os.path.exists(out["checkpoint"]) and int(out["state"].step) == 4
 
@@ -1073,7 +1196,7 @@ def test_eval_indices_on_the_card_matches_cpu(cuda, tmp_path, use_attention):
         if dev == "cuda":
             n = len(build_t_schedule(1000, 3, 999)) * 3
             assert launch_counts() == _counts(5 * n, n * use_attention,
-                                              epilogue=5 * n)
+                                              epilogue=5 * n, head=n)
     for k in ("corr", "mae_norm", "unc_rel", "mf_ratio", "res_std_ratio"):
         got = np.array([r[k] for r in rows["cuda"]])
         want = np.array([r[k] for r in rows["cpu"]])
@@ -1131,6 +1254,7 @@ def test_distill_step_gradients_on_the_card(cuda, use_attention, monkeypatch):
                                 fused_conv_gn_silu_reference)
             monkeypatch.setattr(unet, "flash_attention",
                                 flash_attention_reference)
+            monkeypatch.setattr(unet, "unet_head", unet_head_plain)
         reset_launch_counts()
         m = step(state, teacher, batch, 3)
         torch.cuda.synchronize()
@@ -1138,8 +1262,10 @@ def test_distill_step_gradients_on_the_card(cuda, use_attention, monkeypatch):
 
     lk, gk, ck = grads(False)
     lp, gp, cp = grads(True)
-    # the teacher's two forwards take K1's epilogue, the student's not
-    assert ck == _counts(15, 3 * use_attention, 5, use_attention, 10)
+    # the teacher's two forwards take K1's epilogue and the head kernel,
+    # the student's not
+    assert ck == _counts(15, 3 * use_attention, 5, use_attention, 10,
+                         head=2)
     assert cp == _counts()
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     assert (gk - gp).abs().max().item() <= 1e-3 * gp.abs().max().item()
@@ -1159,7 +1285,7 @@ def test_grid_cli_on_the_card(cuda, tmp_path):
                          str(out), "--steps", "3", "--start-t", "999",
                          "--avg-seeds", "2", "--device", "cuda"])
     n = len(build_t_schedule(1000, 3, 999))
-    assert launch_counts() == _counts(5 * n, epilogue=5 * n)
+    assert launch_counts() == _counts(5 * n, epilogue=5 * n, head=n)
     assert {"per_index_metrics.csv", "metrics_grid.csv", "metrics_grid.json",
             "summary.json"} <= set(os.listdir(out))
     assert res["summary"]["n_cells"] == 4 and res["scan_caps"] == {512: 8}
@@ -1186,7 +1312,7 @@ def test_tiled_apply_kernel_path_matches_plain_path(cuda, monkeypatch):
         t = torch.tensor([10, 900], device=cuda)
         reset_launch_counts()
         got = tiled_apply(model, x, t, chunk=1024)
-        assert launch_counts() == _counts(5, 1, epilogue=5)
+        assert launch_counts() == _counts(5, 1, epilogue=5, head=1)
         monkeypatch.setattr(unet, "fused_conv_gn_silu",
                             fused_conv_gn_silu_reference)
         monkeypatch.setattr(unet, "flash_attention", flash_attention_reference)

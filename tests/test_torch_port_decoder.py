@@ -25,6 +25,7 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu.models impor
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.models import unet
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import conv_gn_silu as k1
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import (
+    conv3_same,
     decoder_conv_passes,
     decoder_input,
     fix_len,
@@ -114,7 +115,7 @@ def test_kernel_arithmetic_matches_jax_decoder_conv_block(Lh, Ch, Cs, Co):
     th, ts = torch.from_numpy(h), torch.from_numpy(skip)
     W, b = block.conv.kernel.detach(), block.conv.bias.detach()
     y = decoder_conv_passes(th, ts, W, b, torch.float32)
-    mat = unet.conv3_same(decoder_input(th, ts), W, b)
+    mat = conv3_same(decoder_input(th, ts), W, b)
     assert rel_err(y.numpy(), mat.numpy()) <= REL_TOL
     g = group_norm(y, block.groups, block.norm.scale.detach(),
                    block.norm.bias.detach())

@@ -17,6 +17,7 @@ from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.ke
     fused_conv_gn_silu,
     fused_conv_gn_silu_reference,
     launch_counts,
+    unet_head_composition,
 )
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels import conv_gn_silu as k1
 from diffusion_models_for_gravitational_waveform_reconstruction_tpu_torch.ops.kernels.conv_gn_silu import (
@@ -149,10 +150,13 @@ def _xt(L=96, in_ch=7, B=2):
     {"in_ch": 2, "cond_in_ch": 0}, {"in_ch": 3, "cond_in_ch": None,
                                     "use_selfcond": None}],
     ids=["f32", "bf16", "attention", "no_cond", "legacy_in_ch3"])
-def test_no_grad_forward_equals_the_separate_steps(kw):
+def test_no_grad_forward_equals_the_separate_steps(kw, monkeypatch):
     """On the CPU the epilogue's plain version is the steps it replaces, so
     a no-grad forward answers bit-equal to a recorded one (the separate
-    steps), and the JAX parity bars hold unchanged."""
+    steps), and the JAX parity bars hold unchanged.  The head runs the
+    composition that a recorded forward runs in both (a no-grad head rounds
+    once in bf16: ``tests/test_torch_port_head.py``)."""
+    monkeypatch.setattr(unet, "unet_head", unet_head_composition)
     model = _model(**kw)
     x, t = _xt(in_ch=model.in_ch)
     with torch.no_grad():
@@ -305,4 +309,4 @@ def test_op_counts_count_the_epilogue_as_k1():
         torch.empty(8, **meta), torch.empty(2, 16, **bf),
         torch.empty(2, 16, 5, **bf), torch.empty(5, 8, **meta)), strict=False)
     assert serving._op_counts(ep) == {"conv_gn_silu": 2, "flash_attention": 0,
-                                      "seeded_normal": 0}
+                                      "unet_head": 0, "seeded_normal": 0}

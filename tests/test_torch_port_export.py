@@ -118,6 +118,7 @@ def test_artifact_round_trip_equals_live_function(port_artifact, live):
     _, contract, call, loaded = port_artifact
     assert loaded == contract
     assert contract["ops"] == {"conv_gn_silu": 0, "flash_attention": 0,
+                               "unet_head": 0,
                                "seeded_normal": 1}
     cond, sig = _inputs()
     for seed in (0, 7):

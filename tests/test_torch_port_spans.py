@@ -142,6 +142,7 @@ def test_an_exported_artifact_holds_no_range(model, tmp_path, monkeypatch):
                                    avg_seeds=S, amp_calib="mf")
     # a CPU artifact holds the kernels' plain versions and one noise draw
     assert contract["ops"] == {"conv_gn_silu": 0, "flash_attention": 0,
+                               "unet_head": 0,
                                "seeded_normal": 1}
     targets = [str(node.target) for gm in seen[0].graph_module.modules()
                if isinstance(gm, torch.fx.GraphModule)
